@@ -1,0 +1,3 @@
+from .volume import Volume, make_volume  # noqa: F401
+from .nifti import load_nifti, parse_header, NiftiHeader  # noqa: F401
+from . import synthetic  # noqa: F401

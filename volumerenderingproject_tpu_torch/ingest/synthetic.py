@@ -1,0 +1,41 @@
+"""Synthetic analytic volumes, the reference's test fixtures.
+
+  * :func:`centered_sphere` — BinaryLoader.cu:338-367 ``loadSphereToMem``:
+    radius n/2 about the grid center, intensity = y/n·255.
+  * :func:`corner_sphere` — BinaryLoader.cu:369-398
+    ``loadZEROCornerSphereToMem``: radius n about the (0,0,0) corner,
+    intensity = (r/R)²·255.
+
+Both are built in numpy, in float64 then rounded to float32, and only then
+moved to the device, so every device gets the same voxels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .volume import Volume, make_volume
+
+
+def centered_sphere(n: int = 100, cal_max: float = 255.0,
+                    device=None) -> Volume:
+    """Sphere of radius n/2 about the grid center; intensity = y/n * 255."""
+    coords = np.arange(n, dtype=np.float64)
+    x, y, z = np.meshgrid(coords, coords, coords, indexing="ij")
+    c = n / 2.0
+    inside = (x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2 <= (n / 2.0) ** 2
+    vals = (y / float(n) * 255.0).astype(np.float32)
+    data = np.where(inside, vals, np.float32(0.0)).astype(np.float32)
+    return make_volume(data, cal_max=cal_max, device=device)
+
+
+def corner_sphere(n: int = 100, cal_max: float = 255.0,
+                  device=None) -> Volume:
+    """Sphere of radius n about (0,0,0); intensity = (r/R)^2 * 255."""
+    coords = np.arange(n, dtype=np.float64)
+    x, y, z = np.meshgrid(coords, coords, coords, indexing="ij")
+    r2 = x**2 + y**2 + z**2
+    inside = r2 <= float(n) ** 2
+    vals = (r2 / float(n) ** 2 * 255.0).astype(np.float32)
+    data = np.where(inside, vals, np.float32(0.0)).astype(np.float32)
+    return make_volume(data, cal_max=cal_max, device=device)

@@ -1,0 +1,191 @@
+"""The a1/VRC ray-cast renderer.
+
+``render(volume, tf, camera, config) -> image [W, H, 4]``, indexed
+``[pixel_x, pixel_y]`` like the reference's column-major screen buffer
+(pixel id = x*SCR_HEIGHT + y, kernel.cu:25,199).  Per sample: world
+position -> modelAux (+0.5, kernel.cu:1046-1063) -> octree nearest voxel ->
+/ trunc(cal_max) -> transfer function -> over-blend (kernel.cu:40-70,
+194-225).
+
+:func:`render` sends the a1 path to the fused march (``ops/march.py``): its
+CUDA kernel for tensors on the GPU, its plain PyTorch version for tensors on
+the CPU.  :func:`render_vrc` is the plain scan beneath it, a Python loop
+over samples vectorised over rays: ``mode="fast"`` composites front to back
+in (C, T) form, ``mode="reference"`` back to front in the reference's exact
+order, ``mode="segment"`` returns the raw (C, T) pair.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..ingest.volume import Volume
+from ..ops import composite as comp
+from ..ops import sampling
+from ..ops.march import check_supported, render_vrc_fused
+from ..scene.camera import Camera
+from ..scene.transfer_function import TransferFunction
+from ..utils import transforms as T
+from ..utils.config import RenderConfig
+from ..utils.device import resolve_device
+
+_f32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Ray setup
+# ---------------------------------------------------------------------------
+
+
+def pixel_grid(config: RenderConfig, device=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pixel index grids X, Y of shape [W, H] (float32)."""
+    w, h = config.width, config.height
+    x = torch.arange(w, dtype=_f32, device=device)[:, None].expand(w, h)
+    y = torch.arange(h, dtype=_f32, device=device)[None, :].expand(w, h)
+    return x, y
+
+
+def _screen_size(config: RenderConfig, device) -> torch.Tensor:
+    """[W, H] as a float32 tensor: CUDA divides by a host scalar as a
+    product with its reciprocal, not as the IEEE quotient."""
+    return torch.tensor([config.width, config.height], dtype=_f32,
+                        device=device)
+
+
+def primary_ray_dirs(camera: Camera, config: RenderConfig) -> torch.Tensor:
+    """Per-pixel ray directions [W, H, 3] (rayDirectionKernel
+    kernel.cu:20-38).  Ortho: cameraFront.  Conic: normalize(top_left
+    + x*(w/W)*right + y*(h/H)*(-up) - cameraPos), with the corrected conic
+    corner when ``config.conic_corrected``."""
+    dev = camera.device
+    if not config.conic:
+        return camera.front.expand(config.width, config.height, 3)
+    x, y = pixel_grid(config, dev)
+    w = torch.tensor(config.real_screen_width, dtype=_f32, device=dev)
+    h = torch.tensor(config.real_screen_height, dtype=_f32, device=dev)
+    size = _screen_size(config, dev)
+    xt = ((x * w) / size[0])[..., None] * camera.right
+    yt = ((y * h) / size[1])[..., None] * (-camera.up)
+    top_left = camera.top_left
+    if config.conic_corrected:
+        # the intended conic corner (utils.h:63-65, commented out upstream)
+        top_left = top_left + torch.tensor(
+            config.viewplane_distance, dtype=_f32, device=dev) * camera.front
+    return T.normalize(top_left + xt + yt - camera.position)
+
+
+def ray_origins(camera: Camera, config: RenderConfig) -> torch.Tensor:
+    """Per-pixel ray origins [W, H, 3].  Ortho: the pixel's point on the
+    screen plane, ``(top_left + xterm) + yterm`` (kernel.cu:56-58).  Conic:
+    cameraPos (kernel.cu:54)."""
+    dev = camera.device
+    if config.conic:
+        return camera.position.expand(config.width, config.height, 3)
+    x, y = pixel_grid(config, dev)
+    w = torch.tensor(config.real_screen_width, dtype=_f32, device=dev)
+    h = torch.tensor(config.real_screen_height, dtype=_f32, device=dev)
+    size = _screen_size(config, dev)
+    xt = ((x * w) / size[0])[..., None] * camera.right
+    yt = ((y * h) / size[1])[..., None] * (-camera.up)
+    return (camera.top_left + xt) + yt
+
+
+# ---------------------------------------------------------------------------
+# Per-sample colour and the march
+# ---------------------------------------------------------------------------
+
+
+def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
+                     tf: TransferFunction, config: RenderConfig
+                     ) -> torch.Tensor:
+    """a1 per-sample classify: modelAux(+0.5) -> octree NN -> TF."""
+    p = positions + 0.5  # modelAux kernel.cu:1050
+    flat, valid = sampling.octree_nn_index(volume.dims, volume.octree_depth, p)
+    v = volume.data.reshape(-1)[flat].clamp_min(0.0)
+    v = torch.where(valid, v, torch.zeros((), dtype=_f32, device=v.device))
+    # the a1 kernel takes cal_max as an int (kernel.cu:42 `int max_intensity`)
+    rgba = tf.classify(v / torch.trunc(volume.cal_max))
+    if config.density_scale != 1.0:
+        a = rgba[..., 3:4] * torch.tensor(config.density_scale, dtype=_f32,
+                                          device=rgba.device)
+        rgba = torch.cat([rgba[..., :3], a.clamp(0.0, 1.0)], dim=-1)
+    return rgba
+
+
+def _march(sample_rgba_fn, config: RenderConfig, mode: str, device):
+    """Loop over the sample axis; ``sample_rgba_fn(i_f32) -> [W, H, 4]``.
+
+    ``mode="segment"`` marches front to back and returns the raw (C, T)
+    pair, the associative unit of sample-axis composition.
+    """
+    shape = (config.width, config.height)
+    spr = config.samples_per_ray
+    bg = torch.tensor(config.background, dtype=_f32, device=device)
+
+    def step_value(i):
+        return torch.tensor(float(i), dtype=_f32, device=device)
+
+    if mode == "reference":
+        acc = bg[:3].expand(*shape, 3)
+        for i in reversed(range(spr)):
+            acc = comp.over_step_btf(acc, sample_rgba_fn(step_value(i)))
+        alpha = torch.ones(shape + (1,), dtype=_f32, device=device)
+        return torch.cat([acc, alpha], dim=-1)
+
+    if mode in ("fast", "segment"):
+        seg = comp.segment_identity(shape, device)
+        for i in range(spr):
+            seg = comp.segment_update(seg, sample_rgba_fn(step_value(i)))
+        if mode == "segment":
+            return seg
+        return comp.segment_finalize(seg, bg)
+
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
+               config: RenderConfig, *, mode: str = "fast") -> torch.Tensor:
+    """a1/VRC render by the plain scan -> [W, H, 4] (alpha all 1), or the
+    (C [W, H, 3], T [W, H, 1]) pair with ``mode="segment"``."""
+    check_supported(config, volume.channels)
+    origins = ray_origins(camera, config)
+    dirs = primary_ray_dirs(camera, config)
+    dev = origins.device
+    ds = torch.tensor(config.sample_distance, dtype=_f32, device=dev)
+    clip = torch.tensor(config.front_clip, dtype=_f32, device=dev)
+
+    def sample_rgba(i):
+        t = i * ds + clip  # kernel.cu:54,59
+        return _vrc_sample_rgba(origins + t * dirs, volume, tf, config)
+
+    return _march(sample_rgba, config, mode, dev)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def render(volume: Volume, tf: TransferFunction, camera: Camera,
+           config: RenderConfig, *, mode: str = "fast",
+           device=None) -> torch.Tensor:
+    """Render one frame -> [W, H, 4] on ``device`` (CUDA unless given).
+
+    ``mode="fast"`` runs the fused march with ``config.early_termination``
+    as its epsilon: the CUDA kernel on the GPU, its plain version on the
+    CPU.  ``mode="scan"`` runs the plain front-to-back scan (no early
+    termination) and ``mode="reference"`` the back-to-front one.
+    """
+    dev = resolve_device(device)
+    check_supported(config, volume.channels)
+    volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)
+    if mode == "fast":
+        return render_vrc_fused(volume, tf, camera, config)
+    if mode == "scan":
+        return render_vrc(volume, tf, camera, config, mode="fast")
+    if mode == "reference":
+        return render_vrc(volume, tf, camera, config, mode="reference")
+    raise ValueError(f"unknown mode {mode!r}")

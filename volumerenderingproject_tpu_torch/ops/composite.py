@@ -1,0 +1,53 @@
+"""Alpha compositing: the "over" operator in reference and associative forms.
+
+Back-to-front, seeded at the background, output alpha forced to 1
+(blendSampleColors kernel.cu:194-225):
+
+    F = background
+    for i = spr-1 .. 0:  F.rgb = F.rgb * (1 - a_i) + c_i.rgb * a_i
+
+Front-to-back (C, T) form, identical math, which allows early termination:
+
+    C = 0; T = 1
+    for i = 0 .. spr-1:  C += T * a_i * c_i.rgb ; T *= (1 - a_i)
+    out = (C + T * background.rgb, 1)
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+_f32 = torch.float32
+
+
+def over_step_btf(acc_rgb: torch.Tensor, rgba: torch.Tensor) -> torch.Tensor:
+    """One back-to-front over step: acc*(1-a) + c*a (kernel.cu:211-215)."""
+    a = rgba[..., 3:4]
+    return acc_rgb * (1.0 - a) + rgba[..., :3] * a
+
+
+def segment_identity(batch_shape, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(C, T) identity element: C = 0, T = 1."""
+    batch_shape = tuple(batch_shape)
+    return (
+        torch.zeros(batch_shape + (3,), dtype=_f32, device=device),
+        torch.ones(batch_shape + (1,), dtype=_f32, device=device),
+    )
+
+
+def segment_update(carry, rgba: torch.Tensor):
+    """Absorb one sample (front-to-back) into a (C, T) segment state."""
+    c, t = carry
+    a = rgba[..., 3:4]
+    return (c + t * a * rgba[..., :3], t * (1.0 - a))
+
+
+def segment_finalize(seg, background) -> torch.Tensor:
+    """Resolve a (C, T) segment against the background; alpha forced to 1."""
+    c, t = seg
+    bg = torch.as_tensor(background, dtype=_f32, device=c.device)
+    rgb = c + t * bg[:3]
+    alpha = torch.ones(c.shape[:-1] + (1,), dtype=_f32, device=c.device)
+    return torch.cat([rgb, alpha], dim=-1)

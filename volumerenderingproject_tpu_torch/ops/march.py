@@ -1,0 +1,332 @@
+"""The fused a1/VRC ray march: its prep, its plain PyTorch version and the
+wrapper of its CUDA kernel (``csrc/march.cu``).
+
+Counterpart of ``volumerenderingproject_tpu/ops/pallas_march.py`` in resident
+mode with the packed material-id grid: ortho or conic rays, nearest-voxel
+sampling, interval classification, ``density_scale``, front-to-back (C, T)
+compositing and early ray termination.
+
+The a1 pipeline uses a voxel's intensity only through the transfer function
+(kernel.cu:64-67), so the march reads a per-voxel **uint8 interval-id grid**
+(the TF's last-match-wins index of ``max(v, 0) / trunc(cal_max)``) and looks
+the RGBA up by id.  The ids are exact, so the result equals a march over
+intensities.  Prep (per call, plain PyTorch):
+
+  * :func:`material_ids`: the id grid and ``id0``, the id of intensity 0,
+    which every sample off the volume takes;
+  * :func:`brick_occupancy`: 1 per 8³ brick holding any voxel of alpha > 0;
+  * :func:`scal_vector`: camera, screen, box and TF scalars for the kernel.
+
+Every skip the kernel makes is exact: a skipped sample has alpha 0 and
+leaves (C, T) unchanged.  When TF(0).alpha > 0 (samples off the volume are
+visible) or ``config.empty_space_skipping`` is off, the kernel marches every
+sample.  Early termination stops a ray before the first sample at which
+T <= eps, which changes the output by at most eps times the largest colour;
+:func:`march_plain` stops at the same sample.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..utils import transforms as T
+from ..utils.config import Algorithm, Interp, RenderConfig
+from . import _build
+
+_f32 = torch.float32
+BRICK = 8
+MAX_INTERVALS = 256  # ids are uint8; the kernel keeps the colours in shared memory
+
+# slots of the kernel's scalar vector
+S_DS, S_CLIP, S_CAL_MAX, S_EPS, S_FULL = 0, 1, 2, 3, 4
+S_POS, S_FRONT, S_RIGHT, S_UP, S_TL = 5, 8, 11, 14, 17
+S_RSW, S_RSH, S_BOX_LO, S_BOX_HI, S_ID0, S_BG = 20, 21, 22, 25, 28, 29
+SCAL_LEN = 32
+
+# launches of the CUDA kernel since import (or since a caller reset it)
+launches = 0
+
+
+class MarchArgs(NamedTuple):
+    """Everything one march needs, on one device."""
+
+    scal: torch.Tensor  # [32] f32
+    colors: torch.Tensor  # [K, 4] f32
+    ids: torch.Tensor  # [X, Y, Z] uint8
+    occ: torch.Tensor  # [nbx * nby * nbz] int32
+    nbricks: Tuple[int, int, int]
+    dims: Tuple[int, int, int]
+    depth: int
+    width: int
+    height: int
+    spr: int
+    conic: bool
+    density_scale: float
+
+
+def material_ids(data: torch.Tensor, tf, cal_max_trunc: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids uint8 [X, Y, Z], id0 int64 scalar): the TF interval index of
+    every voxel under a1 value semantics (negatives clamped, divided by
+    trunc(cal_max); kernel.cu:42,64-66), and the index of intensity 0."""
+    k = tf.num_intervals
+    if k > MAX_INTERVALS:
+        raise ValueError(f"the id grid holds at most {MAX_INTERVALS} "
+                         f"intervals, got {k}")
+    ids = tf.classify_index(data.clamp_min(0.0) / cal_max_trunc)
+    id0 = tf.classify_index(torch.zeros((), dtype=_f32, device=data.device))
+    return ids.to(torch.uint8), id0
+
+
+def brick_occupancy(ids: torch.Tensor, tf,
+                    brick: Tuple[int, int, int] = (BRICK, BRICK, BRICK)
+                    ) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """([nbx*nby*nbz] int32, (nbx, nby, nbz)): 1 where any voxel of the
+    brick classifies to alpha > 0 (before ``density_scale``)."""
+    alpha_pos = tf.colors[:, 3] > 0.0
+    occ = alpha_pos[ids.long()]
+    dims = tuple(ids.shape)
+    nb = tuple(-(-d // b) for d, b in zip(dims, brick))
+    pad = []
+    for c in (2, 1, 0):
+        pad += [0, nb[c] * brick[c] - dims[c]]
+    occ = torch.nn.functional.pad(occ.to(torch.uint8), pad)
+    occ = occ.reshape(nb[0], brick[0], nb[1], brick[1], nb[2], brick[2])
+    occ = occ.amax(dim=(1, 3, 5))
+    return occ.reshape(-1).to(torch.int32), nb
+
+
+def _box(dims, depth):
+    """Dataset box in ray space (p = pos + 0.5 in [hg/L, (hg+dim)/L + 1/n]),
+    intersected with the root cube, conservative by half a voxel
+    (pallas_march.py:1709-1716)."""
+    L = float(max(dims))
+    n = float(2**depth)
+    lo = [max(0.0, (L / 2 - d / 2) / L) - 0.5 for d in dims]
+    hi = [min(1.0, (L / 2 + d / 2) / L + 1.0 / n) - 0.5 for d in dims]
+    return lo, hi
+
+
+def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
+                early_eps: float, full_march: torch.Tensor,
+                id0: torch.Tensor) -> torch.Tensor:
+    """The kernel's [32] f32 scalar vector (slots ``S_*`` above), built on
+    the camera's device without a round trip to the host."""
+    dev = camera.device
+    top_left = camera.top_left
+    if config.conic and config.conic_corrected:
+        top_left = top_left + torch.tensor(
+            config.viewplane_distance, dtype=_f32, device=dev) * camera.front
+    box_lo, box_hi = _box(dims, depth)
+
+    def host(vals):
+        return torch.tensor(vals, dtype=_f32, device=dev)
+
+    return torch.cat([
+        host([config.sample_distance, config.front_clip]),
+        cal_max_trunc.to(_f32).reshape(1),
+        host([early_eps]),
+        full_march.to(_f32).reshape(1),
+        camera.position, camera.front, camera.right, camera.up, top_left,
+        host([config.real_screen_width, config.real_screen_height]
+             + box_lo + box_hi),
+        id0.to(_f32).reshape(1),
+        host(list(config.background[:3])),
+    ])
+
+
+def check_supported(config: RenderConfig, channels: int) -> None:
+    """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
+    what this slice of the port does not render yet: the march and the
+    plain scan compute single-channel a1 with nearest-voxel sampling."""
+    if config.algorithm is Algorithm.TEST:
+        raise NotImplementedError(
+            "Algorithm.TEST (a5) is not ported yet: ROADMAP.md item 8 (a5)")
+    if config.algorithm is Algorithm.POINT:
+        raise NotImplementedError(
+            "Algorithm.POINT is not ported yet: ROADMAP.md item 15 "
+            "(point_splat)")
+    if config.lighting or config.scattering or config.tf_lut:
+        raise NotImplementedError(
+            "lighting, scattering and tf_lut are not ported yet: ROADMAP.md "
+            "item 9 (lighting, LUT and scattering)")
+    if config.interp is Interp.TRILINEAR:
+        raise NotImplementedError(
+            "Interp.TRILINEAR is not ported yet: ROADMAP.md item 12 "
+            "(smooth mode)")
+    if config.interp is Interp.TRILINEAR_COLOR:
+        raise NotImplementedError(
+            "Interp.TRILINEAR_COLOR is not ported yet: ROADMAP.md item 8 "
+            "(a5 sampling)")
+    if channels != 1:
+        raise NotImplementedError(
+            "multichannel volumes are not ported yet: ROADMAP.md item 10 "
+            "(multichannel)")
+
+
+def prepare(volume, tf, camera, config: RenderConfig,
+            early_eps: float) -> MarchArgs:
+    """Prep for one march; all tensors on the volume's device."""
+    check_supported(config, volume.channels)
+    dev = volume.data.device
+    tf = tf.to(dev)
+    camera = camera.to(dev)
+    cal_max_trunc = torch.trunc(volume.cal_max.to(_f32))
+    ids, id0 = material_ids(volume.data, tf, cal_max_trunc)
+    occ, nb = brick_occupancy(ids, tf)
+    alpha0 = tf.colors[id0, 3]
+    if config.density_scale != 1.0:
+        alpha0 = (alpha0 * np.float32(config.density_scale)).clamp(0.0, 1.0)
+    full = alpha0 > 0.0
+    if not config.empty_space_skipping:
+        full = torch.ones_like(full)
+    scal = scal_vector(camera, config, volume.dims, volume.octree_depth,
+                       cal_max_trunc, early_eps, full, id0)
+    return MarchArgs(
+        scal=scal, colors=tf.colors.to(_f32).contiguous(), ids=ids, occ=occ,
+        nbricks=nb, dims=volume.dims, depth=volume.octree_depth,
+        width=config.width, height=config.height,
+        spr=config.samples_per_ray, conic=bool(config.conic),
+        density_scale=float(config.density_scale))
+
+
+def _effective_colors(a: MarchArgs) -> torch.Tensor:
+    colors = a.colors
+    if a.density_scale != 1.0:
+        alpha = (colors[:, 3:4] * np.float32(a.density_scale)).clamp(0.0, 1.0)
+        colors = torch.cat([colors[:, :3], alpha], dim=1)
+    return colors
+
+
+def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel -> [W, H, 4]: the same function
+    with the same float order, as a loop over samples vectorised over rays.
+    It marches every sample (the kernel's skips are exact) and stops each
+    ray where the kernel does.
+
+    With ``stats``, ``stats["samples"]`` is set to the number of samples
+    this input needs: those inside the dataset on rays not yet terminated.
+    """
+    dev = a.ids.device
+    s = a.scal
+    w, h = a.width, a.height
+    x = torch.arange(w, dtype=_f32, device=dev)[:, None].expand(w, h)
+    y = torch.arange(h, dtype=_f32, device=dev)[None, :].expand(w, h)
+    # divide by device tensors: CUDA divides by a host scalar as a product
+    # with its reciprocal, which is not the IEEE quotient the kernel takes
+    size = torch.tensor([w, h], dtype=_f32, device=dev)
+    xs = ((x * s[S_RSW]) / size[0])[..., None]
+    ys = ((y * s[S_RSH]) / size[1])[..., None]
+    xt = xs * s[S_RIGHT:S_RIGHT + 3]
+    yt = ys * (-s[S_UP:S_UP + 3])
+    if a.conic:
+        o = s[S_POS:S_POS + 3].expand(w, h, 3)
+        rd = ((s[S_TL:S_TL + 3] + xt) + yt) - s[S_POS:S_POS + 3]
+        d = T.normalize(rd)
+    else:
+        o = (s[S_TL:S_TL + 3] + xt) + yt
+        d = s[S_FRONT:S_FRONT + 3].expand(w, h, 3)
+
+    d1, d2, d3 = a.dims
+    L = np.float32(max(a.dims))
+    n = np.float32(2**a.depth)
+    hg = torch.tensor([np.float32(L / 2) - np.float32(v / 2) for v in a.dims],
+                      dtype=_f32, device=dev)
+    hg_hi = hg + torch.tensor(a.dims, dtype=_f32, device=dev)
+    halfd = torch.tensor([np.float32(v / 2) for v in a.dims], dtype=_f32,
+                         device=dev)
+    halfL = np.float32(L / 2)
+    ids_flat = a.ids.reshape(-1)
+    id0 = s[S_ID0].to(torch.int64)
+    colors = _effective_colors(a)
+    eps = s[S_EPS].clamp_min(0.0)
+
+    c = torch.zeros((w, h, 3), dtype=_f32, device=dev)
+    t = torch.ones((w, h, 1), dtype=_f32, device=dev)
+    needed = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(a.spr):
+        active = t > eps
+        ti = torch.tensor(float(i), dtype=_f32, device=dev) * s[S_DS] + s[S_CLIP]
+        p = (o + ti * d) + 0.5
+        res = (torch.floor(p * n) / n) * L
+        valid = (((p >= 0.0) & (p < 1.0) & (res >= hg) & (res < hg_hi))
+                 .all(dim=-1))
+        ijk = torch.trunc((res + halfd) - halfL).to(torch.int64)
+        flat = (ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3
+                + ijk[..., 2]).clamp(0, d1 * d2 * d3 - 1)
+        mid = torch.where(valid, ids_flat[flat].to(torch.int64), id0)
+        rgba = colors[mid]
+        alpha = rgba[..., 3:4]
+        wgt = t * alpha
+        c = torch.where(active, c + wgt * rgba[..., :3], c)
+        if stats is not None:
+            needed += (valid & active[..., 0]).sum()
+        t = torch.where(active, t * (1.0 - alpha), t)
+    if stats is not None:
+        stats["samples"] = int(needed)
+    rgb = c + t * s[S_BG:S_BG + 3]
+    return torch.cat([rgb, torch.ones((w, h, 1), dtype=_f32, device=dev)],
+                     dim=-1)
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load("march")
+    fn = lib.vrp_march_a1
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # scal, colors, K, ids, occ, nbx, nby, nbz, d1, d2, d3, depth,
+        # width, height, spr, conic, density_scale, out, stream
+        fn.argtypes = [p, p, i, p, p] + [i] * 11 + [ctypes.c_float, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def march_kernel(a: MarchArgs) -> torch.Tensor:
+    """Launch ``csrc/march.cu`` on the current stream -> [W, H, 4]."""
+    global launches
+    dev = a.ids.device
+    if dev.type != "cuda":
+        raise ValueError(f"march_kernel needs CUDA tensors, got {dev}")
+    for name, t, dtype in (("scal", a.scal, _f32), ("colors", a.colors, _f32),
+                           ("ids", a.ids, torch.uint8),
+                           ("occ", a.occ, torch.int32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: need contiguous {dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if a.scal.numel() != SCAL_LEN or a.ids.shape != a.dims:
+        raise ValueError("scal or ids do not match the march geometry")
+    k = a.colors.shape[0]
+    if not 0 < k <= MAX_INTERVALS or a.colors.shape[1] != 4:
+        raise ValueError(f"colors must be [K <= {MAX_INTERVALS}, 4]")
+    lib = _kernel_lib()
+    out = torch.empty((a.width, a.height, 4), dtype=_f32, device=dev)
+    nbx, nby, nbz = a.nbricks
+    with torch.cuda.device(dev):
+        err = lib.vrp_march_a1(
+            a.scal.data_ptr(), a.colors.data_ptr(), k, a.ids.data_ptr(),
+            a.occ.data_ptr(), nbx, nby, nbz, *a.dims, a.depth,
+            a.width, a.height, a.spr, int(a.conic),
+            a.density_scale, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"march kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def render_vrc_fused(volume, tf, camera, config: RenderConfig,
+                     early_eps: float | None = None) -> torch.Tensor:
+    """a1/VRC render through the fused march -> [W, H, 4] (alpha 1).
+
+    CUDA tensors launch the kernel; CPU tensors run :func:`march_plain`.
+    ``early_eps`` defaults to ``config.early_termination``.
+    """
+    eps = config.early_termination if early_eps is None else early_eps
+    a = prepare(volume, tf, camera, config, eps)
+    if a.ids.is_cuda:
+        return march_kernel(a)
+    return march_plain(a)
