@@ -12,8 +12,10 @@ import torch
 from PIL import Image
 
 import volumerenderingproject_tpu_torch as P
+from volumerenderingproject_tpu_torch.diff import fit
 from volumerenderingproject_tpu_torch.harness import cli
 from volumerenderingproject_tpu_torch.ingest import synthetic
+from volumerenderingproject_tpu_torch.ops import march_vjp
 from volumerenderingproject_tpu_torch.utils import imageio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -24,6 +26,9 @@ import volumerenderingproject_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
+for name in ("ops.march", "ops.march_vjp", "diff.fit", "interop",
+             "harness.cli", "utils.imageio"):
+    assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "volumerenderingproject_tpu"
@@ -76,6 +81,29 @@ def test_cli_without_device_needs_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["render", "--width", "8", "--height", "8", "--spr", "4",
                   "--out", os.path.join(tmp_path, "x.png")])
+
+
+def test_render_vrc_diff_without_device_needs_cuda(no_cuda):
+    vol = synthetic.centered_sphere(8, device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        march_vjp.render_vrc_diff(vol, P.default_transfer_function(device="cpu"),
+                                  P.reset_preset(device="cpu"), cfg)
+
+
+def test_fit_without_device_needs_cuda(no_cuda):
+    vol = synthetic.centered_sphere(8, device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit.fit_transfer_function(
+            vol, P.reset_preset(device="cpu"), np.zeros((8, 8, 4), np.float32),
+            P.default_transfer_function(device="cpu"), cfg, steps=1)
+
+
+def test_cli_fit_without_device_needs_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["fit", "--width", "8", "--height", "8", "--spr", "4",
+                  "--steps", "1"])
 
 
 @pytest.mark.parametrize("camera", ["preset", "0.9,0.5,1.0"])

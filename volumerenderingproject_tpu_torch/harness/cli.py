@@ -1,9 +1,10 @@
 """Command-line harness of the port.
 
   render   one frame to PNG
+  fit      fit TF colours and density to a target PNG
 
-Run as ``python -m volumerenderingproject_tpu_torch render ...``.  The
-render runs on CUDA unless ``--device cpu`` is given.
+Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
+subcommand runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -84,11 +85,56 @@ def cmd_render(args) -> int:
     return 0
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        prog="volumerenderingproject_tpu_torch", description=__doc__)
-    sub = p.add_subparsers(dest="command", required=True)
-    sp = sub.add_parser("render", help="render one frame to PNG")
+def cmd_fit(args) -> int:
+    import numpy as np
+    import torch
+
+    from ..diff.fit import fit_transfer_function
+    from ..models.raycast import render
+    from ..scene.transfer_function import TransferFunction, to_text
+    from ..utils import imageio
+    from ..utils.device import resolve_device
+
+    if args.fit_bounds:
+        raise NotImplementedError(
+            "--fit-bounds is not ported yet: ROADMAP.md item 12 (smooth mode)")
+    if args.fit_light:
+        raise NotImplementedError(
+            "--fit-light is not ported yet: ROADMAP.md item 9 (lighting, LUT "
+            "and scattering)")
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    volume = _load_volume(args, device)
+    tf = _tf(args, device)
+    cam = _camera(args, cfg, device)
+    if args.target:
+        target = imageio.from_display(imageio.load_png(args.target),
+                                      cfg.algorithm)
+        if target.shape[:2] != (cfg.width, cfg.height):
+            raise ValueError(f"target is {target.shape[0]}x{target.shape[1]} "
+                             f"pixels, the render {cfg.width}x{cfg.height}")
+        target = torch.as_tensor(np.concatenate(
+            [target, np.ones_like(target[..., :1])], -1), device=device)
+    else:  # self-target smoke: fit against the render of the start TF
+        target = render(volume, tf, cam, cfg, device=device)
+    t0 = time.time()
+    params, losses = fit_transfer_function(
+        volume, cam, target, tf, cfg, steps=args.steps,
+        learning_rate=args.lr, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, device=device)
+    dt = time.time() - t0
+    print(f"fit: loss {losses[0]:.6f} -> {losses[-1]:.6f} in {args.steps} "
+          f"steps on {device} in {dt:.2f}s")
+    if args.out_tf:
+        fitted = TransferFunction(tf.lower, tf.upper,
+                                  params.tf_colors.detach(), tf.hg_g)
+        with open(args.out_tf, "w") as f:
+            f.write(to_text(fitted))
+        print(f"wrote {args.out_tf}")
+    return 0
+
+
+def _common(sp) -> None:
     sp.add_argument("--data", default="sphere",
                     help=".nii path, or 'sphere' / 'corner-sphere' fixtures")
     sp.add_argument("--width", type=int)
@@ -97,9 +143,31 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--camera", default="preset",
                     help="'preset', 'default', or a position x,y,z")
     sp.add_argument("--tf", help="transfer-function text file")
-    sp.add_argument("--out")
     sp.add_argument("--device", help="torch device (default: cuda)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="volumerenderingproject_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="command", required=True)
+    sp = sub.add_parser("render", help="render one frame to PNG")
+    _common(sp)
+    sp.add_argument("--out")
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("fit", help="optimize TF colors to a target image")
+    _common(sp)
+    sp.add_argument("--target", help="target PNG (display orientation)")
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=1e-2)
+    sp.add_argument("--out-tf")
+    sp.add_argument("--checkpoint-dir")
+    sp.add_argument("--checkpoint-every", type=int, default=0)
+    sp.add_argument("--fit-bounds", action="store_true",
+                    help="optimize TF interval bounds too (not ported yet)")
+    sp.add_argument("--fit-light", action="store_true",
+                    help="optimize the light parameters (not ported yet)")
+    sp.set_defaults(fn=cmd_fit)
     return p
 
 

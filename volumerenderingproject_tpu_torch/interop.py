@@ -4,9 +4,11 @@ package's pytrees hold, so both packages render identical inputs.
     volume_from_numpy(data, cal_max, dims)
     transfer_function_from_numpy(lower, upper, colors, hg_g)
     camera_from_numpy(position, front, right, up, top_left)
+    fit_params_from_numpy(tf_colors, density_scale)
+    adam_state_from_numpy(optimizer, params, count, mu, nu)
 
-Each takes ``device`` (CUDA unless given).  Values are copied as float32
-without rounding anything twice.
+Each takes ``device`` (CUDA unless given) or the device of what it fills.
+Values are copied as float32 without rounding anything twice.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .diff.fit import FitParams
 from .ingest.volume import Volume
 from .scene.camera import Camera
 from .scene.transfer_function import TransferFunction
@@ -49,3 +52,24 @@ def camera_from_numpy(position, front, right, up, top_left,
     dev = resolve_device(device)
     return Camera(*(_f32(v, dev) for v in (position, front, right, up,
                                            top_left)))
+
+
+def fit_params_from_numpy(tf_colors, density_scale, device=None) -> FitParams:
+    """FitParams from the JAX package's ``FitParams`` fields: leaf tensors
+    that require grad."""
+    dev = resolve_device(device)
+    return FitParams(tf_colors=_f32(tf_colors, dev).requires_grad_(),
+                     density_scale=_f32(density_scale, dev).requires_grad_())
+
+
+def adam_state_from_numpy(optimizer: torch.optim.Optimizer, params: FitParams,
+                          count, mu, nu) -> None:
+    """Load optax's ``ScaleByAdamState`` into ``optimizer``'s state for
+    ``params``: ``count`` steps taken, and the first and second moments
+    ``mu``, ``nu`` as (tf_colors, density_scale) pairs of arrays."""
+    for p, m, v in zip(params.parameters(), mu, nu):
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": _f32(m, p.device),
+            "exp_avg_sq": _f32(v, p.device),
+        }

@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``.  Libraries go to ``build/kernels/`` at
-the repository root, named by a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+the repository root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source is rebuilt and an
+unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -46,9 +47,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -14,15 +14,16 @@ intensities.  Prep (per call, plain PyTorch):
 
   * :func:`material_ids`: the id grid and ``id0``, the id of intensity 0,
     which every sample off the volume takes;
-  * :func:`brick_occupancy`: 1 per 8³ brick holding any voxel of alpha > 0;
+  * :func:`brick_occupancy`: 1 per 8³ brick holding any voxel of alpha != 0;
   * :func:`scal_vector`: camera, screen, box and TF scalars for the kernel.
 
-Every skip the kernel makes is exact: a skipped sample has alpha 0 and
-leaves (C, T) unchanged.  When TF(0).alpha > 0 (samples off the volume are
-visible) or ``config.empty_space_skipping`` is off, the kernel marches every
-sample.  Early termination stops a ray before the first sample at which
-T <= eps, which changes the output by at most eps times the largest colour;
-:func:`march_plain` stops at the same sample.
+Every skip the kernel makes is exact: a skipped sample has alpha exactly 0
+and leaves (C, T) unchanged.  A negative alpha (a fit can drive one below
+0) changes T, so it counts as occupied.  When TF(0).alpha != 0 (samples off
+the volume change the image) or ``config.empty_space_skipping`` is off, the
+kernel marches every sample.  Early termination stops a ray before the
+first sample at which T <= eps, which changes the output by at most eps
+times the largest colour; :func:`march_plain` stops at the same sample.
 """
 
 from __future__ import annotations
@@ -86,9 +87,9 @@ def brick_occupancy(ids: torch.Tensor, tf,
                     brick: Tuple[int, int, int] = (BRICK, BRICK, BRICK)
                     ) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
     """([nbx*nby*nbz] int32, (nbx, nby, nbz)): 1 where any voxel of the
-    brick classifies to alpha > 0 (before ``density_scale``)."""
-    alpha_pos = tf.colors[:, 3] > 0.0
-    occ = alpha_pos[ids.long()]
+    brick classifies to alpha != 0 (before ``density_scale``)."""
+    alpha_nz = tf.colors[:, 3] != 0.0
+    occ = alpha_nz[ids.long()]
     dims = tuple(ids.shape)
     nb = tuple(-(-d // b) for d, b in zip(dims, brick))
     pad = []
@@ -181,7 +182,7 @@ def prepare(volume, tf, camera, config: RenderConfig,
     alpha0 = tf.colors[id0, 3]
     if config.density_scale != 1.0:
         alpha0 = (alpha0 * np.float32(config.density_scale)).clamp(0.0, 1.0)
-    full = alpha0 > 0.0
+    full = alpha0 != 0.0
     if not config.empty_space_skipping:
         full = torch.ones_like(full)
     scal = scal_vector(camera, config, volume.dims, volume.octree_depth,
@@ -202,15 +203,9 @@ def _effective_colors(a: MarchArgs) -> torch.Tensor:
     return colors
 
 
-def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel -> [W, H, 4]: the same function
-    with the same float order, as a loop over samples vectorised over rays.
-    It marches every sample (the kernel's skips are exact) and stops each
-    ray where the kernel does.
-
-    With ``stats``, ``stats["samples"]`` is set to the number of samples
-    this input needs: those inside the dataset on rays not yet terminated.
-    """
+def _rays(a: MarchArgs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Origins and directions [W, H, 3] of the kernel's rays (its ray
+    setup, expression by expression)."""
     dev = a.ids.device
     s = a.scal
     w, h = a.width, a.height
@@ -226,11 +221,17 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
     if a.conic:
         o = s[S_POS:S_POS + 3].expand(w, h, 3)
         rd = ((s[S_TL:S_TL + 3] + xt) + yt) - s[S_POS:S_POS + 3]
-        d = T.normalize(rd)
-    else:
-        o = (s[S_TL:S_TL + 3] + xt) + yt
-        d = s[S_FRONT:S_FRONT + 3].expand(w, h, 3)
+        return o, T.normalize(rd)
+    return (s[S_TL:S_TL + 3] + xt) + yt, s[S_FRONT:S_FRONT + 3].expand(w, h, 3)
 
+
+def _sample_ids(a: MarchArgs, o: torch.Tensor, d: torch.Tensor):
+    """``ids_at(i) -> (id int64 [W, H], valid bool [W, H])``: the interval
+    id of every ray's sample i by the kernel's index chain (modelAux +0.5,
+    octree nearest voxel), and whether it lies in the volume; samples off
+    the volume take ``id0``."""
+    dev = a.ids.device
+    s = a.scal
     d1, d2, d3 = a.dims
     L = np.float32(max(a.dims))
     n = np.float32(2**a.depth)
@@ -242,14 +243,8 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
     halfL = np.float32(L / 2)
     ids_flat = a.ids.reshape(-1)
     id0 = s[S_ID0].to(torch.int64)
-    colors = _effective_colors(a)
-    eps = s[S_EPS].clamp_min(0.0)
 
-    c = torch.zeros((w, h, 3), dtype=_f32, device=dev)
-    t = torch.ones((w, h, 1), dtype=_f32, device=dev)
-    needed = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(a.spr):
-        active = t > eps
+    def ids_at(i: int):
         ti = torch.tensor(float(i), dtype=_f32, device=dev) * s[S_DS] + s[S_CLIP]
         p = (o + ti * d) + 0.5
         res = (torch.floor(p * n) / n) * L
@@ -258,7 +253,34 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
         ijk = torch.trunc((res + halfd) - halfL).to(torch.int64)
         flat = (ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3
                 + ijk[..., 2]).clamp(0, d1 * d2 * d3 - 1)
-        mid = torch.where(valid, ids_flat[flat].to(torch.int64), id0)
+        return torch.where(valid, ids_flat[flat].to(torch.int64), id0), valid
+
+    return ids_at
+
+
+def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel -> [W, H, 4]: the same function
+    with the same float order, as a loop over samples vectorised over rays.
+    It marches every sample (the kernel's skips are exact) and stops each
+    ray where the kernel does.
+
+    With ``stats``, ``stats["samples"]`` is set to the number of samples
+    this input needs: those inside the dataset on rays not yet terminated.
+    """
+    dev = a.ids.device
+    s = a.scal
+    w, h = a.width, a.height
+    o, d = _rays(a)
+    ids_at = _sample_ids(a, o, d)
+    colors = _effective_colors(a)
+    eps = s[S_EPS].clamp_min(0.0)
+
+    c = torch.zeros((w, h, 3), dtype=_f32, device=dev)
+    t = torch.ones((w, h, 1), dtype=_f32, device=dev)
+    needed = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(a.spr):
+        active = t > eps
+        mid, valid = ids_at(i)
         rgba = colors[mid]
         alpha = rgba[..., 3:4]
         wgt = t * alpha
