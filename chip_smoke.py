@@ -38,6 +38,24 @@ Phases, each of which exits non-zero on failure:
      start against a central difference of the loss; then 2 steps through
      the kernels against the same 2 steps through their plain versions.
 
+The a5 (Algorithm.TEST) slice, at bench.py's ``a5_500`` shapes (500x500
+pixels, 500 samples per ray), has phases of its own, each with its own seeds:
+
+  3c. the a5 march kernel (K3) against its plain version: on edge inputs
+     (odd dims with negatives and cal_max 200.9, the z-wrap and y-wrap
+     scenes, a z > 127 volume, TF(0).alpha 0.05 and -3e-5, a
+     single-interval table, eps 1e-3), then on both volumes with an orbit
+     camera at eps 0 and at eps 1e-3 (also against the exact render) and
+     with the preset camera; its time on the render path's inputs, the
+     samples they need and the bound;
+  3d. the a5 backward kernel (K6) against its plain version on the same
+     edges, an interval of alpha 1 and 16 intervals, and on both volumes;
+  4b. 8 orbit frames per volume through ``render()`` with Algorithm.TEST
+     (eps 1e-3), K3's launch count set to 0 just before and read just after;
+  5c, 5d. the CLI ``render`` and ``fit`` with ``--algorithm test``;
+  6b. a small a5 render against the a5 back-to-front reference scan;
+  7b. phase 7 on the a5 route (K3 and K6).
+
 Kernel times are CUDA events around repeated launches queued behind a GPU
 spin, the median of 3 windows.
 
@@ -87,15 +105,40 @@ PEAK_BYTES_PER_S = 3.35e12
 # float operations one march sample costs: position 9, nearest-voxel index
 # 18, time step 2, compositing 9 (csrc/march.cu)
 FLOPS_PER_SAMPLE = 38
-# float operations dL/dcolors needs per sample, each counted once however a
-# kernel schedules it: position 9, nearest-voxel index 18, time step 2;
-# w = T a 1, 1 - a 1, T (1 - a) 1; w (g . c) 1, its suffix sum 1, + T_N g_t
-# 1, the division 1, T (g . c) 1, da 1, w g 3, the four terms added to their
-# interval 4
-FLOPS_PER_BWD_SAMPLE = 45
-# and per ray: g . c_k for every interval (5 each) and T_N g_t (1)
-FLOPS_PER_BWD_RAY_PER_INTERVAL = 5
+# float operations dL/dcolors needs, each counted once however a kernel
+# schedules it.  A sample inside the volume: position 9, nearest-voxel index
+# 18, time step 2; the chain w = T a, 1 - a, T (1 - a), w (g . c), its suffix
+# sum, + T_N g_t, the division, T (g . c), da 9; w and da into its
+# interval's sums 2 (g multiplies an interval's sum of w once per ray)
+FLOPS_PER_BWD_SAMPLE = 40
+# a sample off the volume takes id0's colour, whose g . c is per ray: the
+# chain 9 and its two sums 2 (whether it is off the volume follows from the
+# ray's clip against the box, as in the forward bounds)
+FLOPS_PER_BWD_OUTSIDE_SAMPLE = 11
+# and per ray: for every interval g . c_k 5 and g times its sum of w 3;
+# T_N g_t 1
+FLOPS_PER_BWD_RAY_PER_INTERVAL = 8
 FLOPS_PER_BWD_RAY = 1
+# a5 (Algorithm.TEST): bench.py's a5_500 row, 500x500 pixels, 500 samples
+A5_W = A5_H = A5_SPR = 500
+# float operations one a5 sample needs, each counted once however a kernel
+# schedules it (csrc/a5.cu): the three stage matrices 42 (the first stage's
+# x and y terms once per ray), inside test 6, corner truncations and
+# fractions 12, 1 - f 3, the y->x->z mix of 4 channels 84, compositing 9
+FLOPS_PER_A5_SAMPLE = 156
+FLOPS_PER_A5_RAY = 15  # first-stage x, y terms 9; C + T bg 6
+# and what dL/dcolors needs per a5 sample inside the volume: position,
+# inside, corners, fractions and 1 - f as above 63, the 8 trilinear weights
+# from 4 pair products 12, each corner's weight into its interval's
+# coefficient 8, the chain 9 (as a1's); then for each interval present (at
+# most min(8, K)): a and g . rgb from its coefficient 4 (g . c_k is per ray)
+# and coef w and coef da into its sums 4.  A sample off the volume costs
+# FLOPS_PER_BWD_OUTSIDE_SAMPLE: its coefficients are [id0 == k].
+FLOPS_PER_A5_BWD_SAMPLE = 92
+FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL = 8
+# and per ray, besides the per-interval terms: T_N g_t 1 and the
+# first-stage x, y terms 9
+FLOPS_PER_A5_BWD_RAY = 10
 # timed windows per measurement; the median is reported
 TIMING_WINDOWS = 3
 # GPU cycles spun before a kernel's timed window (~50 ms at 1.98 GHz), so
@@ -244,13 +287,36 @@ def cotangents(a, rng):
             torch.tensor(g_t * scale, device=a.ids.device))
 
 
-def bwd_vs_plain(march_vjp, label, a, g):
-    """Backward kernel and its plain version on the same inputs ->
+def fwd_vs_plain(kernel, plain, label, a, conic=False):
+    """A forward kernel and its plain version on the same inputs -> (kernel
+    image, plain image, max abs error or None for conic rays)."""
+    import torch
+
+    got = kernel(a)
+    want = plain(a)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    err = (got - want).abs().amax(dim=-1)
+    if conic:
+        within = int((err <= TOL_EXACT).sum())
+        log(f"{label}: {within}/{err.numel()} pixels within "
+            f"{TOL_EXACT:g}, max err {float(err.max()):.3e}")
+        check(within >= CONIC_PIXEL_SHARE * err.numel(),
+              f"{label}: only {within} pixels within tolerance")
+        return got, want, None
+    e = float(err.max())
+    log(f"{label}: kernel vs plain max err {e:.3e} (tol {TOL_EXACT:g})")
+    check(e <= TOL_EXACT, f"{label}: max err {e}")
+    return got, want, e
+
+
+def bwd_vs_plain(kernel, plain, label, a, g):
+    """A backward kernel and its plain version on the same inputs ->
     (max abs error, error relative to max |dplain|)."""
     import torch
 
-    got = march_vjp.march_bwd_kernel(a, *g)
-    want = march_vjp.march_bwd_plain(a, *g)
+    got = kernel(a, *g)
+    want = plain(a, *g)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{label}: not finite")
     e_abs = float((got - want).abs().max())
@@ -263,13 +329,53 @@ def bwd_vs_plain(march_vjp, label, a, g):
     return e_abs, e_rel
 
 
-def fit_phase(P, fit, march, march_vjp, vname, vol, rng):
-    """Phase 7 on one volume -> its numbers."""
+def samples_needed(plain, args) -> float:
+    """Mean over ``args`` of the samples each march input needs (the plain
+    version's ``stats["samples"]``: inside the volume, on live rays)."""
+    total = 0
+    for a in args:
+        stats = {}
+        plain(a, stats)
+        total += stats["samples"]
+    return total / len(args)
+
+
+def bound(ops: float, nbytes: float):
+    """-> (bound ms, what bounds it, operations ms, bytes ms): ``ops``
+    float operations at the card's float32 peak against ``nbytes`` at its
+    memory rate."""
+    ops_ms = ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
+
+
+class FitRoute:
+    """One differentiable route of the fit: its forward kernel module and
+    the backward module (each with a ``launches`` counter; the backward one
+    holds the ``_forward``/``_backward`` that the autograd function calls),
+    their plain versions, and the kernels' names in a profiler trace."""
+
+    def __init__(self, label, fwd_mod, bwd_mod, plain_fwd, plain_bwd,
+                 fwd_name, bwd_name):
+        self.label, self.fwd_mod, self.bwd_mod = label, fwd_mod, bwd_mod
+        self.plain = (plain_fwd, plain_bwd)
+        self.names = (fwd_name, bwd_name)
+
+    def reset(self):
+        self.fwd_mod.launches = self.bwd_mod.launches = 0
+
+    def counts(self):
+        return self.fwd_mod.launches, self.bwd_mod.launches
+
+
+def fit_phase(P, fit, route, vname, vol, rng, cfg):
+    """Phase 7 (a1) or 7b (a5) on one volume -> its numbers."""
     import torch
 
+    kf, kb = route.label
     tf = P.default_transfer_function()
     cam = orbit_cameras(P, rng, 1)[0]
-    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR)
     target = P.render(vol, tf, cam, cfg)
     colors = tf.colors.clone()
     colors[1:, :3] += torch.tensor(
@@ -284,37 +390,38 @@ def fit_phase(P, fit, march, march_vjp, vname, vol, rng):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    march.launches = march_vjp.launches = 0
+    route.reset()
     start.record()
     params, losses = run(FIT_STEPS)
     end.record()
     torch.cuda.synchronize()
-    k1, k4 = march.launches, march_vjp.launches
+    k1, k4 = route.counts()
     step_ms = start.elapsed_time(end) / FIT_STEPS
     log(f"{vname}: fit losses {losses}, {step_ms:.4f} ms/step, launches "
-        f"K1 {k1} K4 {k4} for {FIT_STEPS} steps")
-    check(k1 == k4 == FIT_STEPS, f"{vname}: launches K1 {k1} K4 {k4}")
+        f"{kf} {k1} {kb} {k4} for {FIT_STEPS} steps")
+    check(k1 == k4 == FIT_STEPS, f"{vname}: launches {kf} {k1} {kb} {k4}")
     check(all(math.isfinite(v) for v in losses), f"{vname}: loss not finite")
     log(f"{vname}: at lr {FIT_LR:g} the loss after {FIT_STEPS} steps is "
         f"{losses[-1]:.6g} vs {losses[0]:.6g} at the start: "
         f"{'fell' if losses[-1] < losses[0] else 'did not fall'}")
-    trace = profile_fit(lambda: run(FIT_STEPS))
+    trace = profile_fit(lambda: run(FIT_STEPS), route.names)
     log(f"{vname}: the same {FIT_STEPS} steps under torch.profiler: "
         f"{trace['wall_ms'] / FIT_STEPS:.4f} ms/step, device busy "
-        f"{trace['busy_ms'] / FIT_STEPS:.4f} ms/step (K1 "
-        f"{trace['k1_ms'] / FIT_STEPS:.4f}, K4 {trace['k4_ms'] / FIT_STEPS:.4f}),"
+        f"{trace['busy_ms'] / FIT_STEPS:.4f} ms/step ({kf} "
+        f"{trace['k1_ms'] / FIT_STEPS:.4f}, {kb} "
+        f"{trace['k4_ms'] / FIT_STEPS:.4f}),"
         f" idle {trace['idle_share']:.4f} of the span from the first kernel to "
         f"the last ({trace['span_ms'] / FIT_STEPS:.4f} ms/step), "
         f"{trace['kernels']} device operations")
 
     # descent: the same start at a step small enough that every update
     # lowers the loss
-    march.launches = march_vjp.launches = 0
+    route.reset()
     _, descent = run(FIT_STEPS, FIT_DESCENT_LR)
-    d1, d4 = march.launches, march_vjp.launches
+    d1, d4 = route.counts()
     log(f"{vname}: fit losses at lr {FIT_DESCENT_LR:g} {descent}, launches "
-        f"K1 {d1} K4 {d4}")
-    check(d1 == d4 == FIT_STEPS, f"{vname}: launches K1 {d1} K4 {d4}")
+        f"{kf} {d1} {kb} {d4}")
+    check(d1 == d4 == FIT_STEPS, f"{vname}: launches {kf} {d1} {kb} {d4}")
     check(all(b < a for a, b in zip(descent, descent[1:])),
           f"{vname}: the loss did not fall at every step at lr "
           f"{FIT_DESCENT_LR:g}")
@@ -345,13 +452,13 @@ def fit_phase(P, fit, march, march_vjp, vname, vol, rng):
 
     # the first 2 steps through the kernels and through the plain versions
     pk, lk = run(2)
-    routes = march_vjp._forward, march_vjp._backward
-    march_vjp._forward = march.march_plain
-    march_vjp._backward = march_vjp.march_bwd_plain
+    vjp = route.bwd_mod
+    routes = vjp._forward, vjp._backward
+    vjp._forward, vjp._backward = route.plain
     try:
         pp, lp = run(2)
     finally:
-        march_vjp._forward, march_vjp._backward = routes
+        vjp._forward, vjp._backward = routes
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     param_err = max(
         float((pk.tf_colors - pp.tf_colors).detach().abs().max()),
@@ -366,10 +473,11 @@ def fit_phase(P, fit, march, march_vjp, vname, vol, rng):
                 descent=descent, trace=trace)
 
 
-def profile_fit(fn) -> dict:
+def profile_fit(fn, names) -> dict:
     """Run ``fn`` under torch.profiler -> its wall time, the device time of
-    K1, K4 and all device operations (their union), and the device's idle
-    share of the span from the first device operation to the last."""
+    the two kernels ``names`` (forward, backward) and of all device
+    operations (their union), and the device's idle share of the span from
+    the first device operation to the last."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -398,8 +506,224 @@ def profile_fit(fn) -> dict:
 
     return dict(wall_ms=wall_ms, busy_ms=busy / 1e3, span_ms=span / 1e3,
                 idle_share=1.0 - busy / span, kernels=len(ops),
-                k1_ms=kernel_ms("march_a1_kernel"),
-                k4_ms=kernel_ms("march_bwd_a1_kernel"))
+                k1_ms=kernel_ms(names[0]), k4_ms=kernel_ms(names[1]))
+
+
+def a5_edge_cases(P, tf, from_text):
+    """Edge inputs of the a5 kernels at small shapes -> [(name, volume, tf,
+    camera, config, eps)]: odd dims with negative intensities and cal_max
+    200.9, the z-wrap and y-wrap scenes of tests/test_pallas_a5.py, a
+    z > 127 volume, TF(0).alpha 0.05 and -3e-5, a single-interval table,
+    eps 1e-3."""
+    rng = np.random.default_rng(5)
+    odd = P.make_volume(rng.uniform(-30, 255, (13, 17, 20)).astype(np.float32),
+                        cal_max=200.9)
+    zwrap = np.zeros((6, 6, 6), np.float32)
+    zwrap[2, 3, 0] = zwrap[2, 2, 5] = 150.0
+    wraps = np.zeros((6, 6, 130), np.float32)
+    wraps[2, 3, 0] = wraps[2, 2, 129] = 150.0
+    wraps[3, 0, 64] = wraps[2, 5, 64] = 150.0
+    deep = P.make_volume(rng.uniform(-30, 255, (12, 14, 150))
+                         .astype(np.float32))
+    small = P.RenderConfig(width=61, height=37, samples_per_ray=37,
+                           algorithm=P.Algorithm.TEST)
+    wrap_cfg = P.RenderConfig(width=16, height=16, samples_per_ray=24,
+                              algorithm=P.Algorithm.TEST)
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    wrap_cam = P.Camera.initial(position=(0.1, 0.2, 0.95))
+    return [
+        ("odd_negatives_calmax200.9", odd, tf, near, small, 0.0),
+        ("z_wrap", P.make_volume(zwrap), tf, wrap_cam, wrap_cfg, 0.0),
+        ("y_and_z_wraps_z130", P.make_volume(wraps), tf, wrap_cam, wrap_cfg,
+         0.0),
+        ("z150", deep, tf, near, small, 0.0),
+        ("alpha0_0.05", odd, tf_with_alpha(P, tf, 0, 0.05), near, small, 0.0),
+        ("negative_alpha0", odd, tf_with_alpha(P, tf, 0, -3e-5), near, small,
+         0.0),
+        ("single_interval_tf", odd, from_text("glass 0 1"), near, small, 0.0),
+        ("eps1e-3", odd, tf, near, small, 1e-3),
+    ]
+
+
+def a5_kernel_phases(P, a5, a5_vjp, volumes, tf, edge, rng, per_volume):
+    """Phases 3c (K3 against march_a5_plain) and 3d (K6 against
+    march_a5_bwd_plain) -> (K3 max abs err, K6 max abs err, K6 max relative
+    err); times and bounds go into ``per_volume``."""
+    cfg = P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                         algorithm=P.Algorithm.TEST)
+
+    def k3_vs_plain(label, a):
+        return fwd_vs_plain(a5.march_a5_kernel, a5.march_a5_plain, label, a)
+
+    # ---- 3c. K3 ----------------------------------------------------------
+    k3_err = 0.0
+    for name, vol, tfx, cam, c, eps in edge:
+        _, _, e = k3_vs_plain(f"a5 edge/{name}",
+                              a5.prepare_a5(vol, tfx, cam, c, eps))
+        k3_err = max(k3_err, e)
+    for vname, vol in volumes.items():
+        orbit_cam = orbit_cameras(P, rng, 1)[0]
+        exact = {}
+        for name, cam, eps in (("orbit_eps0", orbit_cam, 0.0),
+                               ("orbit_eps1e-3", orbit_cam, 1e-3),
+                               ("preset_eps0", P.reset_preset(), 0.0)):
+            got, want, e = k3_vs_plain(f"a5 {vname}/{name}",
+                                       a5.prepare_a5(vol, tf, cam, cfg, eps))
+            k3_err = max(k3_err, e)
+            if eps == 0.0:
+                exact[id(cam)] = want
+                continue
+            e2 = float((got - exact[id(cam)]).abs().max())
+            log(f"a5 {vname}/{name}: K3 at eps {eps:g} vs exact plain max "
+                f"err {e2:.3e} (tol {TOL_EPS:g})")
+            check(e2 <= TOL_EPS, f"a5 {vname}/{name}: eps error {e2}")
+
+        # K3 and plain times and the bound, at the render path's inputs
+        cams = orbit_cameras(P, rng)
+        main_cfg = cfg.replace(early_termination=1e-3)
+        args = [a5.prepare_a5(vol, tf, cam, main_cfg, 1e-3) for cam in cams]
+
+        def orbit_kernels():
+            for a in args:
+                a5.march_a5_kernel(a)
+
+        k3_ms = timed_ms(orbit_kernels, 5, prefill=True,
+                         label=f"a5 {vname}: K3 x{FRAMES}") / FRAMES
+        prep_ms = timed_ms(lambda: a5.prepare_a5(vol, tf, cams[0], main_cfg,
+                                                 1e-3), 5)
+        samples = samples_needed(a5.march_a5_plain, args)
+        plain_ms = timed_ms(lambda: a5.march_a5_plain(args[0]), 1)
+        rays = A5_W * A5_H
+        nbytes = math.prod(vol.dims) + args[0].colors.numel() * 4 + rays * 16
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(
+            samples * FLOPS_PER_A5_SAMPLE + rays * FLOPS_PER_A5_RAY, nbytes)
+        per_volume[vname].update(
+            a5_ms=k3_ms, a5_plain_ms=plain_ms, a5_prep_ms=prep_ms,
+            a5_bound_ms=bound_ms, a5_bound_by=bound_by, a5_samples=samples)
+        log(f"a5 {vname}: K3 {k3_ms:.4f} ms, plain {plain_ms:.2f} ms, prep "
+            f"{prep_ms:.4f} ms, needed samples per frame {samples}, bound "
+            f"{ops_ms:.4f} ms (operations) / {bytes_ms:.4f} ms (bytes)")
+
+    # ---- 3d. K6 ----------------------------------------------------------
+    grad_rng = np.random.default_rng(6)
+    k6_abs = k6_rel = 0.0
+
+    def k6_vs_plain(label, a, g):
+        return bwd_vs_plain(a5_vjp.march_a5_bwd_kernel,
+                            a5_vjp.march_a5_bwd_plain, label, a, g)
+
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    odd = edge[0][1]
+    small = edge[0][4]
+    for name, vol, tfx, cam, c, _ in edge + [
+            ("alpha_one", odd, tf_with_alpha(P, tf, 3, 1.0), near, small,
+             0.0),
+            ("k16", odd, tf16(P, tf.colors.device), near, small, 0.0)]:
+        a, _ = a5_vjp.prepare_a5_diff(vol, tfx, cam, c)
+        e_abs, e_rel = k6_vs_plain(f"a5 edge/{name}", a, cotangents(a,
+                                                                 grad_rng))
+        k6_abs, k6_rel = max(k6_abs, e_abs), max(k6_rel, e_rel)
+    bwd_cam = orbit_cameras(P, np.random.default_rng(7), 1)[0]
+    for vname, vol in volumes.items():
+        a, _ = a5_vjp.prepare_a5_diff(vol, tf, bwd_cam, cfg)
+        g = cotangents(a, grad_rng)
+        e_abs, e_rel = k6_vs_plain(f"a5 {vname}/orbit", a, g)
+        k6_abs, k6_rel = max(k6_abs, e_abs), max(k6_rel, e_rel)
+        k6_ms = timed_ms(lambda: a5_vjp.march_a5_bwd_kernel(a, *g), 5,
+                         prefill=True, label=f"a5 {vname}: K6")
+        k6_plain_ms = timed_ms(lambda: a5_vjp.march_a5_bwd_plain(a, *g), 1)
+        k3_eps0_ms = timed_ms(lambda: a5.march_a5_kernel(a), 5, prefill=True)
+        k = a.colors.shape[0]
+        rays = A5_W * A5_H
+        # at eps 0 no ray stops early: the samples inside the volume
+        inside = samples_needed(a5.march_a5_plain, [a])
+        nbytes = (math.prod(vol.dims) + rays * 16 + k * 16
+                  + a5_vjp.num_blocks(A5_W, A5_H) * k * 16)
+        ops = (inside * (FLOPS_PER_A5_BWD_SAMPLE
+                         + min(8, k) * FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL)
+               + (rays * A5_SPR - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+               + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
+                         + FLOPS_PER_A5_BWD_RAY))
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
+        per_volume[vname].update(
+            a5_bwd_ms=k6_ms, a5_bwd_plain_ms=k6_plain_ms,
+            a5_fwd_eps0_ms=k3_eps0_ms, a5_bwd_bound_ms=bound_ms,
+            a5_bwd_bound_by=bound_by, a5_bwd_inside=inside)
+        log(f"a5 {vname}: K6 {k6_ms:.4f} ms, plain {k6_plain_ms:.2f} ms, K3 "
+            f"at eps 0 {k3_eps0_ms:.4f} ms, samples inside the volume "
+            f"{inside} of {rays * A5_SPR}, bound {ops_ms:.4f} ms (operations)"
+            f" / {bytes_ms:.4f} ms (bytes)")
+    return k3_err, k6_abs, k6_rel
+
+
+def a5_render_phase(P, a5, volumes, tf, rng, per_volume) -> int:
+    """Phase 4b: 8 orbit frames per volume through ``render()`` with
+    Algorithm.TEST at eps 1e-3 -> K3's launches, which must equal the
+    frames."""
+    import torch
+
+    cfg = P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                         algorithm=P.Algorithm.TEST, early_termination=1e-3)
+    frames = 0
+    a5.launches = 0
+    for vname, vol in volumes.items():
+        cams = orbit_cameras(P, rng)
+        P.render(vol, tf, cams[-1], cfg)  # warm-up frame
+        frames += 1
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        imgs = [P.render(vol, tf, cam, cfg) for cam in cams]
+        end.record()
+        torch.cuda.synchronize()
+        frames += len(imgs)
+        ms = start.elapsed_time(end) / len(imgs)
+        for img in imgs:
+            check(tuple(img.shape) == (A5_W, A5_H, 4),
+                  f"a5 {vname}: shape {img.shape}")
+            check(bool(torch.isfinite(img).all()), f"a5 {vname}: not finite")
+            fg = float(((img[..., :3] - 0.2).abs().amax(-1) > 0.05)
+                       .float().mean())
+            check(fg > 0.01, f"a5 {vname}: image is background only ({fg})")
+        per_volume[vname]["a5_render_ms"] = ms
+        log(f"a5 {vname}: render() {ms:.4f} ms/frame, "
+            f"{A5_W * A5_H / ms * 1e3:.4e} rays/s")
+    launches = a5.launches
+    log(f"K3 launches on the a5 render path: {launches} for {frames} frames")
+    check(launches == frames, f"a5 launches {launches} != frames {frames}")
+    return launches
+
+
+def a5_cli_phase(tmp: str, tf, from_text) -> None:
+    """Phases 5c and 5d: the CLI ``render`` and ``fit`` with
+    ``--algorithm test``."""
+    import torch
+
+    size = ["--width", str(A5_W), "--height", str(A5_H), "--spr", str(A5_SPR)]
+    out = os.path.join(tmp, "sphere_a5.png")
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "render",
+         "--data", "sphere", *size, "--algorithm", "test", "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(f"cli a5 render exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli a5 render failed")
+    check_png(out, A5_W, A5_H)
+    out_tf = os.path.join(tmp, "fitted_a5.txt")
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "fit",
+         "--data", "sphere", *size, "--algorithm", "test", "--target", out,
+         "--steps", "3", "--out-tf", out_tf],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"cli a5 fit exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli a5 fit failed")
+    with open(out_tf) as f:
+        fitted = from_text(f.read())
+    check(fitted.num_intervals == tf.num_intervals
+          and bool(torch.isfinite(fitted.colors).all()),
+          "cli a5 fit wrote a bad transfer function")
 
 
 def main() -> int:
@@ -413,7 +737,8 @@ def main() -> int:
     import volumerenderingproject_tpu_torch as P
     from volumerenderingproject_tpu_torch.ingest import synthetic
     from volumerenderingproject_tpu_torch.diff import fit
-    from volumerenderingproject_tpu_torch.ops import _build, march, march_vjp
+    from volumerenderingproject_tpu_torch.ops import (
+        _build, a5, a5_vjp, march, march_vjp)
     from volumerenderingproject_tpu_torch.scene.transfer_function import (
         from_text)
 
@@ -429,6 +754,8 @@ def main() -> int:
     _build.build(sources)
     march._kernel_lib()
     march_vjp._kernel_lib()
+    a5._kernel_lib()
+    a5_vjp._kernel_lib()
     log(f"built {sources} in {time.time() - t0:.2f} s")
 
     # ---- 3. kernel vs plain on the card ------------------------------------
@@ -446,24 +773,8 @@ def main() -> int:
     per_volume = {}
 
     def kernel_vs_plain(label, a, conic):
-        """Kernel and plain version on the same inputs -> (kernel image,
-        plain image, max abs error or None for conic rays)."""
-        got = march.march_kernel(a)
-        want = march.march_plain(a)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"{label}: not finite")
-        err = (got - want).abs().amax(dim=-1)
-        if conic:
-            within = int((err <= TOL_EXACT).sum())
-            log(f"{label}: {within}/{err.numel()} pixels within "
-                f"{TOL_EXACT:g}, max err {float(err.max()):.3e}")
-            check(within >= CONIC_PIXEL_SHARE * err.numel(),
-                  f"{label}: only {within} pixels within tolerance")
-            return got, want, None
-        e = float(err.max())
-        log(f"{label}: kernel vs plain max err {e:.3e} (tol {TOL_EXACT:g})")
-        check(e <= TOL_EXACT, f"{label}: max err {e}")
-        return got, want, e
+        return fwd_vs_plain(march.march_kernel, march.march_plain, label, a,
+                            conic)
 
     # edge inputs at small shapes: odd dims, truncated cal_max, front clip,
     # overlapping and single-interval tables, density_scale, a conic camera
@@ -532,23 +843,19 @@ def main() -> int:
                              label=f"{vname}: march kernel x{FRAMES}") / FRAMES
         prep_ms = timed_ms(lambda: march.prepare(
             vol, tf, cams[0], cfg.replace(early_termination=eps), eps), 5)
-        stats = {}
-        march.march_plain(args[0], stats)
+        samples = samples_needed(march.march_plain, args)
         plain_ms = timed_ms(lambda: march.march_plain(args[0]), 2)
         voxels = math.prod(vol.dims)
         nbytes = (voxels + args[0].occ.numel() * 4 + args[0].colors.numel() * 4
                   + W * H * 16)
-        bound_ops_ms = stats["samples"] * FLOPS_PER_SAMPLE / PEAK_F32_FLOPS * 1e3
-        bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        per_volume[vname] = dict(
-            ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=max(bound_ops_ms, bound_bytes_ms),
-            bound_by="operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-            samples=stats["samples"])
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(
+            samples * FLOPS_PER_SAMPLE, nbytes)
+        per_volume[vname] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 samples=samples)
         log(f"{vname}: march kernel {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms,"
-            f" prep {prep_ms:.4f} ms, needed samples {stats['samples']}, "
-            f"bound {bound_ops_ms:.4f} ms (operations) / {bound_bytes_ms:.4f} "
-            f"ms (bytes)")
+            f" prep {prep_ms:.4f} ms, needed samples per frame {samples}, "
+            f"bound {ops_ms:.4f} ms (operations) / {bytes_ms:.4f} ms (bytes)")
 
     # ---- 3b. the backward kernel vs plain on the card ------------------------
     grad_rng = np.random.default_rng(2)
@@ -559,8 +866,9 @@ def main() -> int:
             ("k16", tf16(P, tf.colors.device), near, small, 0.0),
             ("density_0.45", tf, near, small.replace(density_scale=0.45), 0.0)]:
         a, _ = march_vjp.prepare_diff(odd, tfx, cam, c)
-        e_abs, e_rel = bwd_vs_plain(march_vjp, f"edge/{name}", a,
-                                    cotangents(a, grad_rng))
+        e_abs, e_rel = bwd_vs_plain(
+            march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain,
+            f"edge/{name}", a, cotangents(a, grad_rng))
         bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
     bwd_cam = orbit_cameras(P, np.random.default_rng(3), 1)[0]
     for vname, vol in volumes.items():
@@ -570,7 +878,9 @@ def main() -> int:
                  cfg.replace(conic=True))):
             a, _ = march_vjp.prepare_diff(vol, tf, cam, c)
             g = cotangents(a, grad_rng)
-            e_abs, e_rel = bwd_vs_plain(march_vjp, f"{vname}/{name}", a, g)
+            e_abs, e_rel = bwd_vs_plain(
+                march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain,
+                f"{vname}/{name}", a, g)
             bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
             if c.conic:
                 continue
@@ -584,22 +894,30 @@ def main() -> int:
                                    prefill=True)
             k = a.colors.shape[0]
             samples = W * H * SPR  # every sample of every ray: no skip
+            # at eps 0 no ray stops early: the samples inside the volume
+            inside = samples_needed(march.march_plain, [a])
             nbytes = (math.prod(vol.dims) + W * H * 16 + k * 16
                       + march_vjp.num_blocks(W, H) * k * 16)
-            ops = (samples * FLOPS_PER_BWD_SAMPLE + W * H * (
-                k * FLOPS_PER_BWD_RAY_PER_INTERVAL + FLOPS_PER_BWD_RAY))
-            bound_ops_ms = ops / PEAK_F32_FLOPS * 1e3
-            bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            ops = (inside * FLOPS_PER_BWD_SAMPLE
+                   + (samples - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                   + W * H * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
+                              + FLOPS_PER_BWD_RAY))
+            bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
             per_volume[vname].update(
                 bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
-                fwd_eps0_ms=fwd_eps0_ms,
-                bwd_bound_ms=max(bound_ops_ms, bound_bytes_ms),
-                bwd_bound_by=("operations" if bound_ops_ms >= bound_bytes_ms
-                              else "bytes"))
+                fwd_eps0_ms=fwd_eps0_ms, bwd_bound_ms=bound_ms,
+                bwd_bound_by=bound_by, bwd_inside=inside)
             log(f"{vname}: backward kernel {bwd_ms:.4f} ms, plain "
                 f"{bwd_plain_ms:.2f} ms, forward kernel at eps 0 "
-                f"{fwd_eps0_ms:.4f} ms, bound {bound_ops_ms:.4f} ms "
-                f"(operations) / {bound_bytes_ms:.4f} ms (bytes)")
+                f"{fwd_eps0_ms:.4f} ms, samples inside the volume {inside} "
+                f"of {samples}, bound {ops_ms:.4f} ms (operations) / "
+                f"{bytes_ms:.4f} ms (bytes)")
+
+    # ---- 3c, 3d. the a5 kernels (K3, K6) vs plain on the card ---------------
+    a5_rng = np.random.default_rng(8)
+    a5_edge = a5_edge_cases(P, tf, from_text)
+    k3_err, k6_abs, k6_rel = a5_kernel_phases(
+        P, a5, a5_vjp, volumes, tf, a5_edge, a5_rng, per_volume)
 
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
@@ -635,6 +953,9 @@ def main() -> int:
         f"for {frames} frames")
     check(launches == frames, f"launches {launches} != frames {frames}")
 
+    # ---- 4b. the a5 render path ---------------------------------------------
+    a5_launches = a5_render_phase(P, a5, volumes, tf, a5_rng, per_volume)
+
     # ---- 5. the CLI ---------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "sphere.png")
@@ -665,6 +986,9 @@ def main() -> int:
               and bool(torch.isfinite(fitted.colors).all()),
               "cli fit wrote a bad transfer function")
 
+        # ---- 5c, 5d. the CLI render and fit with --algorithm test ----------
+        a5_cli_phase(tmp, tf, from_text)
+
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
     sphere = volumes["sphere100"]
@@ -675,11 +999,24 @@ def main() -> int:
         f"{e:.3e} (tol {TOL_EXACT:g})")
     check(e <= TOL_EXACT, f"kernel vs reference scan: {e}")
 
+    # ---- 6b. a small a5 input against the a5 reference scan ---------------
+    small_a5 = small.replace(algorithm=P.Algorithm.TEST)
+    got = P.render(sphere, tf, P.reset_preset(), small_a5)
+    ref = P.render(sphere, tf, P.reset_preset(), small_a5, mode="reference")
+    e = float((got - ref).abs().max())
+    log(f"a5 sphere 100x100x100: K3 vs back-to-front reference max err "
+        f"{e:.3e} (tol {TOL_EXACT:g})")
+    check(e <= TOL_EXACT, f"K3 vs a5 reference scan: {e}")
+
     # ---- 7. the fit path -----------------------------------------------------
     fit_rng = np.random.default_rng(4)
     fit_launches = {"k1": 0, "k4": 0}
+    a1_route = FitRoute(("K1", "K4"), march, march_vjp,
+                        march.march_plain, march_vjp.march_bwd_plain,
+                        "march_a1_kernel", "march_bwd_a1_kernel")
     for vname, vol in volumes.items():
-        r = fit_phase(P, fit, march, march_vjp, vname, vol, fit_rng)
+        r = fit_phase(P, fit, a1_route, vname, vol, fit_rng,
+                      P.RenderConfig(width=W, height=H, samples_per_ray=SPR))
         per_volume[vname]["fit_step_ms"] = r["step_ms"]
         per_volume[vname]["fit_idle_share"] = r["trace"]["idle_share"]
         fit_launches["k1"] += r["k1"]
@@ -687,6 +1024,24 @@ def main() -> int:
     log(f"march kernel launches on the fit path: {fit_launches['k1']}, "
         f"backward kernel launches: {fit_launches['k4']} "
         f"({FIT_STEPS} steps per volume)")
+
+    # ---- 7b. the a5 fit path -------------------------------------------------
+    a5_route = FitRoute(("K3", "K6"), a5, a5_vjp, a5.march_a5_plain,
+                        a5_vjp.march_a5_bwd_plain, "march_a5_kernel",
+                        "march_bwd_a5_kernel")
+    a5_fit_rng = np.random.default_rng(9)
+    a5_fit = {"k3": 0, "k6": 0}
+    for vname, vol in volumes.items():
+        r = fit_phase(P, fit, a5_route, f"a5 {vname}", vol, a5_fit_rng,
+                      P.RenderConfig(width=A5_W, height=A5_H,
+                                     samples_per_ray=A5_SPR,
+                                     algorithm=P.Algorithm.TEST))
+        per_volume[vname]["a5_fit_step_ms"] = r["step_ms"]
+        per_volume[vname]["a5_fit_idle_share"] = r["trace"]["idle_share"]
+        a5_fit["k3"] += r["k1"]
+        a5_fit["k6"] += r["k4"]
+    log(f"K3 launches on the a5 fit path: {a5_fit['k3']}, K6 launches: "
+        f"{a5_fit['k6']} ({FIT_STEPS} steps per volume)")
 
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
@@ -713,9 +1068,34 @@ def main() -> int:
         "bound_ms": main_vol["bwd_bound_ms"],
         "bound_by": main_vol["bwd_bound_by"],
         "library_ms": None,
+    }, {
+        "name": "march_a5",
+        "route": "cuda",
+        "source": "volumerenderingproject_tpu_torch/csrc/a5.cu",
+        "replaces": "volumerenderingproject_tpu/ops/pallas_a5.py:67",
+        "launches": a5_launches + a5_fit["k3"],
+        "max_abs_err": k3_err,
+        "ms": main_vol["a5_ms"],
+        "plain_ms": main_vol["a5_plain_ms"],
+        "bound_ms": main_vol["a5_bound_ms"],
+        "bound_by": main_vol["a5_bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "march_bwd_a5",
+        "route": "cuda",
+        "source": "volumerenderingproject_tpu_torch/csrc/a5_bwd.cu",
+        "replaces": "volumerenderingproject_tpu/ops/pallas_a5.py:1128",
+        "launches": a5_fit["k6"],
+        "max_abs_err": k6_abs,
+        "ms": main_vol["a5_bwd_ms"],
+        "plain_ms": main_vol["a5_bwd_plain_ms"],
+        "bound_ms": main_vol["a5_bwd_bound_ms"],
+        "bound_by": main_vol["a5_bwd_bound_by"],
+        "library_ms": None,
     }]
     log(f"per volume: {json.dumps(per_volume)}")
     log(f"backward kernel max relative err over all cases {bwd_rel:.3e}")
+    log(f"K6 max relative err over all cases {k6_rel:.3e}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ import volumerenderingproject_tpu_torch as P
 from volumerenderingproject_tpu_torch.diff import fit
 from volumerenderingproject_tpu_torch.harness import cli
 from volumerenderingproject_tpu_torch.ingest import synthetic
-from volumerenderingproject_tpu_torch.ops import march_vjp
+from volumerenderingproject_tpu_torch.ops import a5_vjp, march_vjp
 from volumerenderingproject_tpu_torch.utils import imageio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,8 +26,8 @@ import volumerenderingproject_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
-for name in ("ops.march", "ops.march_vjp", "diff.fit", "interop",
-             "harness.cli", "utils.imageio"):
+for name in ("ops.march", "ops.march_vjp", "ops.a5", "ops.a5_vjp",
+             "diff.fit", "interop", "harness.cli", "utils.imageio"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
@@ -89,6 +89,21 @@ def test_render_vrc_diff_without_device_needs_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         march_vjp.render_vrc_diff(vol, P.default_transfer_function(device="cpu"),
                                   P.reset_preset(device="cpu"), cfg)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda vol, tf, cam, cfg: P.render(vol, tf, cam, cfg),
+    lambda vol, tf, cam, cfg: a5_vjp.render_test_diff(vol, tf, cam, cfg),
+    lambda vol, tf, cam, cfg: fit.fit_transfer_function(
+        vol, cam, np.zeros((8, 8, 4), np.float32), tf, cfg, steps=1),
+])
+def test_a5_entry_points_without_device_need_cuda(no_cuda, entry):
+    vol = synthetic.centered_sphere(8, device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4,
+                         algorithm=P.Algorithm.TEST)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(vol, P.default_transfer_function(device="cpu"),
+              P.reset_preset(device="cpu"), cfg)
 
 
 def test_fit_without_device_needs_cuda(no_cuda):

@@ -126,7 +126,7 @@ def test_fused_sphere_matches_jax_fast():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algorithm=Algorithm.TEST), "item 8"),
+    (dict(algorithm=Algorithm.TEST, lighting=True), "item 9"),
     (dict(algorithm=Algorithm.POINT), "item 15"),
     (dict(lighting=True), "item 9"),
     (dict(tf_lut=64), "item 9"),

@@ -26,9 +26,9 @@
 // a select in the unrolled k loop (adding 0 to the other intervals is
 // exact).  At the end each block reduces its rays' [K, 4] sums, by
 // shuffles within each warp and then over the warps in shared memory in a
-// fixed order, and writes one partial to partials [nblocks, K, 4]; the
-// caller sums the partials with torch.sum.  No atomics, so every run gives
-// the same bits.
+// fixed order (block_reduce.cuh), and writes one partial to partials
+// [nblocks, K, 4]; the caller sums the partials with torch.sum.  No
+// atomics, so every run gives the same bits.
 //
 // What bounds it on an H100: operations.  Each sample costs some 45 float
 // operations per pass and a dependent one-byte load from the id grid, which
@@ -40,6 +40,7 @@
 // (march_common.cuh).
 
 #include "march_common.cuh"
+#include "block_reduce.cuh"
 
 namespace {
 
@@ -56,7 +57,6 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
                     const float* __restrict__ g_t,
                     float* __restrict__ partials) {
   __shared__ float4 s_col[KMAX];
-  __shared__ float s_warp[kWarps][KMAX * 4];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < KMAX) {
     s_col[tid] = tid < num_intervals
@@ -126,27 +126,7 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
     }
   }
 
-  // ---- block reduction: warp shuffles, then the warps in a fixed order ----
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float v = acc[k][c];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) s_warp[warp][4 * k + c] = v;
-    }
-  }
-  __syncthreads();
-  if (tid < num_intervals * 4) {
-    float sum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) sum += s_warp[w][tid];
-    const long long block = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    partials[block * num_intervals * 4 + tid] = sum;
-  }
+  write_block_partial<KMAX, kWarps>(acc, num_intervals, partials);
 }
 
 }  // namespace

@@ -2,17 +2,18 @@
 image by gradient descent through the renderer.
 
 Counterpart of ``volumerenderingproject_tpu/diff/fit.py`` on its plain a1
-route (fit.py:212-215): the loss renders through
-``ops/march_vjp.render_vrc_diff``, whose forward is the march kernel (K1) at
-eps 0 and whose backward is the backward march kernel (K4) on the GPU.  The
+route (fit.py:212-215) and its unlit a5 route (fit.py:134-145): the loss
+renders through ``ops/march_vjp.render_vrc_diff`` (forward the march kernel
+K1 at eps 0, backward the backward march kernel K4 on the GPU) or, with
+``Algorithm.TEST``, through ``ops/a5_vjp.render_test_diff`` (K3 and K6).  The
 optimizer is ``torch.optim.Adam`` with optax's defaults.  Checkpoints are
 ``torch.save`` files holding the parameters and the optimizer state, so a
 resumed fit continues bit for bit where an uninterrupted one would be.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): fits of TF bounds (smooth mode, item 12), of light parameters (item
-9), a5 fits (item 8), multichannel fits (item 10) and sharded fits over a
-mesh (item 14).
+item): fits of TF bounds (smooth mode, item 12), of light parameters and
+lit renders (item 9), multichannel fits (item 10), fits of more than 16
+intervals (item 11) and sharded fits over a mesh (item 14).
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.a5_vjp import render_test_diff
 from ..ops.march_vjp import render_vrc_diff
 from ..scene.transfer_function import TransferFunction
-from ..utils.config import RenderConfig
+from ..utils.config import Algorithm, RenderConfig
 from ..utils.device import resolve_device
 
 _f32 = torch.float32
@@ -106,14 +108,16 @@ def _render_with_density(volume, tf: TransferFunction, camera,
                          config: RenderConfig, density: torch.Tensor,
                          light=None) -> torch.Tensor:
     """Scale the TF alphas by the (differentiable) density, then render
-    through the differentiable march (fit.py:124-131, 212-215)."""
+    through the differentiable march of ``config.algorithm`` (fit.py:124-153,
+    212-215): a1 folds ``config.density_scale`` in as well, a5 reads none."""
     if light is not None:
         raise _not_ported_light()
     colors = torch.cat([tf.colors[:, :3], tf.colors[:, 3:4] * density], dim=1)
     tf2 = TransferFunction(lower=tf.lower, upper=tf.upper, colors=colors,
                            hg_g=tf.hg_g)
-    return render_vrc_diff(volume, tf2, camera, config,
-                           device=volume.data.device)
+    diff = (render_test_diff if config.algorithm is Algorithm.TEST
+            else render_vrc_diff)
+    return diff(volume, tf2, camera, config, device=volume.data.device)
 
 
 def make_optimizer(params: FitParams, learning_rate: float

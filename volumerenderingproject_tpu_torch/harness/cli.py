@@ -37,9 +37,11 @@ def _camera(args, config, device):
 
 
 def _config(args):
-    from ..utils.config import RenderConfig
+    from ..utils.config import Algorithm, RenderConfig
 
     over = {}
+    if args.algorithm:
+        over["algorithm"] = Algorithm[args.algorithm.upper()]
     if args.width:
         over["width"] = args.width
     if args.height:
@@ -143,6 +145,9 @@ def _common(sp) -> None:
     sp.add_argument("--camera", default="preset",
                     help="'preset', 'default', or a position x,y,z")
     sp.add_argument("--tf", help="transfer-function text file")
+    sp.add_argument("--algorithm", choices=["point", "vrc", "test"],
+                    help="vrc (a1, the default) or test (a5); point is "
+                         "not ported yet (the renderer raises)")
     sp.add_argument("--device", help="torch device (default: cuda)")
 
 

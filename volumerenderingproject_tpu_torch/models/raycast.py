@@ -1,4 +1,4 @@
-"""The a1/VRC ray-cast renderer.
+"""The ray-cast renderers: a1/VRC and a5/TEST.
 
 ``render(volume, tf, camera, config) -> image [W, H, 4]``, indexed
 ``[pixel_x, pixel_y]`` like the reference's column-major screen buffer
@@ -7,12 +7,17 @@ position -> modelAux (+0.5, kernel.cu:1046-1063) -> octree nearest voxel ->
 / trunc(cal_max) -> transfer function -> over-blend (kernel.cu:40-70,
 194-225).
 
-:func:`render` sends the a1 path to the fused march (``ops/march.py``): its
-CUDA kernel for tensors on the GPU, its plain PyTorch version for tensors on
-the CPU.  :func:`render_vrc` is the plain scan beneath it, a Python loop
-over samples vectorised over rays: ``mode="fast"`` composites front to back
-in (C, T) form, ``mode="reference"`` back to front in the reference's exact
-order, ``mode="segment"`` returns the raw (C, T) pair.
+a5 (kernel.cu:72-187): camera-grid positions through modelCam ->
+inverseView -> toVolume (kernel.cu:1177-1222), colour-space trilinear
+sampling of the 8 classified corners, the same blend.
+
+:func:`render` sends the a1 path to the fused march (``ops/march.py``) and
+the a5 path to the fused a5 march (``ops/a5.py``): their CUDA kernels for
+tensors on the GPU, their plain PyTorch versions for tensors on the CPU.
+:func:`render_vrc` and :func:`render_test` are the plain scans beneath them,
+Python loops over samples vectorised over rays: ``mode="fast"`` composites
+front to back in (C, T) form, ``mode="reference"`` back to front in the
+reference's exact order, ``mode="segment"`` returns the raw (C, T) pair.
 """
 
 from __future__ import annotations
@@ -22,13 +27,14 @@ from typing import Tuple
 import torch
 
 from ..ingest.volume import Volume
+from ..ops import a5
 from ..ops import composite as comp
 from ..ops import sampling
 from ..ops.march import check_supported, render_vrc_fused
 from ..scene.camera import Camera
 from ..scene.transfer_function import TransferFunction
 from ..utils import transforms as T
-from ..utils.config import RenderConfig
+from ..utils.config import Algorithm, RenderConfig
 from ..utils.device import resolve_device
 
 _f32 = torch.float32
@@ -115,6 +121,39 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
     return rgba
 
 
+def _to_volume_space(p: torch.Tensor, volume: Volume) -> torch.Tensor:
+    """NiftiFile::toVolumeSpace (BinaryLoader.cu:247-269) minus the +0.5
+    (callers pass post-modelAux points): scale by L, center the dataset."""
+    L = torch.tensor(float(volume.longest_dimension), dtype=_f32,
+                     device=p.device)
+    dimv = torch.tensor(volume.dims, dtype=_f32, device=p.device)
+    return p * L + (dimv / 2.0 - L / 2.0)
+
+
+def _a5_positions(x: torch.Tensor, y: torch.Tensor, i: torch.Tensor,
+                  camera: Camera, volume: Volume, config: RenderConfig
+                  ) -> torch.Tensor:
+    """a5 sample positions in voxel space, applying the three stage matrices
+    sequentially like the kernel (kernel.cu:100-115)."""
+    return a5.apply_stages(a5.stage_matrices(camera, volume.dims, config),
+                           x, y, i)
+
+
+def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
+                  config: RenderConfig, x: torch.Tensor, y: torch.Tensor):
+    """The unlit a5 per-step sampler ``i_f32 -> [W, H, 4]``; the stage
+    matrices are built once."""
+    vol_flat = volume.data.reshape(-1)
+    mats = a5.stage_matrices(camera, volume.dims, config)
+
+    def sample_rgba(i):
+        pos = a5.apply_stages(mats, x, y, i)
+        return sampling.trilinear_color_sample(
+            vol_flat, volume.dims, pos, tf.classify, volume.cal_max)
+
+    return sample_rgba
+
+
 def _march(sample_rgba_fn, config: RenderConfig, mode: str, device):
     """Loop over the sample axis; ``sample_rgba_fn(i_f32) -> [W, H, 4]``.
 
@@ -164,6 +203,16 @@ def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
     return _march(sample_rgba, config, mode, dev)
 
 
+def render_test(volume: Volume, tf: TransferFunction, camera: Camera,
+                config: RenderConfig, *, mode: str = "fast") -> torch.Tensor:
+    """a5/TEST render by the plain scan -> [W, H, 4] (alpha all 1), or the
+    (C, T) pair with ``mode="segment"``."""
+    a5.check_supported(config, volume.channels)
+    x, y = pixel_grid(config, camera.device)
+    return _march(_a5_sample_fn(volume, tf, camera, config, x, y), config,
+                  mode, camera.device)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
@@ -172,7 +221,8 @@ def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
 def render(volume: Volume, tf: TransferFunction, camera: Camera,
            config: RenderConfig, *, mode: str = "fast",
            device=None) -> torch.Tensor:
-    """Render one frame -> [W, H, 4] on ``device`` (CUDA unless given).
+    """Render one frame -> [W, H, 4] on ``device`` (CUDA unless given),
+    dispatching on ``config.algorithm``: a1/VRC or a5/TEST.
 
     ``mode="fast"`` runs the fused march with ``config.early_termination``
     as its epsilon: the CUDA kernel on the GPU, its plain version on the
@@ -180,12 +230,17 @@ def render(volume: Volume, tf: TransferFunction, camera: Camera,
     termination) and ``mode="reference"`` the back-to-front one.
     """
     dev = resolve_device(device)
-    check_supported(config, volume.channels)
+    test = config.algorithm is Algorithm.TEST
+    if test:
+        a5.check_supported(config, volume.channels)
+    else:
+        check_supported(config, volume.channels)
+    if mode not in ("fast", "scan", "reference"):
+        raise ValueError(f"unknown mode {mode!r}")
     volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)
     if mode == "fast":
-        return render_vrc_fused(volume, tf, camera, config)
-    if mode == "scan":
-        return render_vrc(volume, tf, camera, config, mode="fast")
-    if mode == "reference":
-        return render_vrc(volume, tf, camera, config, mode="reference")
-    raise ValueError(f"unknown mode {mode!r}")
+        fused = a5.render_test_fused if test else render_vrc_fused
+        return fused(volume, tf, camera, config)
+    scan = render_test if test else render_vrc
+    return scan(volume, tf, camera, config,
+                mode="fast" if mode == "scan" else mode)

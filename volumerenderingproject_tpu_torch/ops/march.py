@@ -142,11 +142,9 @@ def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
 
 def check_supported(config: RenderConfig, channels: int) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
-    what this slice of the port does not render yet: the march and the
-    plain scan compute single-channel a1 with nearest-voxel sampling."""
-    if config.algorithm is Algorithm.TEST:
-        raise NotImplementedError(
-            "Algorithm.TEST (a5) is not ported yet: ROADMAP.md item 8 (a5)")
+    what the port's a1 path does not render yet: the march and the plain
+    scan compute single-channel a1 with nearest-voxel sampling.  (a5 has
+    its own check, ``ops/a5.check_supported``.)"""
     if config.algorithm is Algorithm.POINT:
         raise NotImplementedError(
             "Algorithm.POINT is not ported yet: ROADMAP.md item 15 "

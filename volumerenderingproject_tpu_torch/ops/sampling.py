@@ -59,3 +59,79 @@ def octree_nn_sample(
     flat, valid = octree_nn_index(dims, depth, p)
     vals = volume_flat[flat].clamp_min(0.0)
     return torch.where(valid, vals, torch.zeros((), dtype=_f32, device=p.device))
+
+
+# Corner offsets in the a5 kernel's fetch order (kernel.cu:129-159):
+# X1..X8 = (0,0,0),(0,0,1),(0,1,0),(0,1,1),(1,0,0),(1,0,1),(1,1,0),(1,1,1)
+_A5_OFFSETS = (
+    (0.0, 0.0, 0.0),
+    (0.0, 0.0, 1.0),
+    (0.0, 1.0, 0.0),
+    (0.0, 1.0, 1.0),
+    (1.0, 0.0, 0.0),
+    (1.0, 0.0, 1.0),
+    (1.0, 1.0, 0.0),
+    (1.0, 1.0, 1.0),
+)
+
+
+def corner_flat_indices(dims: Tuple[int, int, int], pos: torch.Tensor
+                        ) -> torch.Tensor:
+    """The 8 corners' flat voxel indices (..., 8) int64 for a5
+    interpolation: each offset is added in float before the per-axis
+    truncation (kernel.cu:129-159), so ``trunc(x + 1)`` and not
+    ``trunc(x) + 1``.  Nothing is clamped: a y+1 or z+1 tap at the last
+    row wraps into the next row, and the caller guards ``flat < total``."""
+    _, d2, d3 = dims
+    q = pos.to(_f32)[..., None, :] + torch.tensor(_A5_OFFSETS, dtype=_f32,
+                                                  device=pos.device)
+    ijk = torch.trunc(q).to(torch.int64)
+    return ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3 + ijk[..., 2]
+
+
+def corner_intensities(volume_flat: torch.Tensor,
+                       dims: Tuple[int, int, int],
+                       pos: torch.Tensor) -> torch.Tensor:
+    """The 8 corner intensities for a5 interpolation, shape (..., 8); a
+    corner at ``flat >= total`` reads 0 (the reference's only guard)."""
+    d1, d2, d3 = dims
+    total = d1 * d2 * d3
+    flat = corner_flat_indices(dims, pos)
+    vals = volume_flat[flat.clamp(0, total - 1)]
+    return torch.where(flat < total, vals,
+                       torch.zeros((), dtype=_f32, device=pos.device))
+
+
+def trilinear_mix_colors(colors8: torch.Tensor, frac: torch.Tensor
+                         ) -> torch.Tensor:
+    """Mix 8 corner RGBAs (..., 8, 4) with fractions (..., 3), y->x->z order
+    (kernel.cu:161-175)."""
+    fx = frac[..., 0:1]
+    fy = frac[..., 1:2]
+    fz = frac[..., 2:3]
+    c = colors8
+    cy1 = c[..., 0, :] * (1.0 - fy) + c[..., 2, :] * fy
+    cy2 = c[..., 1, :] * (1.0 - fy) + c[..., 3, :] * fy
+    cy3 = c[..., 4, :] * (1.0 - fy) + c[..., 6, :] * fy
+    cy4 = c[..., 5, :] * (1.0 - fy) + c[..., 7, :] * fy
+    cz1 = cy1 * (1.0 - fx) + cy3 * fx
+    cz2 = cy2 * (1.0 - fx) + cy4 * fx
+    return cz1 * (1.0 - fz) + cz2 * fz
+
+
+def trilinear_color_sample(volume_flat: torch.Tensor,
+                           dims: Tuple[int, int, int], pos: torch.Tensor,
+                           classify_fn, cal_max: torch.Tensor) -> torch.Tensor:
+    """a5/TEST sample colour at voxel-space positions (..., 3) -> (..., 4):
+    each corner classified through the TF (by the float ``cal_max``, no
+    negative clamp), the colours mixed; TF(0)'s colour outside [0, dims)
+    (kernel.cu:117)."""
+    pos = pos.to(_f32)
+    dimv = torch.tensor(dims, dtype=_f32, device=pos.device)
+    inside = ((pos >= 0.0) & (pos < dimv)).all(dim=-1)
+    intens = corner_intensities(volume_flat, dims, pos)
+    colors8 = classify_fn(intens / cal_max)
+    frac = pos - torch.trunc(pos)  # `difference` kernel.cu:127
+    mixed = trilinear_mix_colors(colors8, frac)
+    outside_color = classify_fn(torch.zeros_like(cal_max))
+    return torch.where(inside[..., None], mixed, outside_color)

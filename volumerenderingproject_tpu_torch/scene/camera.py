@@ -92,6 +92,12 @@ class Camera:
         return dataclasses.replace(self, position=pos).rederive(
             screen_w, screen_h)
 
+    def look_at_origin_view(self) -> torch.Tensor:
+        """glm::lookAt(position, origin, up): the a5 view matrix
+        (kernel.cu:1197-1198)."""
+        return T.look_at(self.position, torch.zeros_like(self.position),
+                         self.up)
+
 
 def save_preset(camera: Camera, path: str) -> None:
     """Persist a camera preset to JSON (the reference's key-M save,

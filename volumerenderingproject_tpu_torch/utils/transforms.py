@@ -67,6 +67,14 @@ def translation(v, device=None) -> torch.Tensor:
     return m
 
 
+def scaling(v, device=None) -> torch.Tensor:
+    """Pure (anisotropic) scaling matrix."""
+    m = identity(device)
+    v = _t(v, m).reshape(3)
+    m[0, 0], m[1, 1], m[2, 2] = v[0], v[1], v[2]
+    return m
+
+
 def rotation(angle_rad, axis) -> torch.Tensor:
     """Rotation about ``axis`` by ``angle_rad`` (glm::rotate semantics; the
     axis is normalized)."""
@@ -92,9 +100,80 @@ def translate(m, v) -> torch.Tensor:
     return matmul(m, translation(v, m.device))
 
 
+def scale(m, v) -> torch.Tensor:
+    """``glm::scale(m, v) == m @ scaling(v)``."""
+    m = _t(m)
+    return matmul(m, scaling(v, m.device))
+
+
 def rotate(m, angle_rad, axis) -> torch.Tensor:
     """``glm::rotate(m, angle, axis) == m @ rotation(angle, axis)``."""
     return matmul(_t(m), rotation(angle_rad, axis))
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def look_at(eye, center, up) -> torch.Tensor:
+    """glm::lookAt (right-handed): the view matrix looking from ``eye`` at
+    ``center``."""
+    eye = _t(eye).reshape(3)
+    f = normalize(_t(center, eye).reshape(3) - eye)
+    s = normalize(cross(f, _t(up, eye).reshape(3)))
+    u = cross(s, f)
+    zero = torch.zeros(1, dtype=_f32, device=eye.device)
+    return torch.stack([
+        torch.cat([s, -_dot3(s, eye).reshape(1)]),
+        torch.cat([u, -_dot3(u, eye).reshape(1)]),
+        torch.cat([-f, _dot3(f, eye).reshape(1)]),
+        torch.cat([zero, zero, zero, zero + 1.0]),
+    ])
+
+
+def inverse(m) -> torch.Tensor:
+    """General 4x4 inverse by glm::inverse's cofactor formula (the
+    reference's own inverse, kernel.cu:1197-1198), written out op by op so
+    that the CPU and the GPU give the same float32 matrix without a trip to
+    the host.  It can differ from an LU inverse in the last bits."""
+    g = _t(m).T  # glm indexes m[column][row]
+    coef = {}
+    for name, (c1, r1, c2, r2, c3, r3, c4, r4) in {
+            "00": (2, 2, 3, 3, 3, 2, 2, 3), "02": (1, 2, 3, 3, 3, 2, 1, 3),
+            "03": (1, 2, 2, 3, 2, 2, 1, 3), "04": (2, 1, 3, 3, 3, 1, 2, 3),
+            "06": (1, 1, 3, 3, 3, 1, 1, 3), "07": (1, 1, 2, 3, 2, 1, 1, 3),
+            "08": (2, 1, 3, 2, 3, 1, 2, 2), "10": (1, 1, 3, 2, 3, 1, 1, 2),
+            "11": (1, 1, 2, 2, 2, 1, 1, 2), "12": (2, 0, 3, 3, 3, 0, 2, 3),
+            "14": (1, 0, 3, 3, 3, 0, 1, 3), "15": (1, 0, 2, 3, 2, 0, 1, 3),
+            "16": (2, 0, 3, 2, 3, 0, 2, 2), "18": (1, 0, 3, 2, 3, 0, 1, 2),
+            "19": (1, 0, 2, 2, 2, 0, 1, 2), "20": (2, 0, 3, 1, 3, 0, 2, 1),
+            "22": (1, 0, 3, 1, 3, 0, 1, 1), "23": (1, 0, 2, 1, 2, 0, 1, 1),
+    }.items():
+        coef[name] = g[c1, r1] * g[c2, r2] - g[c3, r3] * g[c4, r4]
+
+    def fac(a, b, c):
+        return torch.stack([coef[a], coef[a], coef[b], coef[c]])
+
+    fac0, fac1, fac2 = fac("00", "02", "03"), fac("04", "06", "07"), \
+        fac("08", "10", "11")
+    fac3, fac4, fac5 = fac("12", "14", "15"), fac("16", "18", "19"), \
+        fac("20", "22", "23")
+
+    def vec(r):
+        return torch.stack([g[1, r], g[0, r], g[0, r], g[0, r]])
+
+    vec0, vec1, vec2, vec3 = vec(0), vec(1), vec(2), vec(3)
+    sign_a = _t([1.0, -1.0, 1.0, -1.0], g)
+    sign_b = _t([-1.0, 1.0, -1.0, 1.0], g)
+    inv0 = ((vec1 * fac0 - vec2 * fac1) + vec3 * fac2) * sign_a
+    inv1 = ((vec0 * fac0 - vec2 * fac3) + vec3 * fac4) * sign_b
+    inv2 = ((vec0 * fac1 - vec1 * fac3) + vec3 * fac5) * sign_a
+    inv3 = ((vec0 * fac2 - vec1 * fac4) + vec2 * fac5) * sign_b
+    cols = torch.stack([inv0, inv1, inv2, inv3])  # glm columns
+    dot0 = g[0] * cols[:, 0]
+    det = (dot0[0] + dot0[1]) + (dot0[2] + dot0[3])
+    one_over_det = torch.ones((), dtype=_f32, device=g.device) / det
+    return (cols * one_over_det).T
 
 
 def apply(m, p) -> torch.Tensor:
