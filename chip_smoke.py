@@ -56,6 +56,32 @@ pixels, 500 samples per ray), has phases of its own, each with its own seeds:
   6b. a small a5 render against the a5 back-to-front reference scan;
   7b. phase 7 on the a5 route (K3 and K6).
 
+The lit and LUT slice, at bench.py's ``sobel_lit_700`` (700x700 pixels, 250
+samples per ray, ``lighting=True``, ``gradient_filter="sobel"``) and
+``lut_phong_300`` (300x300x300, ``tf_lut=256``, ``lighting=True``) rows and
+the a5 mode of the latter (300x300x300, ``Algorithm.TEST``,
+``lighting=True``), has phases of its own, each with its own seeds:
+
+  3e. K1's LUT, baked-light and LUT + baked-light variants against
+     ``march_plain``, which must be bit-exact (max abs err 0) at eps 0: on
+     edge inputs (tf_lut 2, 96, 256, 1024, a LUT grid point on an interval
+     bound, TF(0).alpha -3e-5, rays that miss the box, sobel + presmooth,
+     front clip with density_scale), then on both volumes at
+     ``sobel_lit_700``, ``lut_phong_300`` and ``lut_phong_300`` unlit, at
+     eps 0 and at eps 1e-3 (against the exact render); each variant's
+     time, the bake's, the plain version's and the bound;
+  3f. K3's baked-light variant against ``march_a5_plain`` on the a5 edge
+     inputs, lit, and on both volumes at the a5 lit 300x300x300 config with
+     central and sobel gradients;
+  4c. 8 orbit frames per volume and config after one warm-up through
+     ``render()``, with each variant's launch count set to 0 just before
+     and read just after;
+  5e. the CLI ``render --lighting --gradient-filter sobel`` and ``render
+     --config <json with tf_lut 256> --lighting``, a1 and ``--algorithm
+     test``, each of which must write a valid PNG;
+  6c. a small lit a1 render and a small lit a5 render against their
+     back-to-front reference scans.
+
 Kernel times are CUDA events around repeated launches queued behind a GPU
 spin, the median of 3 windows.
 
@@ -139,6 +165,18 @@ FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL = 8
 # and per ray, besides the per-interval terms: T_N g_t 1 and the
 # first-stage x, y terms 9
 FLOPS_PER_A5_BWD_RAY = 10
+# the lit slice: bench.py's sobel_lit_700 and lut_phong_300 rows and the a5
+# mode of the latter; the baked variants add rgb * M + S, 6 operations, to
+# every sample inside the volume
+LIT_CONFIGS = {
+    "sobel_lit_700": dict(width=700, height=700, samples_per_ray=250,
+                          lighting=True, gradient_filter="sobel"),
+    "lut_phong_300": dict(width=300, height=300, samples_per_ray=300,
+                          tf_lut=256, lighting=True),
+    "lut_300": dict(width=300, height=300, samples_per_ray=300, tf_lut=256),
+}
+A5_LIT = dict(width=300, height=300, samples_per_ray=300, lighting=True)
+FLOPS_PER_BAKED_SAMPLE = 6
 # timed windows per measurement; the median is reported
 TIMING_WINDOWS = 3
 # GPU cycles spun before a kernel's timed window (~50 ms at 1.98 GHz), so
@@ -726,6 +764,281 @@ def a5_cli_phase(tmp: str, tf, from_text) -> None:
           "cli a5 fit wrote a bad transfer function")
 
 
+def reset_launches(*mods) -> None:
+    """Set each kernel module's launch counts, in all and by variant, to 0."""
+    for m in mods:
+        m.launches = 0
+        m.variant_launches = dict.fromkeys(m.variant_launches, 0)
+
+
+def bound_bytes(a, rays: int) -> int:
+    """Bytes a march must move: its id grid, brick map (a1), colours, baked
+    grids and output, each once."""
+    n = a.ids.numel() * a.ids.element_size() + a.colors.numel() * 4 + rays * 16
+    occ = getattr(a, "occ", None)  # the a5 march has no brick map
+    if occ is not None:
+        n += occ.numel() * 4
+    if a.mgrid is not None:
+        n += (a.mgrid.numel() + a.sgrid.numel()) * 4
+    return n
+
+
+def exact_vs_plain(kernel, plain, label, a):
+    """A kernel variant of this slice against its plain version: it must be
+    bit-exact -> (kernel image, plain image, max abs error)."""
+    import torch
+
+    got = kernel(a)
+    want = plain(a)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    e = float((got - want).abs().max())
+    log(f"{label}: kernel vs plain max err {e:.3e} (must be 0)")
+    check(e == 0.0, f"{label}: max err {e}")
+    return got, want, e
+
+
+def lit_edge_tfs(P, tf, from_text):
+    """(TF with a bound on a 256-entry LUT grid point, TF(0).alpha -3e-5)."""
+    pts = np.arange(256, dtype=np.float32) * (np.float32(1) / np.float32(255))
+    bound = from_text(f"empty 0 1 0.1 0.1 0.1 0\n"
+                      f"edge {float(pts[40])!r} {float(pts[90])!r} 1 0.4 0.2 "
+                      f"0.3\nbone 0.5 0.7 0.9 0.9 0.8 0.6\n")
+    return bound, tf_with_alpha(P, tf, 0, -3e-5)
+
+
+def lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text, rng,
+                      per_volume):
+    """Phases 3e (K1's LUT, baked and LUT + baked variants against
+    march_plain) and 3f (K3 baked against march_a5_plain) -> {variant: max
+    abs err}; times, bakes and bounds go into ``per_volume``."""
+    import torch
+
+    errs = {"lut": 0.0, "baked": 0.0, "lut_baked": 0.0, "a5_baked": 0.0}
+    edge_rng = np.random.default_rng(10)
+    odd = P.make_volume(edge_rng.uniform(-30, 255, (13, 17, 20))
+                        .astype(np.float32), cal_max=200.9)
+    small = P.RenderConfig(width=61, height=37, samples_per_ray=37)
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    far = P.Camera.initial(position=(0.9, 0.5, 1.0))  # most rays miss
+    tf_bound, tf_neg = lit_edge_tfs(P, tf, from_text)
+    lit = small.replace(lighting=True)
+    edges = [
+        ("lut2", tf, near, small.replace(tf_lut=2)),
+        ("lut96_rays_miss_box", tf, far, small.replace(tf_lut=96)),
+        ("lut256_bound_on_grid_point", tf_bound, near,
+         small.replace(tf_lut=256)),
+        ("lut256_negative_alpha0", tf_neg, near, small.replace(tf_lut=256)),
+        ("lut1024", tf, near, small.replace(tf_lut=1024)),
+        ("baked_central", tf, near, lit),
+        ("baked_sobel_presmooth", tf, near,
+         lit.replace(gradient_filter="sobel", presmooth_sigma=1.0)),
+        ("baked_negative_alpha0", tf_neg, near, lit),
+        ("baked_rays_miss_box", tf, far, lit),
+        ("baked_front_clip_density", tf, near,
+         lit.replace(front_clip=0.5, density_scale=0.45)),
+        ("lut_baked_2", tf, near, lit.replace(tf_lut=2)),
+        ("lut_baked_bound_on_grid_point", tf_bound, near,
+         lit.replace(tf_lut=256)),
+        ("lut_baked_negative_alpha0", tf_neg, near, lit.replace(tf_lut=96)),
+        ("lut_baked_rays_miss_box", tf, far, lit.replace(tf_lut=256)),
+        ("lut_baked_1024_sobel", tf, near,
+         lit.replace(tf_lut=1024, gradient_filter="sobel")),
+    ]
+    # ---- 3e. K1 variants -------------------------------------------------
+    for name, tfx, cam, c in edges:
+        a = march.prepare(odd, tfx, cam, c, 0.0)
+        var = march.variant(a)
+        e = exact_vs_plain(march.march_kernel, march.march_plain,
+                           f"lit edge/{name} ({var})", a)[2]
+        errs[var] = max(errs[var], e)
+    for vname, vol in volumes.items():
+        for cname, kw in LIT_CONFIGS.items():
+            cfg = P.RenderConfig(**kw)
+            cam = orbit_cameras(P, rng, 1)[0]
+            a = march.prepare(vol, tf, cam, cfg, 0.0)
+            var = march.variant(a)
+            label = f"{vname}/{cname} ({var})"
+            _, exact, e = exact_vs_plain(
+                march.march_kernel, march.march_plain, f"{label} eps0", a)
+            errs[var] = max(errs[var], e)
+            got = march.march_kernel(march.prepare(vol, tf, cam, cfg, 1e-3))
+            e2 = float((got - exact).abs().max())
+            log(f"{label}: kernel at eps 1e-3 vs exact plain max err "
+                f"{e2:.3e} (tol {TOL_EPS:g})")
+            check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
+
+            # times, the bake and the bound at the render path's inputs
+            main_cfg = cfg.replace(early_termination=1e-3)
+            cams = orbit_cameras(P, rng)
+            args = [march.prepare(vol, tf, c, main_cfg, 1e-3) for c in cams]
+
+            def orbit_kernels():
+                for x in args:
+                    march.march_kernel(x)
+
+            ms = timed_ms(orbit_kernels, 5, prefill=True,
+                          label=f"{label}: kernel x{FRAMES}") / FRAMES
+            prep_ms = timed_ms(lambda: march.prepare(vol, tf, cams[0],
+                                                     main_cfg, 1e-3), 3)
+            bake_ms = 0.0
+            if cfg.lighting:
+                light = phong.default_light()
+                bake_ms = timed_ms(lambda: phong.bake_light_grids(
+                    vol.data, cfg, light, -cams[0].front), 3)
+            samples = samples_needed(march.march_plain, args)
+            plain_ms = timed_ms(lambda: march.march_plain(args[0]), 1)
+            rays = cfg.width * cfg.height
+            ops = samples * (FLOPS_PER_SAMPLE + (
+                FLOPS_PER_BAKED_SAMPLE if cfg.lighting else 0))
+            bound_ms, bound_by, ops_ms, bytes_ms = bound(
+                ops, bound_bytes(args[0], rays))
+            per_volume[vname][cname] = dict(
+                variant=var, ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
+                bake_ms=bake_ms, bound_ms=bound_ms, bound_by=bound_by,
+                samples=samples)
+            log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, prep "
+                f"{prep_ms:.4f} ms (bake {bake_ms:.4f} ms), needed samples per"
+                f" frame {samples}, bound {ops_ms:.4f} ms (operations) / "
+                f"{bytes_ms:.4f} ms (bytes)")
+            del args
+            torch.cuda.empty_cache()
+
+    # ---- 3f. K3 baked ----------------------------------------------------
+    for name, vol, tfx, cam, c, eps in a5_edge_cases(P, tf, from_text):
+        a = a5.prepare_a5(vol, tfx, cam, c.replace(lighting=True), eps)
+        e = exact_vs_plain(a5.march_a5_kernel, a5.march_a5_plain,
+                           f"a5 lit edge/{name}", a)[2]
+        errs["a5_baked"] = max(errs["a5_baked"], e)
+    for vname, vol in volumes.items():
+        cfg = P.RenderConfig(algorithm=P.Algorithm.TEST, **A5_LIT)
+        cam = orbit_cameras(P, rng, 1)[0]
+        for gname, c in (("central", cfg),
+                         ("sobel", cfg.replace(gradient_filter="sobel"))):
+            label = f"a5 {vname}/a5_lit_300_{gname}"
+            _, exact, e = exact_vs_plain(
+                a5.march_a5_kernel, a5.march_a5_plain, f"{label} eps0",
+                a5.prepare_a5(vol, tf, cam, c, 0.0))
+            errs["a5_baked"] = max(errs["a5_baked"], e)
+            got = a5.march_a5_kernel(a5.prepare_a5(vol, tf, cam, c, 1e-3))
+            e2 = float((got - exact).abs().max())
+            log(f"{label}: K3 baked at eps 1e-3 vs exact plain max err "
+                f"{e2:.3e} (tol {TOL_EPS:g})")
+            check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
+        main_cfg = cfg.replace(early_termination=1e-3)
+        cams = orbit_cameras(P, rng)
+        args = [a5.prepare_a5(vol, tf, c, main_cfg, 1e-3) for c in cams]
+
+        def orbit_a5():
+            for x in args:
+                a5.march_a5_kernel(x)
+
+        ms = timed_ms(orbit_a5, 5, prefill=True,
+                      label=f"a5 {vname}: K3 baked x{FRAMES}") / FRAMES
+        prep_ms = timed_ms(lambda: a5.prepare_a5(vol, tf, cams[0], main_cfg,
+                                                 1e-3), 3)
+        light = phong.default_light()
+        bake_ms = timed_ms(lambda: phong.bake_light_grids(
+            vol.data, cfg, light, -cams[0].front), 3)
+        samples = samples_needed(a5.march_a5_plain, args)
+        plain_ms = timed_ms(lambda: a5.march_a5_plain(args[0]), 1)
+        rays = cfg.width * cfg.height
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(
+            samples * (FLOPS_PER_A5_SAMPLE + FLOPS_PER_BAKED_SAMPLE)
+            + rays * FLOPS_PER_A5_RAY, bound_bytes(args[0], rays))
+        per_volume[vname]["a5_lit_300"] = dict(
+            variant="a5_baked", ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
+            bake_ms=bake_ms, bound_ms=bound_ms, bound_by=bound_by,
+            samples=samples)
+        log(f"a5 {vname}/a5_lit_300: K3 baked {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, prep {prep_ms:.4f} ms (bake {bake_ms:.4f} "
+            f"ms), needed samples per frame {samples}, bound {ops_ms:.4f} ms "
+            f"(operations) / {bytes_ms:.4f} ms (bytes)")
+        del args
+        torch.cuda.empty_cache()
+    return errs
+
+
+def lit_render_phase(P, march, a5, volumes, tf, rng, per_volume) -> dict:
+    """Phase 4c: 8 orbit frames per volume and lit config through
+    ``render()`` after one warm-up -> the launches of each new variant,
+    which must equal that variant's frames."""
+    import torch
+
+    configs = [(name, P.RenderConfig(early_termination=1e-3, **kw))
+               for name, kw in LIT_CONFIGS.items()]
+    configs.append(("a5_lit_300", P.RenderConfig(
+        algorithm=P.Algorithm.TEST, early_termination=1e-3, **A5_LIT)))
+    frames = {}
+    reset_launches(march, a5)
+    for cname, cfg in configs:
+        for vname, vol in volumes.items():
+            cams = orbit_cameras(P, rng)
+            P.render(vol, tf, cams[-1], cfg)  # warm-up frame
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            imgs = [P.render(vol, tf, cam, cfg) for cam in cams]
+            end.record()
+            torch.cuda.synchronize()
+            var = per_volume[vname][cname]["variant"]
+            frames[var] = frames.get(var, 0) + len(imgs) + 1
+            ms = start.elapsed_time(end) / len(imgs)
+            for img in imgs:
+                check(tuple(img.shape) == (cfg.width, cfg.height, 4),
+                      f"{vname}/{cname}: shape {img.shape}")
+                check(bool(torch.isfinite(img).all()),
+                      f"{vname}/{cname}: not finite")
+                fg = float(((img[..., :3] - 0.2).abs().amax(-1) > 0.05)
+                           .float().mean())
+                check(fg > 0.01, f"{vname}/{cname}: background only ({fg})")
+            r = per_volume[vname][cname]
+            r["render_ms"] = ms
+            log(f"{vname}/{cname}: render() {ms:.4f} ms/frame, "
+                f"{cfg.width * cfg.height / ms * 1e3:.4e} rays/s; bake "
+                f"{r['bake_ms']:.4f} ms, prep {r['prep_ms']:.4f} ms, kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    launches = {"lut": march.variant_launches["lut"],
+                "baked": march.variant_launches["baked"],
+                "lut_baked": march.variant_launches["lut_baked"],
+                "a5_baked": a5.variant_launches["baked"]}
+    log(f"lit render path launches by variant: {launches}, frames {frames}; "
+        f"K1 plain {march.variant_launches['plain']}, K3 unlit "
+        f"{a5.variant_launches['unlit']}")
+    check(launches == frames, f"lit launches {launches} != frames {frames}")
+    check(march.variant_launches["plain"] == 0
+          and a5.variant_launches["unlit"] == 0,
+          "a lit or LUT render launched an unlit variant")
+    return launches
+
+
+def lit_cli_phase(tmp: str) -> None:
+    """Phase 5e: the CLI's lit and ``--config`` renders, a1 and a5."""
+    cfg_path = os.path.join(tmp, "lut_phong.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"width": 300, "height": 300, "samples_per_ray": 300,
+                   "tf_lut": 256}, f)
+    sobel = ["--width", "700", "--height", "700", "--spr", "250",
+             "--lighting", "--gradient-filter", "sobel"]
+    for name, flags, size in (
+            ("sobel_a1", sobel, 700),
+            ("sobel_a5", sobel + ["--algorithm", "test"], 700),
+            ("config_lut_a1", ["--config", cfg_path, "--lighting"], 300),
+            ("config_lut_a5", ["--config", cfg_path, "--lighting",
+                               "--algorithm", "test"], 300)):
+        out = os.path.join(tmp, f"{name}.png")
+        proc = subprocess.run(
+            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
+             "render", "--data", "sphere", *flags, "--out", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        log(f"cli {name} exit {proc.returncode}: {proc.stdout.strip()} "
+            f"{proc.stderr.strip()[-2000:]}")
+        check(proc.returncode == 0, f"cli {name} failed")
+        check_png(out, size, size)
+
+
 def main() -> int:
     import torch
 
@@ -738,7 +1051,7 @@ def main() -> int:
     from volumerenderingproject_tpu_torch.ingest import synthetic
     from volumerenderingproject_tpu_torch.diff import fit
     from volumerenderingproject_tpu_torch.ops import (
-        _build, a5, a5_vjp, march, march_vjp)
+        _build, a5, a5_vjp, march, march_vjp, phong)
     from volumerenderingproject_tpu_torch.scene.transfer_function import (
         from_text)
 
@@ -919,6 +1232,11 @@ def main() -> int:
     k3_err, k6_abs, k6_rel = a5_kernel_phases(
         P, a5, a5_vjp, volumes, tf, a5_edge, a5_rng, per_volume)
 
+    # ---- 3e, 3f. the lit and LUT variants of K1 and K3 vs plain ------------
+    lit_rng = np.random.default_rng(11)
+    lit_errs = lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text,
+                                 lit_rng, per_volume)
+
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
     frames = 0
@@ -956,6 +1274,10 @@ def main() -> int:
     # ---- 4b. the a5 render path ---------------------------------------------
     a5_launches = a5_render_phase(P, a5, volumes, tf, a5_rng, per_volume)
 
+    # ---- 4c. the lit render paths -------------------------------------------
+    lit_launches = lit_render_phase(P, march, a5, volumes, tf, lit_rng,
+                                    per_volume)
+
     # ---- 5. the CLI ---------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "sphere.png")
@@ -989,6 +1311,9 @@ def main() -> int:
         # ---- 5c, 5d. the CLI render and fit with --algorithm test ----------
         a5_cli_phase(tmp, tf, from_text)
 
+        # ---- 5e. the CLI's lit and LUT renders ------------------------------
+        lit_cli_phase(tmp)
+
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
     sphere = volumes["sphere100"]
@@ -1007,6 +1332,18 @@ def main() -> int:
     log(f"a5 sphere 100x100x100: K3 vs back-to-front reference max err "
         f"{e:.3e} (tol {TOL_EXACT:g})")
     check(e <= TOL_EXACT, f"K3 vs a5 reference scan: {e}")
+
+    # ---- 6c. small lit inputs against the reference scans -----------------
+    for name, c in (("a1 lit", small.replace(lighting=True)),
+                    ("a1 lit LUT 256", small.replace(lighting=True,
+                                                     tf_lut=256)),
+                    ("a5 lit", small_a5.replace(lighting=True))):
+        got = P.render(sphere, tf, P.reset_preset(), c)
+        ref = P.render(sphere, tf, P.reset_preset(), c, mode="reference")
+        e = float((got - ref).abs().max())
+        log(f"{name} sphere 100x100x100: kernel vs back-to-front reference "
+            f"max err {e:.3e} (tol {TOL_EXACT:g})")
+        check(e <= TOL_EXACT, f"{name} kernel vs reference scan: {e}")
 
     # ---- 7. the fit path -----------------------------------------------------
     fit_rng = np.random.default_rng(4)
@@ -1093,6 +1430,26 @@ def main() -> int:
         "bound_by": main_vol["a5_bwd_bound_by"],
         "library_ms": None,
     }]
+    for var, cname, src, line in (
+            ("lut", "lut_300", "march.cu", "pallas_march.py:103"),
+            ("baked", "sobel_lit_700", "march.cu", "pallas_march.py:103"),
+            ("lut_baked", "lut_phong_300", "march.cu", "pallas_march.py:103"),
+            ("a5_baked", "a5_lit_300", "a5.cu", "pallas_a5.py:67")):
+        r = main_vol[cname]
+        kernels.append({
+            "name": "march_a5_baked" if var == "a5_baked"
+            else f"march_a1_{var}",
+            "route": "cuda",
+            "source": f"volumerenderingproject_tpu_torch/csrc/{src}",
+            "replaces": f"volumerenderingproject_tpu/ops/{line}",
+            "launches": lit_launches[var],
+            "max_abs_err": lit_errs[var],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
     log(f"per volume: {json.dumps(per_volume)}")
     log(f"backward kernel max relative err over all cases {bwd_rel:.3e}")
     log(f"K6 max relative err over all cases {k6_rel:.3e}")

@@ -290,7 +290,7 @@ def test_a5_ignores_a1_options(kw):
 
 
 @pytest.mark.parametrize("kw,channels,item", [
-    (dict(lighting=True), 1, "item 9"),
+    (dict(lighting=True, scattering=True), 1, "item 9"),
     (dict(scattering=True), 1, "item 9"),
     ({}, 3, "item 10"),
 ])

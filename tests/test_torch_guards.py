@@ -15,7 +15,8 @@ import volumerenderingproject_tpu_torch as P
 from volumerenderingproject_tpu_torch.diff import fit
 from volumerenderingproject_tpu_torch.harness import cli
 from volumerenderingproject_tpu_torch.ingest import synthetic
-from volumerenderingproject_tpu_torch.ops import a5_vjp, march_vjp
+from volumerenderingproject_tpu_torch import interop
+from volumerenderingproject_tpu_torch.ops import a5_vjp, march_vjp, phong
 from volumerenderingproject_tpu_torch.utils import imageio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,7 +28,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 for name in ("ops.march", "ops.march_vjp", "ops.a5", "ops.a5_vjp",
-             "diff.fit", "interop", "harness.cli", "utils.imageio"):
+             "ops.conv3d", "ops.phong", "diff.fit", "interop", "harness.cli",
+             "utils.imageio"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
@@ -63,6 +65,9 @@ def no_cuda(monkeypatch):
     lambda: P.default_transfer_function(),
     lambda: P.Camera.initial(),
     lambda: P.reset_preset(),
+    lambda: phong.default_light(),
+    lambda: interop.light_from_numpy([0, 1, 0], [1, 1, 1], 0.3, 0.6, 0.2,
+                                     8.0),
 ])
 def test_entry_points_need_cuda_without_a_device(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -77,9 +82,28 @@ def test_render_without_device_needs_cuda(no_cuda):
                  P.reset_preset(device="cpu"), cfg)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(lighting=True), dict(tf_lut=256, lighting=True),
+    dict(lighting=True, algorithm=P.Algorithm.TEST)])
+def test_lit_render_without_device_needs_cuda(no_cuda, kw):
+    vol = synthetic.centered_sphere(8, device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
+    for mode in ("fast", "scan"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            P.render(vol, P.default_transfer_function(device="cpu"),
+                     P.reset_preset(device="cpu"), cfg, mode=mode)
+
+
 def test_cli_without_device_needs_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["render", "--width", "8", "--height", "8", "--spr", "4",
+                  "--out", os.path.join(tmp_path, "x.png")])
+
+
+def test_cli_lit_render_without_device_needs_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["render", "--width", "8", "--height", "8", "--spr", "4",
+                  "--lighting", "--gradient-filter", "sobel",
                   "--out", os.path.join(tmp_path, "x.png")])
 
 

@@ -104,7 +104,7 @@ def test_material_ids_and_bricks_exact(case):
                                   _unpack_material_grid(grid, dims, zpack))
     assert int(id0) == int(jid0)
     jocc, jnb = jpm.brick_occupancy(jv, jtf, cal_trunc)
-    occ, nb = march.brick_occupancy(ids, ptf)
+    occ, nb = march.brick_occupancy(ids, ptf.colors)
     assert nb == jnb
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
 

@@ -195,7 +195,7 @@ def test_negative_alpha_marks_only_its_bricks():
     tf = P.TransferFunction(torch.tensor([0.0, 0.5]), torch.tensor([1.0, 0.6]),
                             torch.tensor([[0.0] * 4, [1.0, 1.0, 1.0, -1e-6]]),
                             torch.zeros(2))
-    occ, nb = march.brick_occupancy(ids, tf)
+    occ, nb = march.brick_occupancy(ids, tf.colors)
     assert nb == (2, 2, 1)
     np.testing.assert_array_equal(occ.numpy(), [0, 0, 1, 0])
 

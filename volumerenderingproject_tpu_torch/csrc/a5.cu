@@ -5,14 +5,20 @@
 // z <= 1023): camera-grid sample positions through modelCam, inverseView and
 // toVolume, 8 corners per sample with float-offset truncation and the
 // flat-index wrap, per-corner classification, the y->x->z colour mix,
-// front-to-back (C, T) compositing and early ray termination.  Its
-// baked-light, segment and streamed (ms_stream, id_stream) variants are not
+// front-to-back (C, T) compositing and early ray termination; and its
+// baked-light variant (`baked_light`, a template parameter): per-voxel
+// Blinn-Phong factor grids M and S (f32, in HBM), rgb <- rgb * M + S at the
+// containing voxel trunc(p) of a sample inside the volume, M = 1 and S = 0
+// outside (pallas_a5.py:93-98, 283, 447-455).  The a5 view direction is the
+// camera's front for every ray, so the factors are per voxel for any
+// camera.  Its segment and streamed (ms_stream, id_stream) variants are not
 // here.
 //
 // One thread marches one ray:
 //   per sample: the three stage matrices -> inside [0, dims)? -> 8 corner
 //   ids from a flat uint8 id grid (a corner at flat >= total takes id0) ->
-//   8 RGBAs from shared memory -> mix y->x->z -> C += T*a*rgb, T *= 1 - a;
+//   8 RGBAs from shared memory -> mix y->x->z [-> rgb * M + S] ->
+//   C += T*a*rgb, T *= 1 - a;
 //   a sample outside the volume takes TF(0)'s colour
 //   -> stop before the first sample with T <= eps
 //   -> out = (C + T * background, 1).
@@ -28,7 +34,10 @@
 // a ray hoists) and eight dependent byte loads.  The design keeps the stage
 // matrices in registers, the colours in shared memory, uses 16x16 pixel
 // blocks so that a warp's corner loads share cache lines, and stops each ray
-// as soon as its transmittance reaches eps.
+// as soon as its transmittance reaches eps.  The baked variant is bound by
+// bytes instead: M and S take 8 bytes per voxel (58 MB at 182x218x182, more
+// than L2 holds), two loads per sample inside the volume at its containing
+// voxel, shared between neighbouring rays as the corner loads are.
 //
 // Position and corner chain are in a5_common.cuh, shared with the backward
 // march (a5_bwd.cu).
@@ -39,10 +48,13 @@ namespace {
 
 constexpr int kMaxIntervals = 256;  // ids are uint8
 
+template <bool kBaked>
 __global__ void __launch_bounds__(256)
 march_a5_kernel(const float* __restrict__ scal,
                 const float* __restrict__ colors, int num_intervals,
-                const uint8_t* __restrict__ ids, A5Geom g,
+                const uint8_t* __restrict__ ids,
+                const float* __restrict__ mgrid,
+                const float* __restrict__ sgrid, A5Geom g,
                 float* __restrict__ out) {
   __shared__ float4 s_col[kMaxIntervals];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -68,7 +80,8 @@ march_a5_kernel(const float* __restrict__ scal,
     int id8[8];
     float f[3];
     float4 col = c0;
-    if (a5_corners(r, i, g, ids, id0, id8, f)) {
+    long long flat0 = -1;
+    if (a5_corners(r, i, g, ids, id0, id8, f, kBaked ? &flat0 : nullptr)) {
       const float fx = f[0], fy = f[1], fz = f[2];
       const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
       float4 c[8];
@@ -91,6 +104,13 @@ march_a5_kernel(const float* __restrict__ scal,
       A5_MIX(w)
 #undef A5_MIX
     }
+    if constexpr (kBaked) {
+      const float m = flat0 < 0 ? 1.0f : __ldg(mgrid + flat0);
+      const float sh = flat0 < 0 ? 0.0f : __ldg(sgrid + flat0);
+      col.x = col.x * m + sh;
+      col.y = col.y * m + sh;
+      col.z = col.z * m + sh;
+    }
     const float w = t * col.w;
     cr = cr + w * col.x;
     cg = cg + w * col.y;
@@ -110,17 +130,25 @@ march_a5_kernel(const float* __restrict__ scal,
 
 // Launches the a5 march on `stream`; returns cudaGetLastError() (0 =
 // launched).  scal: [41] f32 (ops/a5.py layout); colors: [K, 4] f32,
-// K <= 256; ids: [d1, d2, d3] uint8 (C order); out: [width, height, 4] f32.
+// K <= 256; ids: [d1, d2, d3] uint8 (C order); mgrid, sgrid: [d1, d2, d3]
+// f32, both null for an unlit march; out: [width, height, 4] f32.
 extern "C" int vrp_march_a5(const float* scal, const float* colors, int K,
                             const uint8_t* ids, int d1, int d2, int d3,
-                            int width, int height, int spr, float* out,
-                            void* stream) {
-  if (K <= 0 || K > kMaxIntervals || width <= 0 || height <= 0 || spr <= 0)
+                            int width, int height, int spr,
+                            const float* mgrid, const float* sgrid,
+                            float* out, void* stream) {
+  if (K <= 0 || K > kMaxIntervals || width <= 0 || height <= 0 || spr <= 0 ||
+      (mgrid == nullptr) != (sgrid == nullptr))
     return (int)cudaErrorInvalidValue;
   const A5Geom g = make_a5_geom(d1, d2, d3, width, height, spr);
   const dim3 block(16, 16);
   const dim3 grid((height + 15) / 16, (width + 15) / 16);
-  march_a5_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(scal, colors, K,
-                                                              ids, g, out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mgrid != nullptr)
+    march_a5_kernel<true><<<grid, block, 0, s>>>(scal, colors, K, ids, mgrid,
+                                                 sgrid, g, out);
+  else
+    march_a5_kernel<false><<<grid, block, 0, s>>>(scal, colors, K, ids,
+                                                  mgrid, sgrid, g, out);
   return (int)cudaGetLastError();
 }

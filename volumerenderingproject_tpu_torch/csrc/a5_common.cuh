@@ -81,15 +81,18 @@ __device__ __forceinline__ void a5_position(const A5Ray& r, int i,
 // Sample i's 8 corner ids in fetch order X1..X8 = (0,0,0), (0,0,1), (0,1,0),
 // (0,1,1), (1,0,0), (1,0,1), (1,1,0), (1,1,1) (kernel.cu:129-159) and its
 // fractions.  Returns false outside [0, dims), where the sample takes TF(0)'s
-// colour and ids/frac are not set.  The offsets are added in float before
-// the truncation (trunc(x + 1), not trunc(x) + 1), and the only bound guard
-// is flat < total: a y+1 or z+1 tap at the last row wraps into the next row,
-// and a corner past the end reads intensity 0, whose id is id0.
+// colour and ids/frac are not set.  With `flat0`, the flat index of sample
+// i's containing voxel (the first corner, trunc(p)) goes there too.  The
+// offsets are added in float before the truncation (trunc(x + 1), not
+// trunc(x) + 1), and the only bound guard is flat < total: a y+1 or z+1 tap
+// at the last row wraps into the next row, and a corner past the end reads
+// intensity 0, whose id is id0.
 __device__ __forceinline__ bool a5_corners(const A5Ray& r, int i,
                                            const A5Geom& g,
                                            const uint8_t* __restrict__ ids,
                                            int id0, int id8[8],
-                                           float frac[3]) {
+                                           float frac[3],
+                                           long long* flat0 = nullptr) {
   float p[3];
   a5_position(r, i, p);
   bool inside = true;
@@ -113,6 +116,7 @@ __device__ __forceinline__ bool a5_corners(const A5Ray& r, int i,
                            ((k & 2) ? i1[1] : i0[1]) * s2 +
                            ((k & 1) ? i1[2] : i0[2]);
     id8[k] = flat < g.total ? (int)__ldg(ids + flat) : id0;
+    if (k == 0 && flat0 != nullptr) *flat0 = flat;
   }
   return true;
 }

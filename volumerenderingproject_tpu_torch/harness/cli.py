@@ -39,6 +39,10 @@ def _camera(args, config, device):
 def _config(args):
     from ..utils.config import Algorithm, RenderConfig
 
+    cfg = RenderConfig()
+    if args.config:
+        with open(args.config) as f:
+            cfg = RenderConfig.from_json(f.read())
     over = {}
     if args.algorithm:
         over["algorithm"] = Algorithm[args.algorithm.upper()]
@@ -48,7 +52,13 @@ def _config(args):
         over["height"] = args.height
     if args.spr:
         over["samples_per_ray"] = args.spr
-    return RenderConfig(**over)
+    if getattr(args, "lighting", False):
+        over["lighting"] = True
+    if getattr(args, "gradient_filter", None):
+        over["gradient_filter"] = args.gradient_filter
+    if getattr(args, "presmooth", None):
+        over["presmooth_sigma"] = args.presmooth
+    return cfg.replace(**over)
 
 
 def _tf(args, device):
@@ -149,6 +159,8 @@ def _common(sp) -> None:
                     help="vrc (a1, the default) or test (a5); point is "
                          "not ported yet (the renderer raises)")
     sp.add_argument("--device", help="torch device (default: cuda)")
+    sp.add_argument("--config", help="RenderConfig JSON path (the flags "
+                    "override its fields; tf_lut is set here)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -158,6 +170,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("render", help="render one frame to PNG")
     _common(sp)
     sp.add_argument("--out")
+    sp.add_argument("--lighting", action="store_true",
+                    help="Phong gradient shading with the default light")
+    sp.add_argument("--gradient-filter", choices=["central", "sobel"])
+    sp.add_argument("--presmooth", type=float,
+                    help="Gaussian sigma for the pre-render gradient filter")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("fit", help="optimize TF colors to a target image")

@@ -4,6 +4,7 @@ package's pytrees hold, so both packages render identical inputs.
     volume_from_numpy(data, cal_max, dims)
     transfer_function_from_numpy(lower, upper, colors, hg_g)
     camera_from_numpy(position, front, right, up, top_left)
+    light_from_numpy(direction, color, ambient, diffuse, specular, shininess)
     fit_params_from_numpy(tf_colors, density_scale)
     adam_state_from_numpy(optimizer, params, count, mu, nu)
 
@@ -18,6 +19,7 @@ import torch
 
 from .diff.fit import FitParams
 from .ingest.volume import Volume
+from .ops.phong import Light
 from .scene.camera import Camera
 from .scene.transfer_function import TransferFunction
 from .utils.device import resolve_device
@@ -52,6 +54,15 @@ def camera_from_numpy(position, front, right, up, top_left,
     dev = resolve_device(device)
     return Camera(*(_f32(v, dev) for v in (position, front, right, up,
                                            top_left)))
+
+
+def light_from_numpy(direction, color, ambient, diffuse, specular, shininess,
+                     device=None) -> Light:
+    """The port's ``Light`` from the JAX ``Light``'s fields: direction and
+    color [3], the four coefficients 0-d."""
+    dev = resolve_device(device)
+    return Light(*(_f32(v, dev) for v in (direction, color, ambient, diffuse,
+                                          specular, shininess)))
 
 
 def fit_params_from_numpy(tf_colors, density_scale, device=None) -> FitParams:

@@ -55,6 +55,10 @@ def check_diff_supported(config: RenderConfig, channels: int,
     ``a5_diff_config_ok``): it takes unlit, one-channel renders of at most
     16 intervals."""
     a5.check_supported(config, channels)
+    if config.lighting:
+        raise NotImplementedError(
+            "lit a5 fits are not ported yet: ROADMAP.md item 9 (lighting, "
+            "LUT and scattering) and item 11 (K6's baked-light variant)")
     if num_intervals > MAX_INTERVALS:
         raise NotImplementedError(
             f"the differentiable a5 march takes at most {MAX_INTERVALS} TF "
@@ -89,7 +93,7 @@ def _coef_samples(a: A5Args):
     zero = torch.zeros((), dtype=_f32, device=dev)
 
     def sample(i: int):
-        mid, frac, inside = corners(i)
+        mid, frac, inside, _ = corners(i)
         fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
         gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
         wts = ((gy * gx) * gz, (gy * gx) * fz, (fy * gx) * gz, (fy * gx) * fz,

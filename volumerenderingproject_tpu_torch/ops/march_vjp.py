@@ -67,6 +67,11 @@ def check_diff_supported(config: RenderConfig, channels: int,
     """Raise NotImplementedError, naming the ROADMAP.md item, for what the
     differentiable march of this slice does not compute."""
     march.check_supported(config, channels)
+    if config.lighting or config.tf_lut:
+        raise NotImplementedError(
+            "lit and LUT fits are not ported yet: ROADMAP.md item 9 "
+            "(lighting, LUT and scattering) and item 11 (K4's baked-light "
+            "and LUT variants)")
     if num_intervals > MAX_INTERVALS:
         raise NotImplementedError(
             f"the differentiable march takes at most {MAX_INTERVALS} TF "
@@ -121,7 +126,7 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
     gr, gg, gb = g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2]
 
     def sample(i):
-        mid, _ = ids_at(i)
+        mid = ids_at(i)[0]
         rgba = colors[mid]
         gd = (gr * rgba[..., 0] + gg * rgba[..., 1]) + gb * rgba[..., 2]
         return mid, rgba[..., 3], gd

@@ -55,6 +55,27 @@ class TransferFunction:
         """RGBA for normalized intensities, shape value.shape + (4,)."""
         return self.colors[self.classify_index(value)]
 
+    def to_lut(self, resolution: int = 256) -> torch.Tensor:
+        """Dense RGBA LUT [R, 4]: the classification of the R grid points
+        i / (R - 1), which a LUT render reaches by rounding to nearest.
+
+        The grid is the JAX package's ``jnp.linspace(0, 1, R, float32)`` bit
+        for bit: XLA turns its division by the constant R - 1 into a product
+        with the float32 reciprocal, so point i is f32(i) * f32(1 / (R - 1))
+        and the last one is 1.  (``torch.linspace`` and the IEEE quotient
+        each differ from it by an ulp at many points, and a point on an
+        interval bound then takes another colour.)"""
+        dev = self.colors.device
+        if resolution == 1:
+            grid = torch.zeros(1, dtype=_f32, device=dev)
+        else:
+            recip = np.float32(1.0) / np.float32(resolution - 1)
+            grid = torch.cat([
+                torch.arange(resolution - 1, dtype=_f32, device=dev)
+                * torch.tensor(recip, device=dev),
+                torch.ones(1, dtype=_f32, device=dev)])
+        return self.classify(grid)
+
 
 def _table(lowers, uppers, colors, gs, device) -> TransferFunction:
     dev = resolve_device(device)
