@@ -82,6 +82,37 @@ the a5 mode of the latter (300x300x300, ``Algorithm.TEST``,
   6c. a small lit a1 render and a small lit a5 render against their
      back-to-front reference scans.
 
+Smooth mode (``Interp.TRILINEAR``: trilinear intensities through the
+sigmoid-product TF) at the a1 main path's shapes (700x700 pixels, 500
+samples per ray, sharpness 200), on both volumes, has phases of its own,
+each with its own seeds:
+
+  3g. the smooth march kernel (K8) against ``march_smooth_plain`` at eps 0,
+     to 2e-6 (bit-exact expected): on edge inputs (9x11x10 with negative
+     voxels and cal_max 200.9, 61x37 pixels, K = 2, 4 and 16, sharpness
+     40, 200 and 1000, ortho, conic and conic uncorrected, rays grazing the
+     entry faces, alpha exactly 1, a front clip, eps 1e-3), then ortho and
+     conic on both volumes, and at eps 1e-3 against the exact render; its
+     time on the orbit's inputs, the plain version's and the bound;
+  3h. the smooth backward kernel (K9) with the volume gradient against
+     ``march_smooth_bwd_plain`` + ``splat_volume_grad_plain`` on the same
+     edges and on both volumes (dcolors, dlower, dupper, dvolume, each
+     within 5e-3 of max |dplain|); K9's time with and without the splat;
+     central differences of the loss in three TF bounds and three voxels
+     at 700x700x500 on the MNI-dims volume, within 1e-2;
+  4d. 8 orbit frames per volume after one warm-up through ``render()``
+     (eps 1e-3), K8's launches counted;
+  5f. the CLI ``render --interp trilinear`` and ``fit --interp trilinear
+     --fit-bounds``;
+  6d. a small smooth render against the back-to-front reference scan;
+  7c. phase 7 on the smooth route with ``fit_bounds=True`` (the bounds
+     start moved by the JAX bound-recovery test's offsets), K8 and K9;
+  7d. the JAX package's bound-recovery case (tests/test_fit_params.py:
+     181-201: sharpness 40, 80 steps at lr 5e-3) through the kernels: the
+     last loss below 0.35 of the first, the bound error falling;
+  7e. a volume-gradient step (forward and backward with ``volume.data``
+     requiring grad) at 700x700x500 on the MNI-dims volume, 5 times.
+
 Kernel times are CUDA events around repeated launches queued behind a GPU
 spin, the median of 3 windows.
 
@@ -177,6 +208,34 @@ LIT_CONFIGS = {
 }
 A5_LIT = dict(width=300, height=300, samples_per_ray=300, lighting=True)
 FLOPS_PER_BAKED_SAMPLE = 6
+# smooth mode (Interp.TRILINEAR, K8 and K9), each float operation counted
+# once however a kernel schedules it (csrc/smooth.cu, smooth_bwd.cu).  A
+# sample with a corner in the volume: the time step 2, the position 15,
+# floor and fractions 6, 1 - f 3, seven lerps 21, the division by cal_max
+# 1, compositing 9; and per interval k >= 1 two sigmoids (argument 2, exp
+# 1, 1 + e 1, division 1) 10, w_k 1, four colour terms 8.  A sample with no
+# corner in the volume reads intensity 0, whose RGBA is the ray's constant:
+# compositing 9.  Per ray C + T bg 6.
+FLOPS_PER_SMOOTH_SAMPLE = 57
+FLOPS_PER_SMOOTH_SAMPLE_PER_INTERVAL = 19
+FLOPS_PER_SMOOTH_OUTSIDE_SAMPLE = 9
+FLOPS_PER_SMOOTH_RAY = 6
+# K9, a sample with a corner in the volume: the sample chain above without
+# compositing 48, g . rgb 5, the transmittance chain 9 (as K4's), 1 - sum w
+# and interval 0's two sums 5; per interval the chain 19 and dL/dw 3 (g .
+# (c_k - c_0) is per ray), q 2, dL/dvn 3, sum w 1, dlower 3, dupper 3, the
+# two colour sums 4; with the volume gradient dL/dvn / cal_max 1, the eight
+# trilinear weights 12, times the gradient 8, the eight adds 8.  Off the
+# volume: K4's chain and sums, FLOPS_PER_BWD_OUTSIDE_SAMPLE.  Per ray as K4.
+FLOPS_PER_SMOOTH_BWD_SAMPLE = 67
+FLOPS_PER_SMOOTH_BWD_SAMPLE_PER_INTERVAL = 38
+FLOPS_PER_SMOOTH_SPLAT_SAMPLE = 29
+TOL_SMOOTH = 2e-6  # K8 vs plain at eps 0 (bit-exact expected)
+SMOOTH_FD_BOUND_STEP = 1e-4  # central difference: bound step (units of vn)
+SMOOTH_FD_VOXEL_STEP = 0.05  # and voxel step (intensity units)
+# the JAX package's bound-recovery case (tests/test_fit_params.py:181-201)
+RECOVERY_STEPS = 80
+RECOVERY_LR = 5e-3
 # timed windows per measurement; the median is reported
 TIMING_WINDOWS = 3
 # GPU cycles spun before a kernel's timed window (~50 ms at 1.98 GHz), so
@@ -321,8 +380,8 @@ def cotangents(a, rng):
     scale = np.float32(1.0 / (a.width * a.height))
     g_rgb = rng.normal(0.0, 1.0, (a.width, a.height, 3)).astype(np.float32)
     g_t = rng.normal(0.0, 1.0, (a.width, a.height)).astype(np.float32)
-    return (torch.tensor(g_rgb * scale, device=a.ids.device),
-            torch.tensor(g_t * scale, device=a.ids.device))
+    return (torch.tensor(g_rgb * scale, device=a.scal.device),
+            torch.tensor(g_t * scale, device=a.scal.device))
 
 
 def fwd_vs_plain(kernel, plain, label, a, conic=False):
@@ -407,8 +466,10 @@ class FitRoute:
         return self.fwd_mod.launches, self.bwd_mod.launches
 
 
-def fit_phase(P, fit, route, vname, vol, rng, cfg):
-    """Phase 7 (a1) or 7b (a5) on one volume -> its numbers."""
+def fit_phase(P, fit, route, vname, vol, rng, cfg, fit_bounds=False):
+    """Phase 7 (a1), 7b (a5) or 7c (the smooth bound fit, ``fit_bounds``:
+    the bounds start moved by the JAX test's offsets and are fitted too) on
+    one volume -> its numbers."""
     import torch
 
     kf, kb = route.label
@@ -418,11 +479,15 @@ def fit_phase(P, fit, route, vname, vol, rng, cfg):
     colors = tf.colors.clone()
     colors[1:, :3] += torch.tensor(
         rng.uniform(-0.2, 0.2, (3, 3)).astype(np.float32), device=colors.device)
-    start_tf = P.TransferFunction(tf.lower, tf.upper, colors, tf.hg_g)
+    lower, upper = tf.lower, tf.upper
+    if fit_bounds:
+        lower, upper = bounds_moved(tf)
+    start_tf = P.TransferFunction(lower, upper, colors, tf.hg_g)
 
     def run(steps, lr=FIT_LR):
         return fit.fit_transfer_function(vol, cam, target, start_tf, cfg,
-                                         steps=steps, learning_rate=lr)
+                                         steps=steps, learning_rate=lr,
+                                         fit_bounds=fit_bounds)
 
     run(1)  # warm-up step
     torch.cuda.synchronize()
@@ -467,9 +532,9 @@ def fit_phase(P, fit, route, vname, vol, rng, cfg):
     # the gradient at the start against a central difference of the loss
     # along it; the change it predicts is taken over the parameter steps as
     # float32 rounds them
-    params = fit.FitParams.init(start_tf)
+    params = fit.FitParams.init(start_tf, fit_bounds=fit_bounds)
     fit.render_loss(params, start_tf, vol, cam, target, cfg).backward()
-    grads = [params.tf_colors.grad, params.density_scale.grad]
+    grads = [p.grad for p in params.parameters()]
     norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
     check(math.isfinite(norm) and norm > 0.0, f"{vname}: gradient {norm}")
     with torch.no_grad():
@@ -498,9 +563,8 @@ def fit_phase(P, fit, route, vname, vol, rng, cfg):
     finally:
         vjp._forward, vjp._backward = routes
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    param_err = max(
-        float((pk.tf_colors - pp.tf_colors).detach().abs().max()),
-        float((pk.density_scale - pp.density_scale).detach().abs()))
+    param_err = max(float((a - b).detach().abs().max())
+                    for a, b in zip(pk.parameters(), pp.parameters()))
     log(f"{vname}: 2 fit steps, kernels vs plain: losses {lk} vs {lp} "
         f"(max relative err {loss_err:.3e}), parameters max abs err "
         f"{param_err:.3e} (tol {TOL_FIT:g})")
@@ -1039,6 +1103,443 @@ def lit_cli_phase(tmp: str) -> None:
         check_png(out, size, size)
 
 
+def bounds_moved(tf):
+    """The default TF's bounds moved by the JAX bound-recovery test's
+    offsets (tests/test_fit_params.py:188-192) -> (lower, upper)."""
+    import torch
+
+    dev = tf.lower.device
+    return (tf.lower + torch.tensor([0.0, 0.06, -0.05, 0.04], device=dev),
+            tf.upper + torch.tensor([0.0, -0.06, 0.05, -0.04], device=dev))
+
+
+def smooth_edge_cases(P, tf, from_text):
+    """Edge inputs of the smooth kernels at small shapes -> [(name, volume,
+    tf, camera, config, eps)]: non-cubic 9x11x10 dims with negative voxels
+    and cal_max 200.9, 61x37 pixels, K = 2, 4 and 16, sharpness 40, 200 and
+    1000 (exp overflows to inf), ortho, conic and conic uncorrected, rays
+    grazing the entry faces, alpha exactly 1, a front clip, eps 1e-3."""
+    rng = np.random.default_rng(12)
+    odd = P.make_volume(rng.uniform(-40, 255, (9, 11, 10)).astype(np.float32),
+                        cal_max=200.9)
+    small = P.RenderConfig(width=61, height=37, samples_per_ray=37,
+                           interp=P.Interp.TRILINEAR)
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    # axis-aligned ortho rays: columns in the -1 band of the x and y faces
+    graze = P.Camera.initial(position=(0.0, 0.0, 1.2))
+    k2 = from_text("empty 0 1 0.1 0.2 0.3 0.05\nbone 0.3 0.6 0.9 0.8 0.7 "
+                   "0.6\n")
+    colors = tf.colors.clone()
+    colors[:, 3] = 1.0
+    opaque = P.TransferFunction(tf.lower, tf.upper, colors, tf.hg_g)
+    k16 = tf16(P, tf.colors.device)
+    return [
+        ("k2_s200", odd, k2, near, small, 0.0),
+        ("k4_s40", odd, tf, near, small.replace(tf_sharpness=40.0), 0.0),
+        ("k4_s1000", odd, tf, near, small.replace(tf_sharpness=1000.0), 0.0),
+        ("k16_s200", odd, k16, near, small, 0.0),
+        ("k16_s1000_conic", odd, k16, near,
+         small.replace(tf_sharpness=1000.0, conic=True), 0.0),
+        ("conic", odd, tf, near, small.replace(conic=True), 0.0),
+        ("conic_uncorrected", odd, tf, near,
+         small.replace(conic=True, conic_corrected=False), 0.0),
+        ("grazing_entry_faces", odd, tf, graze, small, 0.0),
+        ("alpha_one", odd, opaque, near, small, 0.0),
+        ("front_clip", odd, tf, near, small.replace(front_clip=0.5), 0.0),
+        ("eps1e-3", odd, tf, near, small, 1e-3),
+    ]
+
+
+def smooth_bwd_vs_plain(smooth_vjp, label, a, g) -> dict:
+    """K9 (with the volume gradient) against march_smooth_bwd_plain +
+    splat_volume_grad_plain -> each output's max abs error and its error
+    relative to max |dplain|."""
+    import torch
+
+    got = smooth_vjp.march_smooth_bwd_kernel(a, *g, True)
+    want = smooth_vjp.march_smooth_bwd_plain(a, *g, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, y in zip(("dcolors", "dlower", "dupper", "dvolume"), got,
+                          want):
+        check(bool(torch.isfinite(x).all()), f"{label}: {name} not finite")
+        e_abs = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        e_rel = e_abs / scale if scale > 0.0 else (0.0 if e_abs == 0.0
+                                                   else math.inf)
+        errs[name] = (e_abs, e_rel)
+        check(e_rel <= TOL_GRAD, f"{label}: {name} relative error {e_rel}")
+    check(float(want[0].abs().max()) > 0.0,
+          f"{label}: the plain colour gradient is all zero")
+    log(f"{label}: K9 vs plain (abs, relative to max |dplain|) "
+        + ", ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in errs.items())
+        + f" (tol {TOL_GRAD:g})")
+    return errs
+
+
+def smooth_bwd_ops(k: int, inside: float, total: float, rays: int,
+                   splat: bool) -> float:
+    """Float operations K9 needs (FLOPS_PER_SMOOTH_BWD_*)."""
+    per = (FLOPS_PER_SMOOTH_BWD_SAMPLE
+           + (k - 1) * FLOPS_PER_SMOOTH_BWD_SAMPLE_PER_INTERVAL
+           + (FLOPS_PER_SMOOTH_SPLAT_SAMPLE if splat else 0))
+    return (inside * per + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+            + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL + FLOPS_PER_BWD_RAY))
+
+
+def smooth_fd_check(P, smooth_vjp, vol, tf, cfg, rng) -> float:
+    """Central differences of the loss at 700x700x500 in the three TF bounds
+    and the three voxels of largest gradient, against K9's gradient -> the
+    largest relative error."""
+    import dataclasses
+
+    import torch
+
+    cam = orbit_cameras(P, rng, 1)[0]
+    target = P.render(vol, tf, cam, cfg)
+    lower, upper = bounds_moved(tf)
+    lo = lower.clone().requires_grad_()
+    hi = upper.clone().requires_grad_()
+    data = vol.data.clone().requires_grad_()
+
+    def loss_of(lo_, hi_, data_):
+        img = smooth_vjp.render_vrc_smooth_diff(
+            dataclasses.replace(vol, data=data_),
+            P.TransferFunction(lo_, hi_, tf.colors, tf.hg_g), cam, cfg)
+        return ((img[..., :3] - target[..., :3]).double() ** 2).mean()
+
+    loss_of(lo, hi, data).backward()
+    worst = 0.0
+    with torch.no_grad():
+        # the three bounds and the three voxels of largest gradient
+        both = torch.cat([lo.grad[1:], hi.grad[1:]]).abs()
+        k1 = lo.numel() - 1
+        probes = []
+        for j in torch.topk(both, 3).indices.tolist():
+            which, idx = (0, j + 1) if j < k1 else (1, j - k1 + 1)
+            probes.append((f"{('lower', 'upper')[which]}[{idx}]", which, idx))
+        flat = data.grad.reshape(-1).abs()
+        for idx in torch.topk(flat, 3).indices.tolist():
+            probes.append((f"voxel {idx}", 2, idx))
+        for name, which, idx in probes:
+            h = SMOOTH_FD_VOXEL_STEP if which == 2 else SMOOTH_FD_BOUND_STEP
+            grad = [lo.grad, hi.grad, data.grad.reshape(-1)][which][idx]
+            ls = []
+            for sign in (1.0, -1.0):
+                args = [lower.clone(), upper.clone(), vol.data.clone()]
+                args[which].reshape(-1)[idx] += sign * h
+                ls.append(float(loss_of(*args)))
+            fd = (ls[0] - ls[1]) / (2.0 * h)
+            err = abs(fd - float(grad)) / abs(float(grad))
+            worst = max(worst, err)
+            log(f"smooth central difference {name}: step {h:g}, "
+                f"{fd:.6e} vs gradient {float(grad):.6e} (relative err "
+                f"{err:.3e}, tol {TOL_FD:g})")
+            check(err <= TOL_FD, f"smooth central difference {name}: {err}")
+    return worst
+
+
+def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
+                         per_volume) -> dict:
+    """Phases 3g (K8 against march_smooth_plain) and 3h (K9 against
+    march_smooth_bwd_plain + splat_volume_grad_plain, and the central
+    differences) -> the errors; times and bounds go into ``per_volume``."""
+    import torch
+
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR,
+                         interp=P.Interp.TRILINEAR)
+    k8_err = 0.0
+
+    def k8_vs_plain(label, a):
+        got = smooth.march_smooth_kernel(a)
+        want = smooth.march_smooth_plain(a)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+        e = float((got - want).abs().max())
+        log(f"{label}: K8 vs plain max err {e:.3e} (tol {TOL_SMOOTH:g})")
+        check(e <= TOL_SMOOTH, f"{label}: max err {e}")
+        return got, want, e
+
+    # ---- 3g. K8 ----------------------------------------------------------
+    edges = smooth_edge_cases(P, tf, from_text)
+    for name, vol, tfx, cam, c, eps in edges:
+        k8_err = max(k8_err, k8_vs_plain(
+            f"smooth edge/{name}",
+            smooth.prepare_smooth(vol, tfx, cam, c, eps))[2])
+    for vname, vol in volumes.items():
+        orbit_cam = orbit_cameras(P, rng, 1)[0]
+        _, exact, e = k8_vs_plain(f"smooth {vname}/ortho_orbit_eps0",
+                                  smooth.prepare_smooth(vol, tf, orbit_cam,
+                                                        cfg, 0.0))
+        k8_err = max(k8_err, e)
+        got = smooth.march_smooth_kernel(
+            smooth.prepare_smooth(vol, tf, orbit_cam, cfg, 1e-3))
+        e2 = float((got - exact).abs().max())
+        log(f"smooth {vname}: K8 at eps 1e-3 vs exact plain max err {e2:.3e}"
+            f" (tol {TOL_EPS:g})")
+        check(e2 <= TOL_EPS, f"smooth {vname}: eps error {e2}")
+        k8_err = max(k8_err, k8_vs_plain(
+            f"smooth {vname}/conic_eps0", smooth.prepare_smooth(
+                vol, tf, P.Camera.initial(position=(0.9, 0.5, 1.0)),
+                cfg.replace(conic=True), 0.0))[2])
+
+        # K8 and plain times and the bound, at the render path's inputs
+        cams = orbit_cameras(P, rng)
+        main_cfg = cfg.replace(early_termination=1e-3)
+        args = [smooth.prepare_smooth(vol, tf, cam, main_cfg, 1e-3)
+                for cam in cams]
+
+        def orbit_kernels():
+            for x in args:
+                smooth.march_smooth_kernel(x)
+
+        ms = timed_ms(orbit_kernels, 5, prefill=True,
+                      label=f"smooth {vname}: K8 x{FRAMES}") / FRAMES
+        prep_ms = timed_ms(lambda: smooth.prepare_smooth(
+            vol, tf, cams[0], main_cfg, 1e-3), 5)
+        live = inside = 0
+        for x in args:
+            stats = {}
+            smooth.march_smooth_plain(x, stats)
+            live += stats["samples"] / FRAMES
+            inside += stats["inside"] / FRAMES
+        plain_ms = timed_ms(lambda: smooth.march_smooth_plain(args[0]), 1)
+        k = tf.num_intervals
+        rays = W * H
+        ops = (inside * (FLOPS_PER_SMOOTH_SAMPLE
+                         + (k - 1) * FLOPS_PER_SMOOTH_SAMPLE_PER_INTERVAL)
+               + (live - inside) * FLOPS_PER_SMOOTH_OUTSIDE_SAMPLE
+               + rays * FLOPS_PER_SMOOTH_RAY)
+        nbytes = vol.data.numel() * 4 + k * 24 + rays * 16
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
+        per_volume[vname]["smooth"] = dict(
+            ms=ms, plain_ms=plain_ms, prep_ms=prep_ms, bound_ms=bound_ms,
+            bound_by=bound_by, samples=live, inside=inside)
+        log(f"smooth {vname}: K8 {ms:.4f} ms, plain {plain_ms:.2f} ms, prep "
+            f"{prep_ms:.4f} ms, samples per frame {live} on live rays "
+            f"({inside} with a corner in the volume), bound {ops_ms:.4f} ms "
+            f"(operations) / {bytes_ms:.4f} ms (bytes)")
+        del args
+
+    # ---- 3h. K9 ----------------------------------------------------------
+    grad_rng = np.random.default_rng(13)
+    k9 = {}
+
+    def note(errs):
+        for name, (e_abs, e_rel) in errs.items():
+            a0, r0 = k9.get(name, (0.0, 0.0))
+            k9[name] = (max(a0, e_abs), max(r0, e_rel))
+
+    for name, vol, tfx, cam, c, eps in edges:
+        if eps != 0.0:
+            continue  # the differentiable march runs at eps 0
+        a = smooth_vjp.prepare_smooth_diff(vol, tfx, cam, c)
+        note(smooth_bwd_vs_plain(smooth_vjp, f"smooth edge/{name}", a,
+                                 cotangents(a, grad_rng)))
+    bwd_cam = orbit_cameras(P, np.random.default_rng(14), 1)[0]
+    for vname, vol in volumes.items():
+        cases = [("ortho_orbit", bwd_cam, cfg)]
+        if vname == "sphere100":
+            cases.append(("conic", P.Camera.initial(position=(0.9, 0.5, 1.0)),
+                          cfg.replace(conic=True)))
+        for name, cam, c in cases:
+            a = smooth_vjp.prepare_smooth_diff(vol, tf, cam, c)
+            g = cotangents(a, grad_rng)
+            note(smooth_bwd_vs_plain(smooth_vjp, f"smooth {vname}/{name}", a,
+                                     g))
+            if c.conic:
+                continue
+            ms = timed_ms(lambda: smooth_vjp.march_smooth_bwd_kernel(a, *g),
+                          5, prefill=True, label=f"smooth {vname}: K9")
+            splat_ms = timed_ms(
+                lambda: smooth_vjp.march_smooth_bwd_kernel(a, *g, True), 5,
+                prefill=True, label=f"smooth {vname}: K9 with the splat")
+            plain_ms = timed_ms(
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g), 1)
+            plain_splat_ms = timed_ms(
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g, True), 1)
+            fwd_ms = timed_ms(lambda: smooth.march_smooth_kernel(a), 5,
+                              prefill=True)
+            stats = {}
+            smooth.march_smooth_plain(a, stats)
+            k = a.colors.shape[0]
+            rays = W * H
+            total = rays * SPR
+            nbytes = (vol.data.numel() * 4 + rays * 16 + k * 24
+                      + smooth_vjp.num_blocks(W, H) * k * 24)
+            b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False),
+                      nbytes)
+            bs = bound(smooth_bwd_ops(k, stats["inside"], total, rays, True),
+                       nbytes + vol.data.numel() * 4)
+            per_volume[vname]["smooth"].update(
+                bwd_ms=ms, bwd_splat_ms=splat_ms, bwd_plain_ms=plain_ms,
+                bwd_plain_splat_ms=plain_splat_ms, fwd_eps0_ms=fwd_ms,
+                bwd_bound_ms=b[0], bwd_bound_by=b[1], bwd_splat_bound_ms=bs[0],
+                bwd_splat_bound_by=bs[1], bwd_inside=stats["inside"])
+            log(f"smooth {vname}: K9 {ms:.4f} ms, with the splat "
+                f"{splat_ms:.4f} ms; plain {plain_ms:.2f} ms, with the splat "
+                f"{plain_splat_ms:.2f} ms; K8 at eps 0 {fwd_ms:.4f} ms; "
+                f"samples with a corner in the volume {stats['inside']} of "
+                f"{total}; bound {b[0]:.4f} ms ({b[1]}), with the splat "
+                f"{bs[0]:.4f} ms ({bs[1]})")
+    fd_err = smooth_fd_check(P, smooth_vjp, volumes["mni_dims_182x218x182"],
+                             tf, cfg, np.random.default_rng(15))
+    return dict(k8=k8_err, k9=k9, fd=fd_err)
+
+
+def smooth_render_phase(P, smooth, volumes, tf, rng, per_volume) -> int:
+    """Phase 4d: 8 orbit frames per volume after one warm-up through
+    ``render()`` with Interp.TRILINEAR at eps 1e-3 -> K8's launches, which
+    must equal the frames."""
+    import torch
+
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR,
+                         interp=P.Interp.TRILINEAR, early_termination=1e-3)
+    frames = 0
+    smooth.launches = 0
+    for vname, vol in volumes.items():
+        cams = orbit_cameras(P, rng)
+        P.render(vol, tf, cams[-1], cfg)  # warm-up frame
+        frames += 1
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        imgs = [P.render(vol, tf, cam, cfg) for cam in cams]
+        end.record()
+        torch.cuda.synchronize()
+        frames += len(imgs)
+        ms = start.elapsed_time(end) / len(imgs)
+        for img in imgs:
+            check(tuple(img.shape) == (W, H, 4),
+                  f"smooth {vname}: shape {img.shape}")
+            check(bool(torch.isfinite(img).all()),
+                  f"smooth {vname}: not finite")
+            fg = float(((img[..., :3] - 0.2).abs().amax(-1) > 0.05)
+                       .float().mean())
+            check(fg > 0.01, f"smooth {vname}: background only ({fg})")
+        per_volume[vname]["smooth"]["render_ms"] = ms
+        log(f"smooth {vname}: render() {ms:.4f} ms/frame, "
+            f"{W * H / ms * 1e3:.4e} rays/s")
+    launches = smooth.launches
+    log(f"K8 launches on the smooth render path: {launches} for {frames} "
+        f"frames")
+    check(launches == frames, f"smooth launches {launches} != frames {frames}")
+    return launches
+
+
+def smooth_cli_phase(tmp: str, tf, from_text) -> None:
+    """Phase 5f: the CLI ``render --interp trilinear`` and ``fit --interp
+    trilinear --fit-bounds``."""
+    import torch
+
+    size = ["--width", str(W), "--height", str(H), "--spr", str(SPR)]
+    out = os.path.join(tmp, "sphere_smooth.png")
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "render",
+         "--data", "sphere", *size, "--interp", "trilinear", "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(f"cli smooth render exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli smooth render failed")
+    check_png(out, W, H)
+    out_tf = os.path.join(tmp, "fitted_bounds.txt")
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "fit",
+         "--data", "sphere", *size, "--interp", "trilinear", "--fit-bounds",
+         "--target", out, "--steps", "3", "--lr", str(RECOVERY_LR),
+         "--out-tf", out_tf],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"cli smooth fit exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli smooth fit failed")
+    with open(out_tf) as f:
+        fitted = from_text(f.read())
+    check(fitted.num_intervals == tf.num_intervals
+          and all(bool(torch.isfinite(t).all())
+                  for t in (fitted.colors, fitted.lower, fitted.upper)),
+          "cli smooth fit wrote a bad transfer function")
+
+
+def bound_recovery_phase(P, fit, smooth, smooth_vjp) -> dict:
+    """Phase 7d: tests/test_fit_params.py:181-201 on the card through K8
+    and K9: 80 steps at lr 5e-3 from bounds moved by the test's offsets,
+    sharpness 40; the last loss must be below 0.35 of the first and the
+    mean bound error must fall."""
+    rng = np.random.default_rng(11)
+    vol = P.make_volume(rng.uniform(0.0, 255.0, size=(9, 11, 10))
+                        .astype(np.float32))
+    tf = P.default_transfer_function()
+    cam = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    cfg = P.RenderConfig(width=18, height=13, samples_per_ray=30,
+                         interp=P.Interp.TRILINEAR, tf_sharpness=40.0)
+    target = P.render(vol, tf, cam, cfg)
+    lower, upper = bounds_moved(tf)
+    start = P.TransferFunction(lower, upper, tf.colors, tf.hg_g)
+    smooth.launches = smooth_vjp.launches = 0
+    params, losses = fit.fit_transfer_function(
+        vol, cam, target, start, cfg, steps=RECOVERY_STEPS,
+        learning_rate=RECOVERY_LR, fit_bounds=True)
+    launches = (smooth.launches, smooth_vjp.launches)
+    err0 = float((lower - tf.lower).abs().mean())
+    err1 = float((params.tf_lower.detach() - tf.lower).abs().mean())
+    log(f"bound recovery: loss {losses[0]:.6g} -> {losses[-1]:.6g} in "
+        f"{RECOVERY_STEPS} steps (must fall below 0.35 of the first: "
+        f"{losses[-1] / losses[0]:.4f}), mean lower-bound error {err0:.5f} "
+        f"-> {err1:.5f}, launches K8 {launches[0]} K9 {launches[1]}")
+    check(launches == (RECOVERY_STEPS, RECOVERY_STEPS),
+          f"bound recovery launches {launches}")
+    check(losses[-1] < 0.35 * losses[0], "bound recovery: loss did not fall")
+    check(err1 < err0, "bound recovery: the bound error did not fall")
+    return dict(loss_ratio=losses[-1] / losses[0], err0=err0, err1=err1)
+
+
+def volume_grad_phase(P, smooth, smooth_vjp, vol, tf, rng) -> dict:
+    """Phase 7e: a forward and backward render with ``volume.data``
+    requiring grad at 700x700x500 (K8, then K9 with the splat), 5 times
+    after one warm-up, its ms by CUDA events and its launches."""
+    import dataclasses
+
+    import torch
+
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR,
+                         interp=P.Interp.TRILINEAR)
+    cam = orbit_cameras(P, rng, 1)[0]
+    target = P.render(vol, tf, cam, cfg)
+    lower, upper = bounds_moved(tf)
+    moved = P.TransferFunction(lower, upper, tf.colors, tf.hg_g)
+
+    def step():
+        data = vol.data.clone().requires_grad_()
+        img = smooth_vjp.render_vrc_smooth_diff(
+            dataclasses.replace(vol, data=data), moved, cam, cfg)
+        torch.mean((img[..., :3] - target[..., :3]) ** 2).backward()
+        return data.grad
+
+    step()
+    torch.cuda.synchronize()
+    smooth.launches = smooth_vjp.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FIT_STEPS):
+        grad = step()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / FIT_STEPS
+    launches = (smooth.launches, smooth_vjp.launches)
+    nz = int((grad != 0).sum())
+    log(f"volume-gradient step (MNI-dims): {ms:.4f} ms, launches K8 "
+        f"{launches[0]} K9 {launches[1]} for {FIT_STEPS} steps, "
+        f"{nz} voxels with a nonzero gradient, max |grad| "
+        f"{float(grad.abs().max()):.4e}")
+    check(launches == (FIT_STEPS, FIT_STEPS),
+          f"volume-gradient launches {launches}")
+    check(bool(torch.isfinite(grad).all()) and nz > 0,
+          "volume gradient not finite or all zero")
+    return dict(ms=ms, k8=launches[0], k9=launches[1])
+
+
 def main() -> int:
     import torch
 
@@ -1051,7 +1552,7 @@ def main() -> int:
     from volumerenderingproject_tpu_torch.ingest import synthetic
     from volumerenderingproject_tpu_torch.diff import fit
     from volumerenderingproject_tpu_torch.ops import (
-        _build, a5, a5_vjp, march, march_vjp, phong)
+        _build, a5, a5_vjp, march, march_vjp, phong, smooth, smooth_vjp)
     from volumerenderingproject_tpu_torch.scene.transfer_function import (
         from_text)
 
@@ -1069,6 +1570,8 @@ def main() -> int:
     march_vjp._kernel_lib()
     a5._kernel_lib()
     a5_vjp._kernel_lib()
+    smooth._kernel_lib()
+    smooth_vjp._kernel_lib()
     log(f"built {sources} in {time.time() - t0:.2f} s")
 
     # ---- 3. kernel vs plain on the card ------------------------------------
@@ -1237,6 +1740,11 @@ def main() -> int:
     lit_errs = lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text,
                                  lit_rng, per_volume)
 
+    # ---- 3g, 3h. the smooth kernels (K8, K9) vs plain on the card ----------
+    smooth_rng = np.random.default_rng(17)
+    smooth_errs = smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf,
+                                       from_text, smooth_rng, per_volume)
+
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
     frames = 0
@@ -1278,6 +1786,10 @@ def main() -> int:
     lit_launches = lit_render_phase(P, march, a5, volumes, tf, lit_rng,
                                     per_volume)
 
+    # ---- 4d. the smooth render path -----------------------------------------
+    smooth_launches = smooth_render_phase(P, smooth, volumes, tf, smooth_rng,
+                                          per_volume)
+
     # ---- 5. the CLI ---------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "sphere.png")
@@ -1314,6 +1826,9 @@ def main() -> int:
         # ---- 5e. the CLI's lit and LUT renders ------------------------------
         lit_cli_phase(tmp)
 
+        # ---- 5f. the CLI's smooth render and bound fit ----------------------
+        smooth_cli_phase(tmp, tf, from_text)
+
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
     sphere = volumes["sphere100"]
@@ -1344,6 +1859,18 @@ def main() -> int:
         log(f"{name} sphere 100x100x100: kernel vs back-to-front reference "
             f"max err {e:.3e} (tol {TOL_EXACT:g})")
         check(e <= TOL_EXACT, f"{name} kernel vs reference scan: {e}")
+
+    # ---- 6d. a small smooth input against the reference scan ---------------
+    small_smooth = small.replace(interp=P.Interp.TRILINEAR)
+    smooth.launches = 0
+    got = P.render(sphere, tf, P.reset_preset(), small_smooth)
+    check(smooth.launches == 1, "the small smooth render did not launch K8")
+    ref = P.render(sphere, tf, P.reset_preset(), small_smooth,
+                   mode="reference")
+    e = float((got - ref).abs().max())
+    log(f"smooth sphere 100x100x100: K8 vs back-to-front reference max err "
+        f"{e:.3e} (tol {TOL_EXACT:g})")
+    check(e <= TOL_EXACT, f"K8 vs smooth reference scan: {e}")
 
     # ---- 7. the fit path -----------------------------------------------------
     fit_rng = np.random.default_rng(4)
@@ -1379,6 +1906,36 @@ def main() -> int:
         a5_fit["k6"] += r["k4"]
     log(f"K3 launches on the a5 fit path: {a5_fit['k3']}, K6 launches: "
         f"{a5_fit['k6']} ({FIT_STEPS} steps per volume)")
+
+    # ---- 7c. the smooth bound fit path --------------------------------------
+    smooth_route = FitRoute(("K8", "K9"), smooth, smooth_vjp,
+                            smooth.march_smooth_plain,
+                            smooth_vjp.march_smooth_bwd_plain,
+                            "smooth_fwd_kernel", "smooth_bwd_kernel")
+    smooth_fit_rng = np.random.default_rng(18)
+    smooth_fit = {"k8": 0, "k9": 0}
+    for vname, vol in volumes.items():
+        r = fit_phase(P, fit, smooth_route, f"smooth {vname}", vol,
+                      smooth_fit_rng,
+                      P.RenderConfig(width=W, height=H, samples_per_ray=SPR,
+                                     interp=P.Interp.TRILINEAR),
+                      fit_bounds=True)
+        per_volume[vname]["smooth"]["fit_step_ms"] = r["step_ms"]
+        per_volume[vname]["smooth"]["fit_trace"] = r["trace"]
+        smooth_fit["k8"] += r["k1"]
+        smooth_fit["k9"] += r["k4"]
+    log(f"K8 launches on the bound fit path: {smooth_fit['k8']}, K9 "
+        f"launches: {smooth_fit['k9']} ({FIT_STEPS} steps per volume)")
+
+    # ---- 7d. the JAX package's bound-recovery case on the card --------------
+    recovery = bound_recovery_phase(P, fit, smooth, smooth_vjp)
+
+    # ---- 7e. a volume-gradient step -----------------------------------------
+    vgrad = volume_grad_phase(P, smooth, smooth_vjp,
+                              volumes["mni_dims_182x218x182"], tf,
+                              np.random.default_rng(19))
+    per_volume["mni_dims_182x218x182"]["smooth"]["vgrad_step_ms"] = (
+        vgrad["ms"])
 
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
@@ -1450,6 +2007,35 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    sm = main_vol["smooth"]
+    kernels += [{
+        "name": "smooth_fwd",
+        "route": "cuda",
+        "source": "volumerenderingproject_tpu_torch/csrc/smooth.cu",
+        "replaces": "volumerenderingproject_tpu/ops/pallas_smooth.py:305",
+        "launches": smooth_launches + smooth_fit["k8"] + vgrad["k8"],
+        "max_abs_err": smooth_errs["k8"],
+        "ms": sm["ms"],
+        "plain_ms": sm["plain_ms"],
+        "bound_ms": sm["bound_ms"],
+        "bound_by": sm["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "smooth_bwd",
+        "route": "cuda",
+        "source": "volumerenderingproject_tpu_torch/csrc/smooth_bwd.cu",
+        "replaces": "volumerenderingproject_tpu/ops/pallas_smooth.py:349",
+        "launches": smooth_fit["k9"] + vgrad["k9"],
+        "max_abs_err": max(e[0] for e in smooth_errs["k9"].values()),
+        "ms": sm["bwd_ms"],
+        "plain_ms": sm["bwd_plain_ms"],
+        "bound_ms": sm["bwd_bound_ms"],
+        "bound_by": sm["bwd_bound_by"],
+        "library_ms": None,
+    }]
+    log(f"K9 max errors (abs, relative to max |dplain|) over all cases: "
+        f"{smooth_errs['k9']}; smooth central differences max relative err "
+        f"{smooth_errs['fd']:.3e}; bound recovery {recovery}")
     log(f"per volume: {json.dumps(per_volume)}")
     log(f"backward kernel max relative err over all cases {bwd_rel:.3e}")
     log(f"K6 max relative err over all cases {k6_rel:.3e}")

@@ -26,7 +26,7 @@ from volumerenderingproject_tpu_torch.ingest import synthetic
 from volumerenderingproject_tpu_torch.scene.transfer_function import (
     from_text, to_text)
 from volumerenderingproject_tpu_torch.utils import imageio
-from volumerenderingproject_tpu_torch.utils.config import RenderConfig
+from volumerenderingproject_tpu_torch.utils.config import Interp, RenderConfig
 
 CAM_FIELDS = ("position", "front", "right", "up", "top_left")
 LOSS_RTOL = 1e-4
@@ -188,15 +188,163 @@ def test_checkpoint_resume_bit_identical(scene, tmp_path):
 
 
 def test_unported_fit_options_raise(scene):
+    """Light fits and sharded fits raise; bound fits are ported (smooth
+    mode, tests/test_torch_smooth_vjp.py) and only add the bounds."""
     _, jtf, _, _, _, _, _ = scene
     tf = _port_tf(jtf, np.asarray(jtf.colors))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pfit.FitParams.init(tf, fit_bounds=True)
+    bounded = pfit.FitParams.init(tf, fit_bounds=True)
+    assert len(bounded.parameters()) == 4
+    assert torch.equal(bounded.tf_lower, tf.lower) and bounded.tf_upper.requires_grad
     with pytest.raises(NotImplementedError, match="item 9"):
         pfit.FitParams.init(tf, light=object())
     params = pfit.FitParams.init(tf)
     with pytest.raises(NotImplementedError, match="item 14"):
         pfit.render_loss(params, tf, None, None, None, None, mesh=object())
+
+
+# -- bound fits (smooth mode) ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def smooth_scene(scene):
+    """The scene in smooth mode at sharpness 40 (test_fit_params.py:181-201),
+    the target the default TF's smooth render, the start its bounds moved
+    by the JAX test's offsets."""
+    jv, jtf, jc, cfg, _, pv, pc = scene
+    cfg_s = cfg.replace(interp=J.Interp.TRILINEAR, tf_sharpness=40.0)
+    target = np.asarray(J.models.raycast.render_vrc(jv, jtf, jc, cfg_s,
+                                                    mode="fast"))
+    lower = np.asarray(jtf.lower) + np.float32([0.0, 0.06, -0.05, 0.04])
+    upper = np.asarray(jtf.upper) + np.float32([0.0, -0.06, 0.05, -0.04])
+    return jv, jtf, jc, cfg_s, target, pv, pc, lower, upper
+
+
+def _bounded_tfs(jtf, lower, upper):
+    jt = J.TransferFunction(jnp.asarray(lower), jnp.asarray(upper),
+                            jtf.colors, jtf.hg_g)
+    pt = interop.transfer_function_from_numpy(
+        lower, upper, np.asarray(jtf.colors), np.asarray(jtf.hg_g),
+        device="cpu")
+    return jt, pt
+
+
+def test_bound_fit_matches_jax(smooth_scene):
+    """3 smooth-mode steps with ``fit_bounds=True``: losses, bounds, colours
+    and density follow the JAX package's trajectory (XLA scan + optax.adam)
+    within PR 2's Adam tolerances, and the bounds move toward the truth."""
+    jv, jtf, jc, cfg, target, pv, pc, lower, upper = smooth_scene
+    jt, pt = _bounded_tfs(jtf, lower, upper)
+    jparams, jlosses = jfit.fit_transfer_function(
+        jv, jc, target, jt, cfg, steps=3, learning_rate=5e-3, fit_bounds=True)
+    pparams, plosses = pfit.fit_transfer_function(
+        pv, pc, target, pt, RenderConfig.from_json(cfg.to_json()), steps=3,
+        learning_rate=5e-3, fit_bounds=True, device="cpu")
+    np.testing.assert_allclose(plosses, jlosses, rtol=LOSS_RTOL)
+    for name in ("tf_colors", "density_scale", "tf_lower", "tf_upper"):
+        np.testing.assert_allclose(
+            getattr(pparams, name).detach().numpy(),
+            np.asarray(getattr(jparams, name)), rtol=0, atol=PARAM_ATOL,
+            err_msg=name)
+    err0 = np.abs(lower - np.asarray(jtf.lower)).mean()
+    err1 = np.abs(pparams.tf_lower.detach().numpy()
+                  - np.asarray(jtf.lower)).mean()
+    assert err1 < err0 and plosses[2] < plosses[0]
+
+
+def test_bounds_do_not_move_with_nearest_sampling(scene):
+    """``fit_bounds=True`` with ``Interp.NEAREST``: the interval table has no
+    bound gradient, so the bounds stay where they start (as in the JAX
+    package) and the colours take the same steps as without bounds."""
+    jv, jtf, jc, cfg, target, pv, pc = scene
+    tf = _port_tf(jtf, _perturbed(jtf, 1))
+    pcfg = RenderConfig.from_json(cfg.to_json())
+    with_b, lb = pfit.fit_transfer_function(pv, pc, target, tf, pcfg,
+                                            steps=2, fit_bounds=True,
+                                            device="cpu")
+    without, lw = pfit.fit_transfer_function(pv, pc, target, tf, pcfg,
+                                             steps=2, device="cpu")
+    assert torch.equal(with_b.tf_lower, tf.lower)
+    assert torch.equal(with_b.tf_upper, tf.upper)
+    assert lb == lw and torch.equal(with_b.tf_colors, without.tf_colors)
+
+
+def test_checkpoint_with_bounds_resumes_bit_identical(smooth_scene, tmp_path):
+    """A smooth bound fit cut after 2 steps and resumed from its checkpoint
+    ends where the uninterrupted 4-step fit ends, bounds included
+    (``test_checkpoint_roundtrip_new_fields``'s bounds)."""
+    _, jtf, _, cfg, target, pv, pc, lower, upper = smooth_scene
+    _, tf = _bounded_tfs(jtf, lower, upper)
+    pcfg = RenderConfig.from_json(cfg.to_json())
+    kw = dict(learning_rate=5e-3, fit_bounds=True, device="cpu")
+    straight, slosses = pfit.fit_transfer_function(pv, pc, target, tf, pcfg,
+                                                   steps=4, **kw)
+    ckdir = str(tmp_path / "ck")
+    pfit.fit_transfer_function(pv, pc, target, tf, pcfg, steps=2,
+                               checkpoint_dir=ckdir, checkpoint_every=2, **kw)
+    back = pfit.load_checkpoint(ckdir, 2, device="cpu")
+    assert back.tf_lower is not None and back.tf_lower.requires_grad
+    assert not torch.equal(back.tf_lower, tf.lower)
+    resumed, rlosses = pfit.fit_transfer_function(
+        pv, pc, target, tf, pcfg, steps=4, checkpoint_dir=ckdir,
+        checkpoint_every=2, resume=True, **kw)
+    assert rlosses == slosses[2:]
+    for name in ("tf_colors", "density_scale", "tf_lower", "tf_upper"):
+        assert torch.equal(getattr(resumed, name), getattr(straight, name))
+
+
+def test_interop_fit_params_with_bounds():
+    """``fit_params_from_numpy`` takes the bounds; ``adam_state_from_numpy``
+    takes one moment per parameter, in ``parameters()`` order."""
+    p = interop.fit_params_from_numpy(np.ones((4, 4)), 1.0, np.zeros(4),
+                                      np.ones(4), device="cpu")
+    assert [t.shape for t in p.parameters()] == [(4, 4), (), (4,), (4,)]
+    assert all(t.requires_grad for t in p.parameters())
+    opt = pfit.make_optimizer(p, 1e-2)
+    mu = [np.full(t.shape, 0.5, np.float32) for t in p.parameters()]
+    interop.adam_state_from_numpy(opt, p, 2, mu, mu)
+    assert torch.equal(opt.state[p.tf_upper]["exp_avg"], torch.full((4,), 0.5))
+    with pytest.raises(ValueError, match="one array per parameter"):
+        interop.adam_state_from_numpy(opt, p, 2, mu[:2], mu[:2])
+
+
+def test_cli_fit_bounds_cpu(tmp_path):
+    """``fit --interp trilinear --fit-bounds --device cpu``: it exits 0, and
+    the TF file it writes holds the bounds and colours that
+    ``fit_transfer_function`` gives on the same inputs."""
+    size = ["--width", "16", "--height", "12", "--spr", "20"]
+    target_png = os.path.join(tmp_path, "target.png")
+    assert cli.main(["render", "--data", "sphere", *size, "--interp",
+                     "trilinear", "--device", "cpu", "--out",
+                     target_png]) == 0
+    tf = P.default_transfer_function(device="cpu")
+    start = P.TransferFunction(tf.lower + torch.tensor([0, 0.04, -0.03, 0.02]),
+                               tf.upper, tf.colors, tf.hg_g)
+    tf_path = os.path.join(tmp_path, "start.txt")
+    with open(tf_path, "w") as f:
+        f.write(to_text(start))
+    out = os.path.join(tmp_path, "fitted.txt")
+    assert cli.main(["fit", "--data", "sphere", *size, "--interp",
+                     "trilinear", "--fit-bounds", "--tf", tf_path, "--target",
+                     target_png, "--steps", "2", "--lr", "5e-3", "--out-tf",
+                     out, "--device", "cpu"]) == 0
+    with open(out) as f:
+        fitted = from_text(f.read(), device="cpu")
+    with open(tf_path) as f:
+        start = from_text(f.read(), device="cpu")
+    cfg = RenderConfig(width=16, height=12, samples_per_ray=20,
+                       interp=Interp.TRILINEAR)
+    target = imageio.from_display(imageio.load_png(target_png))
+    target = np.concatenate([target, np.ones_like(target[..., :1])], -1)
+    params, _ = pfit.fit_transfer_function(
+        synthetic.centered_sphere(device="cpu"), P.reset_preset(device="cpu"),
+        target, start, cfg, steps=2, learning_rate=5e-3, fit_bounds=True,
+        device="cpu")
+    for got, want in ((fitted.lower, params.tf_lower),
+                      (fitted.upper, params.tf_upper),
+                      (fitted.colors, params.tf_colors)):
+        np.testing.assert_allclose(got.numpy(), want.detach().numpy(),
+                                   rtol=1e-8)
+    assert not np.array_equal(fitted.lower.numpy(), start.lower.numpy())
 
 
 # -- the PNG reader ----------------------------------------------------------
@@ -305,7 +453,15 @@ def test_cli_fit_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [("--fit-bounds", "item 12"),
                                        ("--fit-light", "item 9")])
-def test_cli_fit_unported_flags_raise(flag, item):
+def test_cli_fit_unported_flags_raise(flag, item, tmp_path):
+    """On a lit smooth config: ``--fit-light`` is not ported (item 9), and a
+    bound fit of a lit smooth render, which the smooth kernels do not
+    compute, raises naming item 12 (``--fit-bounds`` itself is ported:
+    tests/test_torch_smooth_vjp.py)."""
+    cfg = os.path.join(tmp_path, "lit_smooth.json")
+    with open(cfg, "w") as f:
+        f.write(RenderConfig(width=8, height=8, samples_per_ray=4,
+                             interp=Interp.TRILINEAR,
+                             lighting=True).to_json())
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(["fit", "--width", "8", "--height", "8", "--spr", "4",
-                  "--device", "cpu", flag])
+        cli.main(["fit", "--config", cfg, "--device", "cpu", flag])

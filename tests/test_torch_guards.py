@@ -16,7 +16,8 @@ from volumerenderingproject_tpu_torch.diff import fit
 from volumerenderingproject_tpu_torch.harness import cli
 from volumerenderingproject_tpu_torch.ingest import synthetic
 from volumerenderingproject_tpu_torch import interop
-from volumerenderingproject_tpu_torch.ops import a5_vjp, march_vjp, phong
+from volumerenderingproject_tpu_torch.ops import (a5_vjp, march_vjp, phong,
+                                                  smooth_vjp)
 from volumerenderingproject_tpu_torch.utils import imageio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,8 +29,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 for name in ("ops.march", "ops.march_vjp", "ops.a5", "ops.a5_vjp",
-             "ops.conv3d", "ops.phong", "diff.fit", "interop", "harness.cli",
-             "utils.imageio"):
+             "ops.conv3d", "ops.phong", "ops.smooth", "ops.smooth_vjp",
+             "diff.fit", "interop", "harness.cli", "utils.imageio"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
@@ -113,6 +114,29 @@ def test_render_vrc_diff_without_device_needs_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         march_vjp.render_vrc_diff(vol, P.default_transfer_function(device="cpu"),
                                   P.reset_preset(device="cpu"), cfg)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda vol, tf, cam, cfg: P.render(vol, tf, cam, cfg),
+    lambda vol, tf, cam, cfg: smooth_vjp.render_vrc_smooth_diff(vol, tf, cam,
+                                                                cfg),
+    lambda vol, tf, cam, cfg: fit.fit_transfer_function(
+        vol, cam, np.zeros((8, 8, 4), np.float32), tf, cfg, steps=1,
+        fit_bounds=True),
+])
+def test_smooth_entry_points_without_device_need_cuda(no_cuda, entry):
+    vol = synthetic.centered_sphere(8, device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4,
+                         interp=P.Interp.TRILINEAR)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(vol, P.default_transfer_function(device="cpu"),
+              P.reset_preset(device="cpu"), cfg)
+
+
+def test_cli_smooth_without_device_needs_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["fit", "--width", "8", "--height", "8", "--spr", "4",
+                  "--steps", "1", "--interp", "trilinear", "--fit-bounds"])
 
 
 @pytest.mark.parametrize("entry", [

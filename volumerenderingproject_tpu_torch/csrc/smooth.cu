@@ -1,0 +1,109 @@
+// Smooth-mode a1 ray march (K8) for NVIDIA Hopper (sm_90a).
+//
+// Replaces volumerenderingproject_tpu/ops/pallas_smooth.py:
+// _smooth_fwd_kernel: ortho or conic rays, zero-padded trilinear
+// intensities of the f32 volume over the float cal_max, the sigmoid-product
+// smooth transfer function (Interp.TRILINEAR), front-to-back (C, T)
+// compositing and early ray termination; out = (C + T * background, 1).
+//
+// One thread marches one ray over every one of its samples: there is no box
+// clip or brick skip, because a sample off the volume reads intensity 0,
+// whose smooth alpha is not 0 (1.8e-11 for the default TF at sharpness 200,
+// 2.6e-4 at 60), so skipping it would change the image.  The ray stops
+// before the first sample at which T <= eps (per ray; the TPU kernel tests
+// max(T) > eps over a 16x16 tile per 16-sample chunk, which is within eps of
+// it; at eps 0 both march every sample that can change the image).  The
+// TPU's 10-bit packed volume and its f32 rows (z <= 128) were layouts for
+// VMEM; here the volume stays exact f32 [X, Y, Z] in HBM at any size (29 MB
+// at 182x218x182, which the 50 MB L2 holds).
+//
+// What bounds it on an H100: operations.  A sample costs some 110 float
+// operations at 4 intervals (position, floor and fractions, seven lerps,
+// the division, two expf, two divisions and a product per interval,
+// compositing) beside eight 4-byte loads, of which neighbouring rays share
+// cache lines; the bytes it must move (the volume once, 16 bytes of image
+// per ray) are far fewer.  The design keeps every per-ray value in
+// registers, the bounds and the colour differences in shared memory, and
+// uses K1's 16x16 pixel blocks so that a warp's corner loads fall in few
+// lines.  The sample chain is in smooth_common.cuh, shared with K9.
+
+#include "smooth_common.cuh"
+
+namespace {
+
+template <int KMAX>
+__global__ void __launch_bounds__(kSmoothBlock* kSmoothBlock)
+smooth_fwd_kernel(const float* __restrict__ scal,
+                  const float* __restrict__ lower,
+                  const float* __restrict__ upper,
+                  const float* __restrict__ colors, int num_intervals,
+                  const float* __restrict__ vol, Geom g, int conic,
+                  float* __restrict__ out) {
+  __shared__ SmoothTF<KMAX> tf;
+  load_tf<KMAX>(tf, lower, upper, colors, num_intervals);
+
+  // threadIdx.x runs along y, as in K1: out is [W, H, 4], y fastest
+  const int py = blockIdx.x * blockDim.x + threadIdx.x;
+  const int px = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px >= g.width || py >= g.height) return;
+
+  float o[3], d[3];
+  ray_setup(scal, g, px, py, conic, o, d);
+  const SmoothScalars s = load_smooth_scalars(scal);
+  const float eps = fmaxf(scal[S_EPS], 0.0f);
+
+  float s1[KMAX], s2[KMAX], w[KMAX];  // unused here: K9's
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f, t = 1.0f;
+  for (int i = 0; i < g.spr; ++i) {
+    if (!(t > eps)) break;
+    int b[3];
+    float f[3];
+    smooth_position(i, o, d, s, b, f);
+    const float vn = smooth_intensity(vol, g, b, f) / s.cal;
+    const float4 col =
+        smooth_classify<KMAX>(tf, num_intervals, s.sharp, vn, s1, s2, w);
+    const float wt = t * col.w;
+    cr = cr + wt * col.x;
+    cg = cg + wt * col.y;
+    cb = cb + wt * col.z;
+    t = t * (1.0f - col.w);
+  }
+
+  float4 px_out;
+  px_out.x = cr + t * scal[SM_BG];
+  px_out.y = cg + t * scal[SM_BG + 1];
+  px_out.z = cb + t * scal[SM_BG + 2];
+  px_out.w = 1.0f;
+  reinterpret_cast<float4*>(out)[(long long)px * g.height + py] = px_out;
+}
+
+}  // namespace
+
+// Launches the smooth march on `stream`; returns cudaGetLastError() (0 =
+// launched).  scal: [29] f32 (ops/smooth.py layout); lower, upper: [K] f32;
+// colors: [K, 4] f32, K <= 16; vol: [d1, d2, d3] f32 (C order); out:
+// [width, height, 4] f32.
+extern "C" int vrp_smooth_fwd(const float* scal, const float* lower,
+                              const float* upper, const float* colors, int K,
+                              const float* vol, int d1, int d2, int d3,
+                              int width, int height, int spr, int conic,
+                              float* out, void* stream) {
+  if (K <= 0 || K > kSmoothMaxIntervals || width <= 0 || height <= 0 ||
+      spr <= 0 || d1 <= 0 || d2 <= 0 || d3 <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Geom g = make_geom(d1, d2, d3, 0, width, height, spr, 0, 0, 0);
+  const dim3 block(kSmoothBlock, kSmoothBlock);
+  const dim3 grid((height + kSmoothBlock - 1) / kSmoothBlock,
+                  (width + kSmoothBlock - 1) / kSmoothBlock);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (K <= 4)
+    smooth_fwd_kernel<4><<<grid, block, 0, st>>>(scal, lower, upper, colors,
+                                                  K, vol, g, conic, out);
+  else if (K <= 8)
+    smooth_fwd_kernel<8><<<grid, block, 0, st>>>(scal, lower, upper, colors,
+                                                  K, vol, g, conic, out);
+  else
+    smooth_fwd_kernel<16><<<grid, block, 0, st>>>(scal, lower, upper, colors,
+                                                   K, vol, g, conic, out);
+  return (int)cudaGetLastError();
+}

@@ -1,19 +1,28 @@
-"""Differentiable rendering: fit TF colours and a density scale to a target
-image by gradient descent through the renderer.
+"""Differentiable rendering: fit TF colours, a density scale and, in smooth
+mode, the TF interval bounds to a target image by gradient descent through
+the renderer.
 
 Counterpart of ``volumerenderingproject_tpu/diff/fit.py`` on its plain a1
-route (fit.py:212-215) and its unlit a5 route (fit.py:134-145): the loss
-renders through ``ops/march_vjp.render_vrc_diff`` (forward the march kernel
-K1 at eps 0, backward the backward march kernel K4 on the GPU) or, with
-``Algorithm.TEST``, through ``ops/a5_vjp.render_test_diff`` (K3 and K6).  The
-optimizer is ``torch.optim.Adam`` with optax's defaults.  Checkpoints are
-``torch.save`` files holding the parameters and the optimizer state, so a
-resumed fit continues bit for bit where an uninterrupted one would be.
+route (fit.py:212-215), its smooth-mode route (fit.py:195-211) and its
+unlit a5 route (fit.py:134-145): the loss renders through
+``ops/march_vjp.render_vrc_diff`` (forward the march kernel K1 at eps 0,
+backward the backward march kernel K4 on the GPU), with ``Interp.TRILINEAR``
+through ``ops/smooth_vjp.render_vrc_smooth_diff`` (K8 and K9, no volume
+gradient), or, with ``Algorithm.TEST``, through
+``ops/a5_vjp.render_test_diff`` (K3 and K6).  The optimizer is
+``torch.optim.Adam`` with optax's defaults.  Checkpoints are ``torch.save``
+files holding the parameters and the optimizer state, so a resumed fit
+continues bit for bit where an uninterrupted one would be.
+
+``fit_bounds=True`` adds ``tf_lower``/``tf_upper`` to the parameters.  Only
+the smooth classify gives them a gradient: with nearest-voxel sampling
+their gradient is zero almost everywhere, here and in the JAX package, and
+they do not move.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): fits of TF bounds (smooth mode, item 12), of light parameters and
-lit renders (item 9), multichannel fits (item 10), fits of more than 16
-intervals (item 11) and sharded fits over a mesh (item 14).
+item): fits of light parameters and lit renders (item 9), multichannel
+fits (item 10), fits of more than 16 intervals (item 11) and sharded fits
+over a mesh (item 14).
 """
 
 from __future__ import annotations
@@ -28,17 +37,12 @@ import torch
 
 from ..ops.a5_vjp import render_test_diff
 from ..ops.march_vjp import render_vrc_diff
+from ..ops.smooth_vjp import render_vrc_smooth_diff
 from ..scene.transfer_function import TransferFunction
-from ..utils.config import Algorithm, RenderConfig
+from ..utils.config import Algorithm, Interp, RenderConfig
 from ..utils.device import resolve_device
 
 _f32 = torch.float32
-
-
-def _not_ported_bounds():
-    return NotImplementedError(
-        "fitting TF interval bounds is not ported yet: ROADMAP.md item 12 "
-        "(smooth mode)")
 
 
 def _not_ported_light():
@@ -49,9 +53,10 @@ def _not_ported_light():
 
 @dataclasses.dataclass(frozen=True)
 class FitParams:
-    """The optimisable render parameters: ``tf_colors`` [K, 4] and the
-    scalar ``density_scale``, leaf tensors that require grad.  The JAX
-    package's ``tf_lower``/``tf_upper``/``light`` fields stay ``None``."""
+    """The optimisable render parameters, leaf tensors that require grad:
+    ``tf_colors`` [K, 4], the scalar ``density_scale`` and, for a bound
+    fit, ``tf_lower``/``tf_upper`` [K] (``None`` otherwise).  The JAX
+    package's ``light`` field stays ``None``."""
 
     tf_colors: torch.Tensor
     density_scale: torch.Tensor
@@ -60,32 +65,38 @@ class FitParams:
     light: Optional[object] = None
 
     def __post_init__(self):
-        if self.tf_lower is not None or self.tf_upper is not None:
-            raise _not_ported_bounds()
         if self.light is not None:
             raise _not_ported_light()
 
     @staticmethod
     def init(tf: TransferFunction, *, fit_bounds: bool = False,
              light=None) -> "FitParams":
-        if fit_bounds:
-            raise _not_ported_bounds()
         if light is not None:
             raise _not_ported_light()
+
+        def leaf(t):
+            return t.detach().to(_f32).clone().requires_grad_()
+
         return FitParams(
-            tf_colors=tf.colors.detach().to(_f32).clone().requires_grad_(),
+            tf_colors=leaf(tf.colors),
             density_scale=torch.tensor(1.0, dtype=_f32,
                                        device=tf.colors.device,
-                                       requires_grad=True))
+                                       requires_grad=True),
+            tf_lower=leaf(tf.lower) if fit_bounds else None,
+            tf_upper=leaf(tf.upper) if fit_bounds else None)
 
     def parameters(self) -> List[torch.Tensor]:
-        return [self.tf_colors, self.density_scale]
+        """The parameter tensors, in the JAX pytree's field order."""
+        return [p for p in (self.tf_colors, self.density_scale,
+                            self.tf_lower, self.tf_upper) if p is not None]
 
 
 def _apply_params(tf: TransferFunction, params: FitParams
                   ) -> TransferFunction:
-    return TransferFunction(lower=tf.lower, upper=tf.upper,
-                            colors=params.tf_colors, hg_g=tf.hg_g)
+    return TransferFunction(
+        lower=tf.lower if params.tf_lower is None else params.tf_lower,
+        upper=tf.upper if params.tf_upper is None else params.tf_upper,
+        colors=params.tf_colors, hg_g=tf.hg_g)
 
 
 def render_loss(params: FitParams, tf: TransferFunction, volume, camera,
@@ -108,15 +119,22 @@ def _render_with_density(volume, tf: TransferFunction, camera,
                          config: RenderConfig, density: torch.Tensor,
                          light=None) -> torch.Tensor:
     """Scale the TF alphas by the (differentiable) density, then render
-    through the differentiable march of ``config.algorithm`` (fit.py:124-153,
-    212-215): a1 folds ``config.density_scale`` in as well, a5 reads none."""
+    through the differentiable march of ``config.algorithm`` and
+    ``config.interp`` (fit.py:124-153, 195-215): nearest-voxel a1 folds
+    ``config.density_scale`` in as well; smooth a1 takes it only at 1 (the
+    JAX package's smooth kernels do too), with no volume gradient; a5 reads
+    none and samples its own way whatever ``config.interp`` says."""
     if light is not None:
         raise _not_ported_light()
     colors = torch.cat([tf.colors[:, :3], tf.colors[:, 3:4] * density], dim=1)
     tf2 = TransferFunction(lower=tf.lower, upper=tf.upper, colors=colors,
                            hg_g=tf.hg_g)
-    diff = (render_test_diff if config.algorithm is Algorithm.TEST
-            else render_vrc_diff)
+    if config.algorithm is Algorithm.TEST:
+        diff = render_test_diff
+    elif config.interp is Interp.TRILINEAR:
+        diff = render_vrc_smooth_diff
+    else:
+        diff = render_vrc_diff
     return diff(volume, tf2, camera, config, device=volume.data.device)
 
 
@@ -150,8 +168,9 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
                           checkpoint_every: int = 0, resume: bool = False,
                           fit_bounds: bool = False, light=None,
                           device=None) -> Tuple[FitParams, list]:
-    """Optimise TF colours and density against ``target`` [W, H, 4] on
-    ``device`` (CUDA unless given) -> (params, per-step losses).
+    """Optimise TF colours and density (and with ``fit_bounds`` the interval
+    bounds) against ``target`` [W, H, 4] on ``device`` (CUDA unless given)
+    -> (params, per-step losses).
 
     ``resume=True`` restores the latest checkpoint in ``checkpoint_dir``
     (parameters and optimizer state) and continues up to ``steps`` steps in
@@ -193,10 +212,13 @@ def _checkpoint_path(directory: str, step: int) -> str:
 
 def save_checkpoint(directory: str, step: int, params: FitParams,
                     optimizer: Optional[torch.optim.Optimizer] = None) -> None:
-    """Write the parameters (and the optimizer's state) at ``step``."""
+    """Write the parameters (the bounds too in a bound fit) and the
+    optimizer's state at ``step``."""
     os.makedirs(directory, exist_ok=True)
-    state = {"params": {"tf_colors": params.tf_colors.detach().cpu(),
-                        "density_scale": params.density_scale.detach().cpu()}}
+    state = {"params": {
+        name: getattr(params, name).detach().cpu()
+        for name in ("tf_colors", "density_scale", "tf_lower", "tf_upper")
+        if getattr(params, name) is not None}}
     if optimizer is not None:
         state["opt"] = optimizer.state_dict()
     path = _checkpoint_path(directory, step)
@@ -219,10 +241,8 @@ def load_checkpoint(directory: str, step: int, with_optimizer: bool = False,
     dev = resolve_device(device)
     state = torch.load(_checkpoint_path(directory, step), map_location=dev,
                        weights_only=True)
-    p = state["params"]
-    params = FitParams(
-        tf_colors=p["tf_colors"].to(dev).requires_grad_(),
-        density_scale=p["density_scale"].to(dev).requires_grad_())
+    params = FitParams(**{name: t.to(dev).requires_grad_()
+                          for name, t in state["params"].items()})
     if not with_optimizer:
         return params
     return params, state["opt"]

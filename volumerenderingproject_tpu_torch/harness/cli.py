@@ -1,7 +1,8 @@
 """Command-line harness of the port.
 
   render   one frame to PNG
-  fit      fit TF colours and density to a target PNG
+  fit      fit TF colours and density (``--fit-bounds``: and the interval
+           bounds, in smooth mode ``--interp trilinear``) to a target PNG
 
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
 subcommand runs on CUDA unless ``--device cpu`` is given.
@@ -37,7 +38,7 @@ def _camera(args, config, device):
 
 
 def _config(args):
-    from ..utils.config import Algorithm, RenderConfig
+    from ..utils.config import Algorithm, Interp, RenderConfig
 
     cfg = RenderConfig()
     if args.config:
@@ -58,6 +59,8 @@ def _config(args):
         over["gradient_filter"] = args.gradient_filter
     if getattr(args, "presmooth", None):
         over["presmooth_sigma"] = args.presmooth
+    if args.interp:
+        over["interp"] = Interp(args.interp)
     return cfg.replace(**over)
 
 
@@ -107,9 +110,6 @@ def cmd_fit(args) -> int:
     from ..utils import imageio
     from ..utils.device import resolve_device
 
-    if args.fit_bounds:
-        raise NotImplementedError(
-            "--fit-bounds is not ported yet: ROADMAP.md item 12 (smooth mode)")
     if args.fit_light:
         raise NotImplementedError(
             "--fit-light is not ported yet: ROADMAP.md item 9 (lighting, LUT "
@@ -133,13 +133,16 @@ def cmd_fit(args) -> int:
     params, losses = fit_transfer_function(
         volume, cam, target, tf, cfg, steps=args.steps,
         learning_rate=args.lr, checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every, device=device)
+        checkpoint_every=args.checkpoint_every, fit_bounds=args.fit_bounds,
+        device=device)
     dt = time.time() - t0
     print(f"fit: loss {losses[0]:.6f} -> {losses[-1]:.6f} in {args.steps} "
           f"steps on {device} in {dt:.2f}s")
     if args.out_tf:
-        fitted = TransferFunction(tf.lower, tf.upper,
-                                  params.tf_colors.detach(), tf.hg_g)
+        fitted = TransferFunction(
+            tf.lower if params.tf_lower is None else params.tf_lower.detach(),
+            tf.upper if params.tf_upper is None else params.tf_upper.detach(),
+            params.tf_colors.detach(), tf.hg_g)
         with open(args.out_tf, "w") as f:
             f.write(to_text(fitted))
         print(f"wrote {args.out_tf}")
@@ -161,6 +164,11 @@ def _common(sp) -> None:
     sp.add_argument("--device", help="torch device (default: cuda)")
     sp.add_argument("--config", help="RenderConfig JSON path (the flags "
                     "override its fields; tf_lut is set here)")
+    sp.add_argument("--interp", choices=["nearest", "trilinear_color",
+                                         "trilinear"],
+                    help="a1 sampling: nearest (the default), trilinear "
+                         "(smooth mode) or trilinear_color (not ported yet: "
+                         "the renderer raises)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -186,7 +194,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--checkpoint-dir")
     sp.add_argument("--checkpoint-every", type=int, default=0)
     sp.add_argument("--fit-bounds", action="store_true",
-                    help="optimize TF interval bounds too (not ported yet)")
+                    help="optimize TF interval bounds too (smooth mode: "
+                         "--interp trilinear)")
     sp.add_argument("--fit-light", action="store_true",
                     help="optimize the light parameters (not ported yet)")
     sp.set_defaults(fn=cmd_fit)

@@ -5,7 +5,7 @@ package's pytrees hold, so both packages render identical inputs.
     transfer_function_from_numpy(lower, upper, colors, hg_g)
     camera_from_numpy(position, front, right, up, top_left)
     light_from_numpy(direction, color, ambient, diffuse, specular, shininess)
-    fit_params_from_numpy(tf_colors, density_scale)
+    fit_params_from_numpy(tf_colors, density_scale, tf_lower, tf_upper)
     adam_state_from_numpy(optimizer, params, count, mu, nu)
 
 Each takes ``device`` (CUDA unless given) or the device of what it fills.
@@ -65,19 +65,29 @@ def light_from_numpy(direction, color, ambient, diffuse, specular, shininess,
                                           specular, shininess)))
 
 
-def fit_params_from_numpy(tf_colors, density_scale, device=None) -> FitParams:
+def fit_params_from_numpy(tf_colors, density_scale, tf_lower=None,
+                          tf_upper=None, device=None) -> FitParams:
     """FitParams from the JAX package's ``FitParams`` fields: leaf tensors
-    that require grad."""
+    that require grad; the bounds stay ``None`` unless given."""
     dev = resolve_device(device)
-    return FitParams(tf_colors=_f32(tf_colors, dev).requires_grad_(),
-                     density_scale=_f32(density_scale, dev).requires_grad_())
+
+    def leaf(a):
+        return None if a is None else _f32(a, dev).requires_grad_()
+
+    return FitParams(tf_colors=leaf(tf_colors),
+                     density_scale=leaf(density_scale),
+                     tf_lower=leaf(tf_lower), tf_upper=leaf(tf_upper))
 
 
 def adam_state_from_numpy(optimizer: torch.optim.Optimizer, params: FitParams,
                           count, mu, nu) -> None:
     """Load optax's ``ScaleByAdamState`` into ``optimizer``'s state for
     ``params``: ``count`` steps taken, and the first and second moments
-    ``mu``, ``nu`` as (tf_colors, density_scale) pairs of arrays."""
+    ``mu``, ``nu`` as tuples of arrays in ``params.parameters()`` order:
+    (tf_colors, density_scale), then (tf_lower, tf_upper) in a bound
+    fit."""
+    if not len(mu) == len(nu) == len(params.parameters()):
+        raise ValueError("mu and nu need one array per parameter")
     for p, m, v in zip(params.parameters(), mu, nu):
         optimizer.state[p] = {
             "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),

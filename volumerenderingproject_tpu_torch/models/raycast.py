@@ -13,8 +13,10 @@ inverseView -> toVolume (kernel.cu:1177-1222), colour-space trilinear
 sampling of the 8 classified corners [-> Blinn-Phong on the containing
 voxel's gradient, viewed along ``-camera.front``], the same blend.
 
-:func:`render` sends the a1 path to the fused march (``ops/march.py``) and
-the a5 path to the fused a5 march (``ops/a5.py``): their CUDA kernels for
+:func:`render` sends the a1 path to the fused march (``ops/march.py``), or
+in smooth mode (``Interp.TRILINEAR``: trilinear intensities through the
+smooth TF) to the smooth march (``ops/smooth.py``), and the a5 path to the
+fused a5 march (``ops/a5.py``): their CUDA kernels for
 tensors on the GPU, their plain PyTorch versions for tensors on the CPU.
 :func:`render_vrc` and :func:`render_test` are the plain scans beneath them,
 Python loops over samples vectorised over rays: ``mode="fast"`` composites
@@ -31,13 +33,13 @@ import torch
 from ..ingest.volume import Volume
 from ..ops import a5
 from ..ops import composite as comp
-from ..ops import conv3d, sampling
+from ..ops import conv3d, sampling, smooth
 from ..ops.march import check_supported, render_vrc_fused
 from ..ops.phong import Light, default_light, is_lit, phong_shade
 from ..scene.camera import Camera
 from ..scene.transfer_function import TransferFunction
 from ..utils import transforms as T
-from ..utils.config import Algorithm, RenderConfig
+from ..utils.config import Algorithm, Interp, RenderConfig
 from ..utils.device import resolve_device
 
 _f32 = torch.float32
@@ -111,26 +113,42 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
                      tf: TransferFunction, config: RenderConfig,
                      shading=None, lut: torch.Tensor | None = None
                      ) -> torch.Tensor:
-    """a1 per-sample classify: modelAux(+0.5) -> octree NN -> TF [-> Phong].
+    """a1 per-sample classify: modelAux(+0.5) -> octree NN -> TF [-> Phong],
+    or in smooth mode (``Interp.TRILINEAR``) modelAux -> voxel space ->
+    trilinear intensity -> smooth TF [-> Phong at the octree-NN voxel].
 
     ``shading``, when set, is a (grad_flat [X*Y*Z, 3], light, view_dir)
     triple: the gradient at the sample's voxel (0 off the volume) is the
     Phong normal.  ``lut``, when set, is the dense [N, 4] TF table used
     instead of the interval scan (``config.tf_lut``)."""
     p = positions + 0.5  # modelAux kernel.cu:1050
-    flat, valid = sampling.octree_nn_index(volume.dims, volume.octree_depth, p)
-    v = volume.data.reshape(-1)[flat].clamp_min(0.0)
-    v = torch.where(valid, v, torch.zeros((), dtype=_f32, device=v.device))
-    # the a1 kernel takes cal_max as an int (kernel.cu:42 `int max_intensity`)
-    v_norm = v / torch.trunc(volume.cal_max)
-    if lut is not None:
-        n = lut.shape[0]
-        idx = torch.round(v_norm * (n - 1)).to(torch.int64).clamp(0, n - 1)
-        rgba = lut[idx]
+    flat = valid = None
+    if config.interp is Interp.TRILINEAR:
+        # smooth mode: trilinear intensities over the float cal_max (no
+        # negative clamp) through the smooth TF (raycast.py:161-167)
+        v = sampling.trilinear_intensity_sample(
+            volume.data, _to_volume_space(p, volume))
+        rgba = tf.classify_smooth(v / volume.cal_max, config.tf_sharpness)
     else:
-        rgba = tf.classify(v_norm)
+        flat, valid = sampling.octree_nn_index(volume.dims,
+                                               volume.octree_depth, p)
+        v = volume.data.reshape(-1)[flat].clamp_min(0.0)
+        v = torch.where(valid, v, torch.zeros((), dtype=_f32,
+                                              device=v.device))
+        # the a1 kernel takes cal_max as an int (kernel.cu:42 `int
+        # max_intensity`)
+        v_norm = v / torch.trunc(volume.cal_max)
+        if lut is not None:
+            n = lut.shape[0]
+            idx = torch.round(v_norm * (n - 1)).to(torch.int64).clamp(0, n - 1)
+            rgba = lut[idx]
+        else:
+            rgba = tf.classify(v_norm)
     if shading is not None:
         grad_flat, light, view_dir = shading
+        if flat is None:  # smooth mode shades at the octree-NN voxel
+            flat, valid = sampling.octree_nn_index(volume.dims,
+                                                   volume.octree_depth, p)
         normal = torch.where(valid[..., None], grad_flat[flat],
                              torch.zeros((), dtype=_f32, device=v.device))
         rgba = torch.cat([phong_shade(rgba[..., :3], normal, view_dir, light),
@@ -295,7 +313,10 @@ def render(volume: Volume, tf: TransferFunction, camera: Camera,
     render (``config.lighting``, or an explicit ``light``) shades with the
     default light unless ``light`` is given; the fused marches take it
     through per-voxel (M, S) factors, so an a1 fast render needs ortho rays
-    and a uniform light colour.
+    and a uniform light colour.  A smooth render (``Interp.TRILINEAR``,
+    a1) runs the smooth march (``ops/smooth.py``) in fast mode, which takes
+    the plain smooth classify only: lit, LUT and ``density_scale != 1``
+    smooth renders raise there and render in ``mode="scan"``.
     """
     dev = resolve_device(device)
     test = config.algorithm is Algorithm.TEST
@@ -309,7 +330,12 @@ def render(volume: Volume, tf: TransferFunction, camera: Camera,
     if light is not None:
         light = light.to(dev)
     if mode == "fast":
-        fused = a5.render_test_fused if test else render_vrc_fused
+        if test:
+            fused = a5.render_test_fused
+        elif config.interp is Interp.TRILINEAR:
+            fused = smooth.render_vrc_smooth_fused
+        else:
+            fused = render_vrc_fused
         return fused(volume, tf, camera, config, light=light)
     scan = render_test if test else render_vrc
     return scan(volume, tf, camera, config,

@@ -174,10 +174,11 @@ def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
 def check_supported(config: RenderConfig, channels: int) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
     what the port's a1 path does not render yet: the plain scan computes
-    single-channel a1 with nearest-voxel sampling, lit or not, through the
-    interval scan or a LUT.  (a5 has its own check,
-    ``ops/a5.check_supported``; the fused march adds
-    :func:`check_fused_supported`.)"""
+    single-channel a1 with nearest-voxel or smooth (``Interp.TRILINEAR``)
+    sampling, lit or not, through the interval scan or a LUT.  (a5 has its
+    own check, ``ops/a5.check_supported``; the fused march adds
+    :func:`check_fused_supported`, the smooth march
+    ``ops/smooth.check_smooth_supported``.)"""
     if config.algorithm is Algorithm.POINT:
         raise NotImplementedError(
             "Algorithm.POINT is not ported yet: ROADMAP.md item 15 "
@@ -187,10 +188,6 @@ def check_supported(config: RenderConfig, channels: int) -> None:
             "scattering is not ported yet: ROADMAP.md item 9 (lighting, LUT "
             "and scattering: henyey_greenstein, light_transmittance_grid, "
             "bake_scatter_grid)")
-    if config.interp is Interp.TRILINEAR:
-        raise NotImplementedError(
-            "Interp.TRILINEAR is not ported yet: ROADMAP.md item 12 "
-            "(smooth mode)")
     if config.interp is Interp.TRILINEAR_COLOR:
         raise NotImplementedError(
             "Interp.TRILINEAR_COLOR is not ported yet: ROADMAP.md item 8 "
@@ -205,7 +202,11 @@ def check_fused_supported(config: RenderConfig, light: Light | None) -> None:
     """What the fused march adds to :func:`check_supported`: lighting only
     through the bake, which needs ortho rays and a uniform light colour
     (NotImplementedError, naming the ROADMAP.md item).  (A LUT of more than
-    1024 entries raises in :func:`lut_ids`.)"""
+    1024 entries raises in :func:`lut_ids`.)  Smooth mode is not this
+    march's: a ValueError (``ops/smooth`` marches it)."""
+    if config.interp is Interp.TRILINEAR:
+        raise ValueError("the nearest-voxel march does not sample "
+                         "Interp.TRILINEAR: ops/smooth marches smooth mode")
     if not is_lit(config, light):
         return
     if config.conic:
@@ -265,8 +266,11 @@ def _effective_colors(a: MarchArgs) -> torch.Tensor:
 
 def _rays(a: MarchArgs) -> Tuple[torch.Tensor, torch.Tensor]:
     """Origins and directions [W, H, 3] of the kernel's rays (its ray
-    setup, expression by expression)."""
-    dev = a.ids.device
+    setup, expression by expression; ``ray_setup`` in
+    ``csrc/march_common.cuh``, which the smooth marches share too).  ``a``
+    needs ``scal`` (this module's slots), ``width``, ``height`` and
+    ``conic``."""
+    dev = a.scal.device
     s = a.scal
     w, h = a.width, a.height
     x = torch.arange(w, dtype=_f32, device=dev)[:, None].expand(w, h)

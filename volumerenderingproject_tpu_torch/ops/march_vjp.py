@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..scene.transfer_function import TransferFunction
-from ..utils.config import RenderConfig
+from ..utils.config import Interp, RenderConfig
 from ..utils.device import resolve_device
 from . import _build, march
 from .march import S_BG, SCAL_LEN, MarchArgs
@@ -67,6 +67,12 @@ def check_diff_supported(config: RenderConfig, channels: int,
     """Raise NotImplementedError, naming the ROADMAP.md item, for what the
     differentiable march of this slice does not compute."""
     march.check_supported(config, channels)
+    if config.interp is Interp.TRILINEAR:
+        raise NotImplementedError(
+            "the differentiable nearest-voxel march (K4) does not sample "
+            "Interp.TRILINEAR: smooth renders differentiate through "
+            "ops/smooth_vjp.render_vrc_smooth_diff (ROADMAP.md item 12, "
+            "smooth mode)")
     if config.lighting or config.tf_lut:
         raise NotImplementedError(
             "lit and LUT fits are not ported yet: ROADMAP.md item 9 "

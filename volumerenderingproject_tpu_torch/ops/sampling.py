@@ -1,4 +1,7 @@
-"""The a1 sampler: the value semantics of the reference's min/max octree
+"""The samplers: the a1 nearest-voxel lookup, the a5 colour-space corners
+and the smooth-mode trilinear intensity sample.
+
+The a1 sampler gives the value semantics of the reference's min/max octree
 query (Octree.cu:158-183), which is a nearest-voxel lookup of the centered
 dataset at the query's dyadic cell.
 
@@ -135,3 +138,43 @@ def trilinear_color_sample(volume_flat: torch.Tensor,
     mixed = trilinear_mix_colors(colors8, frac)
     outside_color = classify_fn(torch.zeros_like(cal_max))
     return torch.where(inside[..., None], mixed, outside_color)
+
+
+def trilinear_intensity_sample(volume: torch.Tensor, pos: torch.Tensor
+                               ) -> torch.Tensor:
+    """Smooth-mode intensity at voxel-space positions ``pos`` (..., 3):
+    zero-padded trilinear interpolation of ``volume`` [X, Y, Z] (or
+    [X, Y, Z, C], giving (..., C)).  Corners at ``floor(pos)`` and +1, each
+    read through its clipped flat index and zeroed out of range; the mix
+    runs z, then y, then x (the JAX package's ``trilinear_intensity_sample``
+    op for op).  No reference counterpart: the reference interpolates
+    colours only."""
+    d1, d2, d3 = volume.shape[:3]
+    vol = volume.reshape(d1 * d2 * d3, -1)
+    pos = pos.to(_f32)
+    base = torch.floor(pos)
+    frac = pos - base
+    basei = base.to(torch.int32).to(torch.int64)
+    zero = torch.zeros((), dtype=_f32, device=pos.device)
+
+    def fetch(ox, oy, oz):
+        ix = basei[..., 0] + ox
+        iy = basei[..., 1] + oy
+        iz = basei[..., 2] + oz
+        ok = ((ix >= 0) & (ix < d1) & (iy >= 0) & (iy < d2) & (iz >= 0)
+              & (iz < d3))
+        flat = (ix.clamp(0, d1 - 1) * (d2 * d3) + iy.clamp(0, d2 - 1) * d3
+                + iz.clamp(0, d3 - 1))
+        return torch.where(ok[..., None], vol[flat], zero)
+
+    fx = frac[..., 0:1]
+    fy = frac[..., 1:2]
+    fz = frac[..., 2:3]
+    c00 = fetch(0, 0, 0) * (1 - fz) + fetch(0, 0, 1) * fz
+    c01 = fetch(0, 1, 0) * (1 - fz) + fetch(0, 1, 1) * fz
+    c10 = fetch(1, 0, 0) * (1 - fz) + fetch(1, 0, 1) * fz
+    c11 = fetch(1, 1, 0) * (1 - fz) + fetch(1, 1, 1) * fz
+    c0 = c00 * (1 - fy) + c01 * fy
+    c1 = c10 * (1 - fy) + c11 * fy
+    out = c0 * (1 - fx) + c1 * fx
+    return out.squeeze(-1) if out.shape[-1] == 1 else out

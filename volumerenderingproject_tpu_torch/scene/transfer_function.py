@@ -24,6 +24,15 @@ from .materials import MaterialId, get_material
 _f32 = torch.float32
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, the formula XLA lowers ``jax.nn.sigmoid`` to
+    on the CPU; the smooth-mode kernels evaluate the same expression (with
+    ``expf``).  The quotient is taken against a tensor, so CUDA divides and
+    does not multiply by a reciprocal."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return one / (one + torch.exp(-x))
+
+
 @dataclasses.dataclass(frozen=True)
 class TransferFunction:
     """Interval table: ``lower``/``upper`` [K] inclusive bounds (normalized
@@ -54,6 +63,28 @@ class TransferFunction:
     def classify(self, value: torch.Tensor) -> torch.Tensor:
         """RGBA for normalized intensities, shape value.shape + (4,)."""
         return self.colors[self.classify_index(value)]
+
+    def classify_smooth(self, value: torch.Tensor,
+                        sharpness: float = 200.0) -> torch.Tensor:
+        """Smooth relaxation of :meth:`classify` (smooth mode,
+        ``Interp.TRILINEAR``), shape value.shape + (4,).  Interval 0 is the
+        base layer; each interval k >= 1 overlays it with the weight
+        ``w_k = sigmoid(s (v - lo_k)) * sigmoid(s (hi_k - v))``:
+        ``rgba = c_0 + sum_k w_k (c_k - c_0)``, the terms added in k order.
+
+        The sigmoid is JAX's formula, ``1 / (1 + exp(-x))``; the JAX
+        package's exp and torch's differ by an ulp on some inputs, so the
+        two packages agree to a tolerance, not bit for bit."""
+        s = torch.tensor(sharpness, dtype=_f32, device=value.device)
+        v = value[..., None]
+        base = self.colors[0]
+        w = sigmoid(s * (v - self.lower[1:])) * sigmoid(s * (self.upper[1:] - v))
+        acc = None
+        for k in range(1, self.num_intervals):
+            term = w[..., k - 1:k] * (self.colors[k] - base)
+            acc = term if acc is None else acc + term
+        return base + acc if acc is not None else base.expand(
+            value.shape + (4,))
 
     def to_lut(self, resolution: int = 256) -> torch.Tensor:
         """Dense RGBA LUT [R, 4]: the classification of the R grid points
