@@ -113,8 +113,44 @@ each with its own seeds:
   7e. a volume-gradient step (forward and backward with ``volume.data``
      requiring grad) at 700x700x500 on the MNI-dims volume, 5 times.
 
-Kernel times are CUDA events around repeated launches queued behind a GPU
-spin, the median of 3 windows.
+The fault repair and the lit, LUT and light fits (K4's baked-light, LUT
+and LUT + baked-light variants, light gradients through tangent marches of
+K1 baked), on both volumes, with their own seeds:
+
+  3i. a TF with the alphas of intervals 1-3 at 1.2, which drives T below
+     0: K1 (plain at 700x700x500; LUT, baked and LUT + baked at the lit
+     configs), K3 (500x500x500) and K8 (smooth 700x700x500) bit-exact to
+     their plain versions at eps 0; small renders of each through
+     ``render()`` within 2e-5 of the plain scan, which composites on;
+  3j. K4's baked, LUT and LUT + baked variants against
+     ``march_bwd_plain`` (within 5e-3 of max |dplain|) on edge inputs (K
+     = 2, 4, 16; an interval of alpha 1; TF(0).alpha 0.05; a front clip;
+     LUT sizes 64, 256, 1024) and at full size: baked at
+     ``sobel_lit_700``, LUT at 700x700x500 ``tf_lut=256``, LUT + baked at
+     ``lut_phong_300``; each variant's time, the plain version's and the
+     bound;
+  5g. the CLI ``fit --lighting``, ``fit --config <json with tf_lut 256>``
+     and ``fit --fit-light``, started together (the CLI's phases 5-5g run
+     their chains of processes at the same time);
+  7f. 5 ``fit_transfer_function`` steps after one warm-up at each K4
+     variant's config, with the launches of each K1 and K4 variant set to
+     0 just before and read just after, the same steps under
+     torch.profiler, and 2 steps through the kernels against 2 through
+     the plain versions;
+  7g. the same for a light fit (``light=``, from ambient 0.7 and diffuse
+     0.2) at ``sobel_lit_700``: K4 baked and 12 launches of K1 baked a
+     step;
+  7h. the light gradient through the kernels against the plain versions
+     (10 components within 1e-4 of the largest, the three colour
+     components equal within 1e-6) and central differences of the loss in
+     ambient and direction[0] (within 1e-2);
+  7i. the JAX package's light-recovery case (tests/test_fit_params.py:
+     158-178: 150 steps at lr 2e-2) through the kernels: the last loss
+     below 0.2 of the first, the ambient error halved.
+
+Each phase's seconds are printed on a line of their own.  Kernel times are
+CUDA events around repeated launches queued behind a GPU spin, the median
+of 3 windows.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the main paths, its error against its plain version, its
@@ -132,6 +168,7 @@ import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -236,6 +273,29 @@ SMOOTH_FD_VOXEL_STEP = 0.05  # and voxel step (intensity units)
 # the JAX package's bound-recovery case (tests/test_fit_params.py:181-201)
 RECOVERY_STEPS = 80
 RECOVERY_LR = 5e-3
+# the lit, LUT and light fits (K4's baked, LUT and LUT + baked variants):
+# each variant at its main config; the LUT variant at the a1 main path's
+# shapes, unlit
+K4_VARIANT_CONFIGS = {
+    "baked": ("sobel_lit_700", LIT_CONFIGS["sobel_lit_700"]),
+    "lut": ("lut_700", dict(width=W, height=H, samples_per_ray=SPR,
+                            tf_lut=256)),
+    "lut_baked": ("lut_phong_300", LIT_CONFIGS["lut_phong_300"]),
+}
+# K4 baked adds the shade c * M + S, 6 operations, and w M, 1, per sample
+# inside the volume (each once however a kernel schedules it), and reads
+# M and S at the voxels the samples touch, 8 bytes for each, at most the
+# two grids; the LUT variants' interval lookup is no float operation
+FLOPS_PER_BWD_BAKED_SAMPLE = 7
+# F1: the default TF with the alphas of intervals 1-3 above 1, so T goes
+# negative on rays through them
+ALPHA_ABOVE_ONE = 1.2
+TOL_LIGHT = 1e-4  # light gradient, kernels vs plain, of the largest
+TOL_LIGHT_SYM = 1e-6  # the three colour components' gradients, relative
+LIGHT_FD_STEP = 1e-3  # central difference in ambient and direction[0]
+# the JAX package's light-recovery case (tests/test_fit_params.py:158-178)
+LIGHT_RECOVERY_STEPS = 150
+LIGHT_RECOVERY_LR = 2e-2
 # timed windows per measurement; the median is reported
 TIMING_WINDOWS = 3
 # GPU cycles spun before a kernel's timed window (~50 ms at 1.98 GHz), so
@@ -795,6 +855,39 @@ def a5_render_phase(P, a5, volumes, tf, rng, per_volume) -> int:
     log(f"K3 launches on the a5 render path: {launches} for {frames} frames")
     check(launches == frames, f"a5 launches {launches} != frames {frames}")
     return launches
+
+
+def a1_cli_phase(tmp: str, tf, from_text) -> None:
+    """Phases 5 and 5b: the CLI ``render`` must write a valid 700x700 PNG,
+    and ``fit`` against that PNG a TF file that parses."""
+    import torch
+
+    out = os.path.join(tmp, "sphere.png")
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch",
+         "render", "--data", "sphere", "--width", str(W), "--height",
+         str(H), "--spr", str(SPR), "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(f"cli exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli render failed")
+    check_png(out, W, H)
+
+    out_tf = os.path.join(tmp, "fitted.txt")
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch",
+         "fit", "--data", "sphere", "--width", str(W), "--height",
+         str(H), "--spr", str(SPR), "--target", out, "--steps", "3",
+         "--out-tf", out_tf],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"cli fit exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli fit failed")
+    with open(out_tf) as f:
+        fitted = from_text(f.read())
+    check(fitted.num_intervals == tf.num_intervals
+          and bool(torch.isfinite(fitted.colors).all()),
+          "cli fit wrote a bad transfer function")
 
 
 def a5_cli_phase(tmp: str, tf, from_text) -> None:
@@ -1540,6 +1633,429 @@ def volume_grad_phase(P, smooth, smooth_vjp, vol, tf, rng) -> dict:
     return dict(ms=ms, k8=launches[0], k9=launches[1])
 
 
+def tf_alpha_above_one(P, tf):
+    """``tf`` with the alphas of intervals 1-3 at ALPHA_ABOVE_ONE."""
+    colors = tf.colors.clone()
+    colors[1:, 3] = ALPHA_ABOVE_ONE
+    return P.TransferFunction(tf.lower, tf.upper, colors, tf.hg_g)
+
+
+def f1_phase(P, march, a5, smooth, volumes, tf, rng) -> dict:
+    """Phase 3i: a TF alpha above 1, which makes T negative on rays through
+    it.  K1 (plain at 700x700x500, the lit configs' variants), K3 (a5 500^3)
+    and K8 (smooth 700x700x500) against their plain versions at eps 0 on
+    both volumes, each bit-exact; then small renders through ``render()``
+    against the plain scan, which composites on with T < 0 -> {kernel: max
+    abs err}."""
+    import torch
+
+    tf12 = tf_alpha_above_one(P, tf)
+    cases = [("a1", march, P.RenderConfig(width=W, height=H,
+                                          samples_per_ray=SPR))]
+    cases += [(cname, march, P.RenderConfig(**kw))
+              for cname, kw in LIT_CONFIGS.items()]
+    cases += [("a5", a5, P.RenderConfig(
+        width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+        algorithm=P.Algorithm.TEST)),
+        ("smooth", smooth, P.RenderConfig(width=W, height=H,
+                                          samples_per_ray=SPR,
+                                          interp=P.Interp.TRILINEAR))]
+    fns = {march: (march.prepare, march.march_kernel, march.march_plain),
+           a5: (a5.prepare_a5, a5.march_a5_kernel, a5.march_a5_plain),
+           smooth: (smooth.prepare_smooth, smooth.march_smooth_kernel,
+                    smooth.march_smooth_plain)}
+    errs = {}
+    for vname, vol in volumes.items():
+        cam = orbit_cameras(P, rng, 1)[0]
+        for cname, mod, cfg in cases:
+            prep, kernel, plain = fns[mod]
+            a = prep(vol, tf12, cam, cfg, 0.0)
+            name = {a5: "K3", smooth: "K8"}.get(mod)
+            if name is None:
+                name = f"K1 {march.variant(a)}"
+            e = exact_vs_plain(kernel, plain,
+                               f"F1 {vname}/{cname} ({name})", a)[2]
+            errs[name] = max(errs.get(name, 0.0), e)
+            del a
+        torch.cuda.empty_cache()
+    small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
+    for vname, vol in volumes.items():
+        cam = orbit_cameras(P, rng, 1)[0]
+        for cname, kw in (("a1", {}), ("a1 LUT 256", dict(tf_lut=256)),
+                          ("a1 lit", dict(lighting=True)),
+                          ("a1 lit LUT 256", dict(lighting=True,
+                                                  tf_lut=256)),
+                          ("a5", dict(algorithm=P.Algorithm.TEST)),
+                          ("smooth", dict(interp=P.Interp.TRILINEAR))):
+            c = small.replace(**kw)
+            got = P.render(vol, tf12, cam, c)
+            ref = P.render(vol, tf12, cam, c, mode="scan")
+            e = float((got - ref).abs().max())
+            log(f"F1 {vname}/{cname} 100x100x100: kernel vs plain scan max "
+                f"err {e:.3e} (tol {TOL_EXACT:g})")
+            check(e <= TOL_EXACT, f"F1 {vname}/{cname}: kernel vs scan {e}")
+        # with black colours and a white background the image is T_N
+        black = P.TransferFunction(tf12.lower, tf12.upper, torch.cat(
+            [torch.zeros_like(tf12.colors[:, :3]), tf12.colors[:, 3:]], 1),
+            tf12.hg_g)
+        t_n = P.render(vol, black, cam, small.replace(
+            background=(1.0, 1.0, 1.0)), mode="scan")[..., 0]
+        log(f"F1 {vname}: {int((t_n < 0).sum())} of {t_n.numel()} rays end "
+            f"with T < 0 (min {float(t_n.min()):.4f})")
+    log(f"F1 kernel vs plain max abs err by kernel: {errs}")
+    return errs
+
+
+def plain_fwd_a1(march, march_vjp):
+    """The plain version of the differentiable a1 forward (the LUT's
+    entries taken as the kernel's wrapper takes them)."""
+    return lambda a: march.march_plain(march_vjp._fwd_args(a))
+
+
+def k4_variant_phases(P, march, march_vjp, volumes, tf, from_text, rng,
+                      per_volume) -> dict:
+    """Phase 3j: K4's baked, LUT and LUT + baked variants against
+    ``march_bwd_plain`` on edge inputs (K = 2, 4, 16; an interval of alpha
+    1; TF(0).alpha 0.05; a front clip; LUT sizes 64, 256, 1024) and at
+    each variant's main config on both volumes (K4_VARIANT_CONFIGS); each
+    variant's time, the plain version's and the bound at those shapes ->
+    {variant: [max abs err, max err relative to max |dplain|]}."""
+    import torch
+
+    errs = {v: [0.0, 0.0] for v in K4_VARIANT_CONFIGS}
+    grad_rng = np.random.default_rng(13)
+    edge_rng = np.random.default_rng(12)
+    odd = P.make_volume(edge_rng.uniform(-30, 255, (13, 17, 20))
+                        .astype(np.float32), cal_max=200.9)
+    small = P.RenderConfig(width=61, height=37, samples_per_ray=37)
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    two = from_text("low 0 0.4 0.2 0.3 0.4 0.3\nhigh 0.4 1 0.9 0.8 0.7 0.6\n")
+    tfs = [("k2", two), ("k4", tf), ("k16", tf16(P, tf.colors.device)),
+           ("alpha_one", tf_with_alpha(P, tf, 3, 1.0)),
+           ("alpha0_0.05", tf_with_alpha(P, tf, 0, 0.05))]
+    edges = []
+    for var, kw in (("baked", dict(lighting=True)),
+                    ("lut", dict(tf_lut=256)),
+                    ("lut_baked", dict(tf_lut=256, lighting=True))):
+        edges += [(var, name, tfx, small.replace(**kw)) for name, tfx in tfs]
+        edges.append((var, "front_clip", tf,
+                      small.replace(front_clip=0.5, **kw)))
+        if var != "baked":
+            edges += [(var, f"lut{n}", tf, small.replace(**dict(kw, tf_lut=n)))
+                      for n in (64, 1024)]
+    for var, name, tfx, c in edges:
+        a, _ = march_vjp.prepare_diff(odd, tfx, near, c)
+        check(march.variant(a) == var, f"{name}: variant {march.variant(a)}")
+        e_abs, e_rel = bwd_vs_plain(
+            march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain,
+            f"K4 {var} edge/{name}", a, cotangents(a, grad_rng))
+        errs[var] = [max(errs[var][0], e_abs), max(errs[var][1], e_rel)]
+    plain_fwd = plain_fwd_a1(march, march_vjp)
+    for var, (cname, kw) in K4_VARIANT_CONFIGS.items():
+        cfg = P.RenderConfig(**kw)
+        for vname, vol in volumes.items():
+            cam = orbit_cameras(P, rng, 1)[0]
+            a, _ = march_vjp.prepare_diff(vol, tf, cam, cfg)
+            check(march.variant(a) == var, f"{cname}: variant {var}")
+            g = cotangents(a, grad_rng)
+            label = f"K4 {var} {vname}/{cname}"
+            e_abs, e_rel = bwd_vs_plain(
+                march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain, label,
+                a, g)
+            errs[var] = [max(errs[var][0], e_abs), max(errs[var][1], e_rel)]
+            ms = timed_ms(lambda: march_vjp.march_bwd_kernel(a, *g), 5,
+                          prefill=True, label=label)
+            plain_ms = timed_ms(lambda: march_vjp.march_bwd_plain(a, *g), 1)
+            rays = cfg.width * cfg.height
+            samples = rays * cfg.samples_per_ray  # every sample: no skip
+            # at eps 0 no ray stops early: the samples inside the volume
+            inside = samples_needed(lambda x, st: march.march_plain(
+                march_vjp._fwd_args(x), st), [a])
+            k = a.colors.shape[0]
+            baked = a.mgrid is not None
+            nbytes = (a.ids.numel() * a.ids.element_size() + rays * 16
+                      + k * 16 + march_vjp.num_blocks(cfg.width, cfg.height)
+                      * k * 16)
+            if a.itv is not None:
+                nbytes += a.itv.numel()
+            if baked:
+                nbytes += 8 * min(inside, a.mgrid.numel())
+            ops = (inside * (FLOPS_PER_BWD_SAMPLE
+                             + (FLOPS_PER_BWD_BAKED_SAMPLE if baked else 0))
+                   + (samples - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                   + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
+                             + FLOPS_PER_BWD_RAY))
+            bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
+            per_volume[vname][f"k4_{var}"] = dict(
+                config=cname, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, inside=inside, err_abs=e_abs,
+                err_rel=e_rel)
+            log(f"{label}: K4 {var} {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                f"samples inside the volume {inside} of {samples}, bound "
+                f"{ops_ms:.4f} ms (operations) / {bytes_ms:.4f} ms (bytes)")
+            del a, g
+            torch.cuda.empty_cache()
+    log(f"K4 variants max errors (abs, relative): {errs}")
+    return errs
+
+
+def lit_fit_start(P, phong, tf, rng, light_fit: bool):
+    """(start TF, start light or None): a colour fit starts from the
+    default TF with colours 1..3 moved by a seeded +-0.2 (as phase 7); a
+    light fit from the default TF and the JAX light-recovery test's light
+    (ambient 0.7, diffuse 0.2; tests/test_fit_params.py:166-170)."""
+    import dataclasses
+
+    import torch
+
+    if light_fit:
+        light = phong.default_light()
+        dev = light.ambient.device
+        return tf, dataclasses.replace(
+            light, ambient=torch.tensor(0.7, device=dev),
+            diffuse=torch.tensor(0.2, device=dev))
+    colors = tf.colors.clone()
+    colors[1:, :3] += torch.tensor(
+        rng.uniform(-0.2, 0.2, (3, 3)).astype(np.float32), device=colors.device)
+    return P.TransferFunction(tf.lower, tf.upper, colors, tf.hg_g), None
+
+
+def swap_plain_a1(march, march_vjp):
+    """Route the differentiable a1 march through the plain versions ->
+    the kernels' routes, to restore."""
+    routes = march_vjp._forward, march_vjp._backward
+    march_vjp._forward = plain_fwd_a1(march, march_vjp)
+    march_vjp._backward = march_vjp.march_bwd_plain
+    return routes
+
+
+def lit_fit_phase(P, fit, march, march_vjp, phong, label, var, vol, rng,
+                  cfg, light_fit=False) -> dict:
+    """Phase 7f (a colour fit through K4's ``var`` variant) or 7g (a light
+    fit, ``light_fit``) on one volume: 5 steps after one warm-up (ms/step,
+    launches by variant), the same under torch.profiler (device busy and
+    idle share), then 2 steps through the kernels against 2 through the
+    plain versions -> its numbers."""
+    import torch
+
+    tf = P.default_transfer_function()
+    cam = orbit_cameras(P, rng, 1)[0]
+    target = P.render(vol, tf, cam, cfg, light=phong.default_light()
+                      if light_fit else None)
+    start_tf, start_light = lit_fit_start(P, phong, tf, rng, light_fit)
+
+    def run(steps, lr=FIT_LR):
+        return fit.fit_transfer_function(vol, cam, target, start_tf, cfg,
+                                         steps=steps, learning_rate=lr,
+                                         light=start_light)
+
+    run(1)  # warm-up step
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_launches(march, march_vjp)
+    start.record()
+    params, losses = run(FIT_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / FIT_STEPS
+    k1 = dict(march.variant_launches)
+    k4 = dict(march_vjp.variant_launches)
+    per_step = 1 + (phong.N_LIGHT_PARAMS + 1 if light_fit else 0)
+    log(f"{label}: fit losses {losses}, {step_ms:.4f} ms/step, launches "
+        f"K1 {k1} K4 {k4} for {FIT_STEPS} steps")
+    check(k1[var] == per_step * FIT_STEPS and k4[var] == FIT_STEPS
+          and sum(k1.values()) == k1[var] and sum(k4.values()) == k4[var],
+          f"{label}: launches K1 {k1} K4 {k4}")
+    check(all(math.isfinite(v) for v in losses), f"{label}: loss not finite")
+    trace = profile_fit(lambda: run(FIT_STEPS),
+                        ("march_a1_kernel", "march_bwd_a1_kernel"))
+    log(f"{label}: the same {FIT_STEPS} steps under torch.profiler: "
+        f"{trace['wall_ms'] / FIT_STEPS:.4f} ms/step, device busy "
+        f"{trace['busy_ms'] / FIT_STEPS:.4f} ms/step (K1 "
+        f"{trace['k1_ms'] / FIT_STEPS:.4f}, K4 "
+        f"{trace['k4_ms'] / FIT_STEPS:.4f}), idle "
+        f"{trace['idle_share']:.4f} of the span from the first kernel to "
+        f"the last ({trace['span_ms'] / FIT_STEPS:.4f} ms/step), "
+        f"{trace['kernels']} device operations")
+
+    pk, lk = run(2)
+    routes = swap_plain_a1(march, march_vjp)
+    try:
+        pp, lp = run(2)
+    finally:
+        march_vjp._forward, march_vjp._backward = routes
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    param_err = max(float((a - b).detach().abs().max())
+                    for a, b in zip(pk.parameters(), pp.parameters()))
+    log(f"{label}: 2 fit steps, kernels vs plain: losses {lk} vs {lp} "
+        f"(max relative err {loss_err:.3e}), parameters max abs err "
+        f"{param_err:.3e} (tol {TOL_FIT:g})")
+    check(lk == losses[:2], f"{label}: the fit is not deterministic")
+    check(loss_err <= TOL_FIT and param_err <= TOL_FIT,
+          f"{label}: kernels vs plain fit steps differ")
+    if light_fit:
+        log(f"{label}: fitted light "
+            f"{phong.light_to_vec(params.light).detach().cpu().tolist()}")
+    return dict(step_ms=step_ms, k1=k1[var], k4=k4[var], losses=losses,
+                trace=trace)
+
+
+def light_grad_phase(P, fit, march, march_vjp, phong, vname, vol, rng
+                     ) -> dict:
+    """Phase 7h at ``sobel_lit_700`` on one volume: the light gradient of
+    the fit's loss through the kernels against the plain versions (each of
+    the 10 components within TOL_LIGHT of the largest), the three colour
+    components equal (TOL_LIGHT_SYM), and central differences of the loss
+    in ambient and direction[0] (TOL_FD)."""
+    import torch
+
+    cfg = P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"])
+    tf = P.default_transfer_function()
+    cam = orbit_cameras(P, rng, 1)[0]
+    target = P.render(vol, tf, cam, cfg, light=phong.default_light())
+    _, start = lit_fit_start(P, phong, tf, rng, True)
+
+    def light_grad():
+        params = fit.FitParams.init(tf, light=start)
+        fit.render_loss(params, tf, vol, cam, target, cfg).backward()
+        return torch.cat([p.grad.reshape(-1) for p in params.light.fields()])
+
+    g = light_grad()
+    routes = swap_plain_a1(march, march_vjp)
+    try:
+        gp = light_grad()
+    finally:
+        march_vjp._forward, march_vjp._backward = routes
+    scale = float(gp.abs().max())
+    err = float((g - gp).abs().max()) / scale
+    sym = max(abs(float(g[3] - g[c])) / abs(float(g[3])) for c in (4, 5))
+    log(f"{vname}: light gradient kernels {g.tolist()} vs plain "
+        f"{gp.tolist()}: max err {err:.3e} of max |dplain| {scale:.4e} (tol "
+        f"{TOL_LIGHT:g}); colour components equal within {sym:.3e} (tol "
+        f"{TOL_LIGHT_SYM:g})")
+    check(err <= TOL_LIGHT, f"{vname}: light gradient kernels vs plain {err}")
+    check(sym <= TOL_LIGHT_SYM and float(g[3]) != 0.0,
+          f"{vname}: colour gradients not symmetric {sym}")
+    vec = phong.light_to_vec(start)
+    fd = {}
+    for name, idx in (("ambient", 6), ("direction[0]", 0)):
+        losses, steps = [], []
+        for h in (LIGHT_FD_STEP, -LIGHT_FD_STEP):
+            v = vec.clone()
+            v[idx] = v[idx] + h
+            steps.append(float(v[idx]))
+            params = fit.FitParams.init(tf, light=phong.light_from_vec(v))
+            with torch.no_grad():
+                losses.append(float(fit.render_loss(params, tf, vol, cam,
+                                                    target, cfg)))
+        predicted = float(g[idx]) * (steps[0] - steps[1])
+        rel = abs((losses[0] - losses[1]) - predicted) / abs(predicted)
+        fd[name] = rel
+        log(f"{vname}: central difference in {name}: {losses[0] - losses[1]:.6g}"
+            f" against {predicted:.6g} from the gradient (relative err "
+            f"{rel:.3e}, tol {TOL_FD:g})")
+        check(rel <= TOL_FD, f"{vname}: light central difference in {name}")
+    return dict(err=err, sym=sym, fd=fd)
+
+
+def light_recovery_phase(P, fit, march, march_vjp, phong) -> dict:
+    """Phase 7i: tests/test_fit_params.py:158-178 on the card through K1
+    baked and K4 baked: 150 steps at lr 2e-2 from ambient 0.7 and diffuse
+    0.2 toward the default light; the last loss must be below 0.2 of the
+    first and the ambient error must halve."""
+    rng = np.random.default_rng(11)
+    vol = P.make_volume(rng.uniform(0.0, 255.0, size=(9, 11, 10))
+                        .astype(np.float32))
+    tf = P.default_transfer_function()
+    cam = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    cfg = P.RenderConfig(width=18, height=13, samples_per_ray=30)
+    true = phong.default_light()
+    target = P.render(vol, tf, cam, cfg, light=true)
+    _, start = lit_fit_start(P, phong, tf, rng, True)
+    reset_launches(march, march_vjp)
+    t0 = time.perf_counter()
+    params, losses = fit.fit_transfer_function(
+        vol, cam, target, tf, cfg, steps=LIGHT_RECOVERY_STEPS,
+        learning_rate=LIGHT_RECOVERY_LR, light=start)
+    secs = time.perf_counter() - t0
+    k1, k4 = march.variant_launches["baked"], march_vjp.variant_launches[
+        "baked"]
+    a0 = abs(0.7 - float(true.ambient))
+    a1 = abs(float(params.light.ambient) - float(true.ambient))
+    log(f"light recovery: loss {losses[0]:.6g} -> {losses[-1]:.6g} in "
+        f"{LIGHT_RECOVERY_STEPS} steps ({losses[-1] / losses[0]:.4f}, must "
+        f"be below 0.2), ambient error {a0:.4f} -> {a1:.4f} (must halve), "
+        f"launches K1 baked {k1} K4 baked {k4}, {secs:.2f} s")
+    check(k1 == LIGHT_RECOVERY_STEPS * (phong.N_LIGHT_PARAMS + 2)
+          and k4 == LIGHT_RECOVERY_STEPS,
+          f"light recovery launches K1 {k1} K4 {k4}")
+    check(losses[-1] < 0.2 * losses[0], "light recovery: loss did not fall")
+    check(a1 < 0.5 * a0, "light recovery: ambient error did not halve")
+    return dict(loss_ratio=losses[-1] / losses[0], a0=a0, a1=a1)
+
+
+def lit_fit_cli_phase(tmp: str, from_text) -> None:
+    """Phase 5g: the CLI's ``fit --lighting``, ``fit --config <json with
+    tf_lut 256>`` and ``fit --fit-light``, started together (each process
+    spends most of its time starting up); each must exit 0 and write a TF
+    file that parses, the light fit its fitted light."""
+    cfg_path = os.path.join(tmp, "lut_fit.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"width": 300, "height": 300, "samples_per_ray": 300,
+                   "tf_lut": 256}, f)
+    sobel = ["--width", "700", "--height", "700", "--spr", "250",
+             "--lighting", "--gradient-filter", "sobel"]
+    procs = {}
+    for name, flags in (("lighting", sobel), ("config_lut",
+                                              ["--config", cfg_path]),
+                        ("fit_light", sobel + ["--fit-light"])):
+        out_tf = os.path.join(tmp, f"fit_{name}.txt")
+        procs[name] = (out_tf, subprocess.Popen(
+            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
+             "fit", "--data", "sphere", *flags, "--steps", "2", "--out-tf",
+             out_tf], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    results = {}
+    try:
+        for name, (out_tf, proc) in procs.items():
+            results[name] = proc.communicate(timeout=300)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (out_tf, proc) in procs.items():
+        stdout, stderr = results[name]
+        log(f"cli fit {name} exit {proc.returncode}: {stdout.strip()} "
+            f"{stderr.strip()[-2000:]}")
+        check(proc.returncode == 0, f"cli fit {name} failed")
+        with open(out_tf) as f:
+            fitted = from_text(f.read())
+        check(fitted.num_intervals == 4
+              and bool(np.isfinite(fitted.colors.cpu().numpy()).all()),
+              f"cli fit {name} wrote a bad transfer function")
+        if name == "fit_light":
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("fitted light:")]
+            check(len(lines) == 1, "cli fit --fit-light printed no light")
+            vec = json.loads(lines[0].split(":", 1)[1])
+            check(len(vec) == 10 and all(math.isfinite(v) for v in vec),
+                  f"cli fit --fit-light printed {vec}")
+
+
+class PhaseClock:
+    """Prints each phase's seconds on a line of its own."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - self.t:.1f} s")
+        self.t = now
+
+
 def main() -> int:
     import torch
 
@@ -1557,6 +2073,7 @@ def main() -> int:
         from_text)
 
     # ---- 1. the card --------------------------------------------------------
+    clock = PhaseClock()
     smi = nvidia_smi_line()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1573,6 +2090,7 @@ def main() -> int:
     smooth._kernel_lib()
     smooth_vjp._kernel_lib()
     log(f"built {sources} in {time.time() - t0:.2f} s")
+    clock("1-2 card and build")
 
     # ---- 3. kernel vs plain on the card ------------------------------------
     tf = P.default_transfer_function()
@@ -1673,6 +2191,8 @@ def main() -> int:
             f" prep {prep_ms:.4f} ms, needed samples per frame {samples}, "
             f"bound {ops_ms:.4f} ms (operations) / {bytes_ms:.4f} ms (bytes)")
 
+    clock("3 K1 vs plain")
+
     # ---- 3b. the backward kernel vs plain on the card ------------------------
     grad_rng = np.random.default_rng(2)
     bwd_abs = bwd_rel = 0.0
@@ -1729,21 +2249,36 @@ def main() -> int:
                 f"of {samples}, bound {ops_ms:.4f} ms (operations) / "
                 f"{bytes_ms:.4f} ms (bytes)")
 
+    clock("3b K4 vs plain")
+
     # ---- 3c, 3d. the a5 kernels (K3, K6) vs plain on the card ---------------
     a5_rng = np.random.default_rng(8)
     a5_edge = a5_edge_cases(P, tf, from_text)
     k3_err, k6_abs, k6_rel = a5_kernel_phases(
         P, a5, a5_vjp, volumes, tf, a5_edge, a5_rng, per_volume)
+    clock("3c-3d K3, K6 vs plain")
 
     # ---- 3e, 3f. the lit and LUT variants of K1 and K3 vs plain ------------
     lit_rng = np.random.default_rng(11)
     lit_errs = lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text,
                                  lit_rng, per_volume)
+    clock("3e-3f K1, K3 lit and LUT variants vs plain")
 
     # ---- 3g, 3h. the smooth kernels (K8, K9) vs plain on the card ----------
     smooth_rng = np.random.default_rng(17)
     smooth_errs = smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf,
                                        from_text, smooth_rng, per_volume)
+    clock("3g-3h K8, K9 vs plain")
+
+    # ---- 3i. F1: alphas above 1, T < 0 ----------------------------------------
+    f1_errs = f1_phase(P, march, a5, smooth, volumes, tf,
+                       np.random.default_rng(20))
+    clock("3i alpha above 1")
+
+    # ---- 3j. K4's baked, LUT and LUT + baked variants vs plain --------------
+    k4_errs = k4_variant_phases(P, march, march_vjp, volumes, tf, from_text,
+                                np.random.default_rng(21), per_volume)
+    clock("3j K4 variants vs plain")
 
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
@@ -1778,56 +2313,34 @@ def main() -> int:
     log(f"march kernel launches on the main path: {launches} "
         f"for {frames} frames")
     check(launches == frames, f"launches {launches} != frames {frames}")
+    clock("4 render path")
 
     # ---- 4b. the a5 render path ---------------------------------------------
     a5_launches = a5_render_phase(P, a5, volumes, tf, a5_rng, per_volume)
+    clock("4b a5 render path")
 
     # ---- 4c. the lit render paths -------------------------------------------
     lit_launches = lit_render_phase(P, march, a5, volumes, tf, lit_rng,
                                     per_volume)
+    clock("4c lit render paths")
 
     # ---- 4d. the smooth render path -----------------------------------------
     smooth_launches = smooth_render_phase(P, smooth, volumes, tf, smooth_rng,
                                           per_volume)
+    clock("4d smooth render path")
 
-    # ---- 5. the CLI ---------------------------------------------------------
+    # ---- 5-5g. the CLI: its chains of processes run together, since each
+    # process spends most of its time starting up ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "sphere.png")
-        proc = subprocess.run(
-            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
-             "render", "--data", "sphere", "--width", str(W), "--height",
-             str(H), "--spr", str(SPR), "--out", out],
-            cwd=ROOT, capture_output=True, text=True, timeout=300)
-        log(f"cli exit {proc.returncode}: {proc.stdout.strip()} "
-            f"{proc.stderr.strip()[-2000:]}")
-        check(proc.returncode == 0, "cli render failed")
-        check_png(out, W, H)
-
-        # ---- 5b. the CLI fit against that PNG --------------------------------
-        out_tf = os.path.join(tmp, "fitted.txt")
-        proc = subprocess.run(
-            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
-             "fit", "--data", "sphere", "--width", str(W), "--height",
-             str(H), "--spr", str(SPR), "--target", out, "--steps", "3",
-             "--out-tf", out_tf],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        log(f"cli fit exit {proc.returncode}: {proc.stdout.strip()} "
-            f"{proc.stderr.strip()[-2000:]}")
-        check(proc.returncode == 0, "cli fit failed")
-        with open(out_tf) as f:
-            fitted = from_text(f.read())
-        check(fitted.num_intervals == tf.num_intervals
-              and bool(torch.isfinite(fitted.colors).all()),
-              "cli fit wrote a bad transfer function")
-
-        # ---- 5c, 5d. the CLI render and fit with --algorithm test ----------
-        a5_cli_phase(tmp, tf, from_text)
-
-        # ---- 5e. the CLI's lit and LUT renders ------------------------------
-        lit_cli_phase(tmp)
-
-        # ---- 5f. the CLI's smooth render and bound fit ----------------------
-        smooth_cli_phase(tmp, tf, from_text)
+        chains = [lambda: a1_cli_phase(tmp, tf, from_text),  # 5, 5b
+                  lambda: a5_cli_phase(tmp, tf, from_text),  # 5c, 5d
+                  lambda: lit_cli_phase(tmp),  # 5e
+                  lambda: smooth_cli_phase(tmp, tf, from_text),  # 5f
+                  lambda: lit_fit_cli_phase(tmp, from_text)]  # 5g
+        with ThreadPoolExecutor(len(chains)) as pool:
+            for job in [pool.submit(c) for c in chains]:
+                job.result()
+    clock("5-5g CLI")
 
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
@@ -1872,11 +2385,14 @@ def main() -> int:
         f"{e:.3e} (tol {TOL_EXACT:g})")
     check(e <= TOL_EXACT, f"K8 vs smooth reference scan: {e}")
 
+    clock("6-6d small renders vs the reference scans")
+
     # ---- 7. the fit path -----------------------------------------------------
     fit_rng = np.random.default_rng(4)
     fit_launches = {"k1": 0, "k4": 0}
     a1_route = FitRoute(("K1", "K4"), march, march_vjp,
-                        march.march_plain, march_vjp.march_bwd_plain,
+                        plain_fwd_a1(march, march_vjp),
+                        march_vjp.march_bwd_plain,
                         "march_a1_kernel", "march_bwd_a1_kernel")
     for vname, vol in volumes.items():
         r = fit_phase(P, fit, a1_route, vname, vol, fit_rng,
@@ -1888,6 +2404,7 @@ def main() -> int:
     log(f"march kernel launches on the fit path: {fit_launches['k1']}, "
         f"backward kernel launches: {fit_launches['k4']} "
         f"({FIT_STEPS} steps per volume)")
+    clock("7 a1 fit path")
 
     # ---- 7b. the a5 fit path -------------------------------------------------
     a5_route = FitRoute(("K3", "K6"), a5, a5_vjp, a5.march_a5_plain,
@@ -1906,6 +2423,7 @@ def main() -> int:
         a5_fit["k6"] += r["k4"]
     log(f"K3 launches on the a5 fit path: {a5_fit['k3']}, K6 launches: "
         f"{a5_fit['k6']} ({FIT_STEPS} steps per volume)")
+    clock("7b a5 fit path")
 
     # ---- 7c. the smooth bound fit path --------------------------------------
     smooth_route = FitRoute(("K8", "K9"), smooth, smooth_vjp,
@@ -1927,6 +2445,8 @@ def main() -> int:
     log(f"K8 launches on the bound fit path: {smooth_fit['k8']}, K9 "
         f"launches: {smooth_fit['k9']} ({FIT_STEPS} steps per volume)")
 
+    clock("7c smooth bound fit path")
+
     # ---- 7d. the JAX package's bound-recovery case on the card --------------
     recovery = bound_recovery_phase(P, fit, smooth, smooth_vjp)
 
@@ -1936,6 +2456,48 @@ def main() -> int:
                               np.random.default_rng(19))
     per_volume["mni_dims_182x218x182"]["smooth"]["vgrad_step_ms"] = (
         vgrad["ms"])
+    clock("7d-7e bound recovery and volume gradient")
+
+    # ---- 7f, 7g. the lit, LUT and light fit paths ----------------------------
+    lit_fit_rng = np.random.default_rng(22)
+    lit_fit = {v: {"k1": 0, "k4": 0} for v in K4_VARIANT_CONFIGS}
+    light_fit = {"k1": 0, "k4": 0}
+    routes = [(var, cname, kw, False)
+              for var, (cname, kw) in K4_VARIANT_CONFIGS.items()]
+    routes.append(("baked", "sobel_lit_700", LIT_CONFIGS["sobel_lit_700"],
+                   True))
+    for var, cname, kw, is_light in routes:
+        for vname, vol in volumes.items():
+            kind = "light fit" if is_light else f"{var} fit"
+            r = lit_fit_phase(P, fit, march, march_vjp, phong,
+                              f"{kind} {vname}/{cname}", var, vol,
+                              lit_fit_rng, P.RenderConfig(**kw),
+                              light_fit=is_light)
+            key = "light_fit" if is_light else f"{var}_fit"
+            per_volume[vname][key] = dict(
+                config=cname, step_ms=r["step_ms"],
+                busy_ms=r["trace"]["busy_ms"] / FIT_STEPS,
+                k1_ms=r["trace"]["k1_ms"] / FIT_STEPS,
+                k4_ms=r["trace"]["k4_ms"] / FIT_STEPS,
+                idle_share=r["trace"]["idle_share"],
+                launches_per_step=(r["k1"] / FIT_STEPS, r["k4"] / FIT_STEPS))
+            acc = light_fit if is_light else lit_fit[var]
+            acc["k1"] += r["k1"]
+            acc["k4"] += r["k4"]
+    log(f"lit and LUT fit launches by K4 variant: {lit_fit}; light fit "
+        f"launches {light_fit} ({FIT_STEPS} steps per volume)")
+    clock("7f-7g lit, LUT and light fit paths")
+
+    # ---- 7h. the light gradient: kernels vs plain, central differences ------
+    light_grads = {vname: light_grad_phase(P, fit, march, march_vjp, phong,
+                                           vname, vol,
+                                           np.random.default_rng(23))
+                   for vname, vol in volumes.items()}
+    clock("7h light gradient")
+
+    # ---- 7i. the JAX package's light-recovery case on the card --------------
+    light_recovery = light_recovery_phase(P, fit, march, march_vjp, phong)
+    clock("7i light recovery")
 
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
@@ -1993,14 +2555,32 @@ def main() -> int:
             ("lut_baked", "lut_phong_300", "march.cu", "pallas_march.py:103"),
             ("a5_baked", "a5_lit_300", "a5.cu", "pallas_a5.py:67")):
         r = main_vol[cname]
+        fit_k1 = 0 if var == "a5_baked" else (
+            lit_fit[var]["k1"] + (light_fit["k1"] if var == "baked" else 0))
         kernels.append({
             "name": "march_a5_baked" if var == "a5_baked"
             else f"march_a1_{var}",
             "route": "cuda",
             "source": f"volumerenderingproject_tpu_torch/csrc/{src}",
             "replaces": f"volumerenderingproject_tpu/ops/{line}",
-            "launches": lit_launches[var],
+            "launches": lit_launches[var] + fit_k1,
             "max_abs_err": lit_errs[var],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
+    for var in K4_VARIANT_CONFIGS:
+        r = main_vol[f"k4_{var}"]
+        kernels.append({
+            "name": f"march_bwd_a1_{var}",
+            "route": "cuda",
+            "source": "volumerenderingproject_tpu_torch/csrc/march_bwd.cu",
+            "replaces": "volumerenderingproject_tpu/ops/pallas_march_vjp.py:88",
+            "launches": lit_fit[var]["k4"] + (
+                light_fit["k4"] if var == "baked" else 0),
+            "max_abs_err": k4_errs[var][0],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -2036,9 +2616,13 @@ def main() -> int:
     log(f"K9 max errors (abs, relative to max |dplain|) over all cases: "
         f"{smooth_errs['k9']}; smooth central differences max relative err "
         f"{smooth_errs['fd']:.3e}; bound recovery {recovery}")
+    log(f"alpha above 1, kernel vs plain: {f1_errs}; K4 variants (abs, "
+        f"relative): {k4_errs}; light gradients {light_grads}; light "
+        f"recovery {light_recovery}")
     log(f"per volume: {json.dumps(per_volume)}")
     log(f"backward kernel max relative err over all cases {bwd_rel:.3e}")
     log(f"K6 max relative err over all cases {k6_rel:.3e}")
+    clock("report")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from volumerenderingproject_tpu_torch import interop
 from volumerenderingproject_tpu_torch.diff import fit as pfit
 from volumerenderingproject_tpu_torch.harness import cli
 from volumerenderingproject_tpu_torch.ingest import synthetic
+from volumerenderingproject_tpu_torch.ops import phong
 from volumerenderingproject_tpu_torch.scene.transfer_function import (
     from_text, to_text)
 from volumerenderingproject_tpu_torch.utils import imageio
@@ -188,15 +189,20 @@ def test_checkpoint_resume_bit_identical(scene, tmp_path):
 
 
 def test_unported_fit_options_raise(scene):
-    """Light fits and sharded fits raise; bound fits are ported (smooth
-    mode, tests/test_torch_smooth_vjp.py) and only add the bounds."""
+    """Sharded fits raise; bound fits are ported (smooth mode,
+    tests/test_torch_smooth_vjp.py) and only add the bounds, light fits
+    (tests/test_torch_lit_fit.py) the light's six fields as leaves."""
     _, jtf, _, _, _, _, _ = scene
     tf = _port_tf(jtf, np.asarray(jtf.colors))
     bounded = pfit.FitParams.init(tf, fit_bounds=True)
     assert len(bounded.parameters()) == 4
     assert torch.equal(bounded.tf_lower, tf.lower) and bounded.tf_upper.requires_grad
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pfit.FitParams.init(tf, light=object())
+    light = phong.default_light(device="cpu")
+    lit = pfit.FitParams.init(tf, light=light)
+    assert len(lit.parameters()) == 2 + 6
+    assert all(p.is_leaf and p.requires_grad for p in lit.parameters())
+    assert torch.equal(lit.light.direction, light.direction)
+    assert lit.light.direction is not light.direction
     params = pfit.FitParams.init(tf)
     with pytest.raises(NotImplementedError, match="item 14"):
         pfit.render_loss(params, tf, None, None, None, None, mesh=object())
@@ -452,10 +458,12 @@ def test_cli_fit_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [("--fit-bounds", "item 12"),
-                                       ("--fit-light", "item 9")])
+                                       ("--fit-light", "item 11a")])
 def test_cli_fit_unported_flags_raise(flag, item, tmp_path):
-    """On a lit smooth config: ``--fit-light`` is not ported (item 9), and a
-    bound fit of a lit smooth render, which the smooth kernels do not
+    """On a lit smooth config: a light fit of a smooth render, which the
+    JAX package fits only through its XLA scan, raises naming item 11a
+    (``--fit-light`` itself is ported for a1: tests/test_torch_lit_fit.py),
+    and a bound fit of a lit smooth render, which the smooth kernels do not
     compute, raises naming item 12 (``--fit-bounds`` itself is ported:
     tests/test_torch_smooth_vjp.py)."""
     cfg = os.path.join(tmp_path, "lit_smooth.json")

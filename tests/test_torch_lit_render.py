@@ -197,9 +197,14 @@ def test_non_uniform_light_colour_raises_in_fast_mode(alg):
         8, 8, 4)
 
 
-@pytest.mark.parametrize("kw", [dict(lighting=True), dict(tf_lut=256),
-                                dict(lighting=True, algorithm=Algorithm.TEST)])
+@pytest.mark.parametrize("kw", [
+    dict(lighting=True, conic=True), dict(tf_lut=256, lighting=True,
+                                          conic=True),
+    dict(lighting=True, algorithm=Algorithm.TEST)])
 def test_lit_and_lut_fits_raise(kw):
+    """Conic lit fits (a1, with a LUT too) and lit a5 fits are left to the
+    scan route (ROADMAP.md item 11a; their messages name item 9 as well);
+    ortho lit and LUT a1 fits are ported (tests/test_torch_lit_fit.py)."""
     vol = synthetic.centered_sphere(8, device="cpu")
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -200,10 +200,32 @@ def test_negative_alpha_marks_only_its_bricks():
     np.testing.assert_array_equal(occ.numpy(), [0, 0, 1, 0])
 
 
+@pytest.mark.parametrize("cfg_kw", [dict(lighting=True), dict(tf_lut=256)],
+                         ids=["lighting", "tf_lut"])
+def test_lit_and_lut_options_differentiate(scene, cfg_kw):
+    """Lit and LUT renders differentiate through K4's baked-light and LUT
+    variants (plain versions here): the value equals the JAX scan and the
+    colour gradient ``jax.grad`` through it (tests/test_torch_lit_fit.py
+    holds them against the Pallas kernels too)."""
+    jv, jc, cfg, target = scene
+    cfg = cfg.replace(**cfg_kw)
+    pv, pc = _port_scene(jv, jc)
+    jtf = J.default_transfer_function()
+    assert march_vjp.diff_eligible(pv, _port_tf(jtf),
+                                   RenderConfig.from_json(cfg.to_json()))
+    lx, gx = _jax_loss_and_grad(jv, jtf, jc, cfg, target, _scan)
+    lp, gp, img = _port_loss_and_grad(jv, jtf, jc, cfg, target)
+    np.testing.assert_allclose(img, np.asarray(_scan(jv, jtf, jc, cfg)),
+                               rtol=0, atol=TOL)
+    np.testing.assert_allclose(lp, lx, rtol=1e-5)
+    np.testing.assert_allclose(gp, gx, rtol=1e-3,
+                               atol=1e-4 * np.abs(gx).max())
+
+
 @pytest.mark.parametrize("cfg_kw,item", [
-    (dict(lighting=True), "item 9"),
+    (dict(lighting=True, conic=True), "item 11a"),
     (dict(scattering=True), "item 9"),
-    (dict(tf_lut=256), "item 9"),
+    (dict(tf_lut=256, lighting=True, conic=True), "item 11a"),
     (dict(interp=Interp.TRILINEAR), "item 12"),
 ])
 def test_unported_options_raise(scene, cfg_kw, item):

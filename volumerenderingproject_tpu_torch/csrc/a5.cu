@@ -20,7 +20,8 @@
 //   8 RGBAs from shared memory -> mix y->x->z [-> rgb * M + S] ->
 //   C += T*a*rgb, T *= 1 - a;
 //   a sample outside the volume takes TF(0)'s colour
-//   -> stop before the first sample with T <= eps
+//   -> stop before the first sample with |T| <= eps (a sample of alpha
+//      > 1 makes T negative, and the ray goes on compositing)
 //   -> out = (C + T * background, 1).
 // The id grid replaces both TPU layouts: the classification is per corner,
 // so corner ids and the colour table give the corner colours bit for bit,
@@ -76,7 +77,7 @@ march_a5_kernel(const float* __restrict__ scal,
 
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, t = 1.0f;
   for (int i = 0; i < g.spr; ++i) {
-    if (!(t > eps)) break;
+    if (!(fabsf(t) > eps)) break;
     int id8[8];
     float f[3];
     float4 col = c0;

@@ -22,7 +22,8 @@
 //   -> per sample: modelAux (+0.5) -> octree nearest voxel -> colour id ->
 //      RGBA from shared memory [-> rgb * M + S] -> C += T*a*rgb,
 //      T *= 1 - a
-//   -> stop before the first sample with T <= eps
+//   -> stop before the first sample with |T| <= eps (a sample of alpha
+//      > 1 makes T negative, and the ray goes on compositing)
 //   -> out = (C + T * background, 1).
 // Every skip is exact (a skipped sample has alpha 0; shading never touches
 // alpha); all of them turn off when the alpha of id0 is not 0 (scal[4]
@@ -153,11 +154,11 @@ march_a1_kernel(const float* __restrict__ scal,
 
   // ---- march ---------------------------------------------------------------
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, t = 1.0f;
-  for (int s0 = s_lo; s0 <= s_hi && t > eps; s0 += kChunk) {
+  for (int s0 = s_lo; s0 <= s_hi && fabsf(t) > eps; s0 += kChunk) {
     const int s1 = min(s0 + kChunk - 1, s_hi);
     if (!full && !chunk_occupied(s0, s1, o, d, ds, clip, g, occ)) continue;
     for (int i = s0; i <= s1; ++i) {
-      if (!(t > eps)) break;
+      if (!(fabsf(t) > eps)) break;
       float4 col;
       if constexpr (kBaked) {
         const long long flat = sample_voxel(i, o, d, ds, clip, g);

@@ -1,25 +1,37 @@
 // Backward of the fused a1/VRC ray march (K4) for NVIDIA Hopper (sm_90a).
 //
 // Replaces volumerenderingproject_tpu/ops/pallas_march_vjp.py:
-// _march_bwd_kernel for the plain a1 path (the material-id grid; its baked
-// light, LUT, slab, segment and multichannel variants are not here).  Given
-// the per-ray cotangents g (of the rgb output) and g_t (of the final
+// _march_bwd_kernel on the resident a1 path, in four variants, template
+// parameters of the one kernel as in K1 (march.cu):
+//   * plain: uint8 interval ids (the material-id grid);
+//   * baked light (`baked_light`): the forward shades c' = c * M + S with
+//     the per-voxel factor grids M and S (f32, in HBM; M = 1, S = 0 off the
+//     volume), pallas_march_vjp.py:354-367, 445;
+//   * LUT (`lut_n`): uint16 indices into the dense TF LUT; entry i is the
+//     colour of interval itv[i] (TransferFunction.to_lut gathers them), so
+//     a sample's terms go to interval itv[idx] of the entry it read,
+//     pallas_march_vjp.py:289-298;
+//   * LUT + baked light: both.
+// The slab, segment and multichannel variants of that kernel are not here.
+// Given the per-ray cotangents g (of the rgb output) and g_t (of the final
 // transmittance T_N, which reaches the output through out = C + T_N * bg),
 // it computes dL/dcolors [K, 4] of the forward march (march.cu) at eps 0
 // with density 1; the caller folds density_scale into the alpha column.
 //
-//   forward:   w_s = T_s a_s,   C += w_s c_s,   T_{s+1} = T_s (1 - a_s)
-//   dL/dc_k   += g * w_s                              (samples in interval k)
-//   dL/da_k   += T_s (g . c_s) - (S_{>s} + T_N g_t) / (1 - a_s)
-//   S_{>s}     = sum_{j>s} w_j (g . c_j)
+//   forward:   w_s = T_s a_s,   C += w_s c'_s,   T_{s+1} = T_s (1 - a_s)
+//   dL/dc_k   += g * w_s * M_s                        (samples in interval k)
+//   dL/da_k   += T_s (g . c'_s) - (S_{>s} + T_N g_t) / (1 - a_s)
+//   S_{>s}     = sum_{j>s} w_j (g . c'_j)
 //
-// One thread marches one ray twice, back to back.  Pass A sums
-// total = sum_j w_j (g . c_j) and T_N.  Pass B marches again and keeps the
-// prefix P_s in pass A's float order, so S_{>s} = total - P_s needs no
+// (M_s = 1 and c' = c unlit.)  One thread marches one ray twice, back to
+// back.  Pass A sums total = sum_j w_j (g . c'_j) and T_N.  Pass B marches
+// again and keeps the prefix P_s in pass A's float order (the shaded c' by
+// the same expression in both passes), so S_{>s} = total - P_s needs no
 // per-sample storage.  Where 1 - a_s == 0 the division term is 0, as in the
 // TPU kernel.  Every sample of the ray is marched: a sample of alpha 0 still
 // has an alpha gradient, so the forward's box clip and brick skip do not
-// apply here.  Off the volume a sample takes id0 and scatters into id0.
+// apply here.  Off the volume a sample takes id0 and scatters into id0's
+// interval.
 //
 // Per-interval sums stay in registers: the kernel is instantiated for
 // K <= 4, 8 and 16, and a sample adds its four terms to interval k through
@@ -34,10 +46,14 @@
 // operations per pass and a dependent one-byte load from the id grid, which
 // the 50 MB L2 holds whole (7.2 MB at 182x218x182); the bytes it must move
 // (ids, 16 bytes of cotangent per ray, the partials) are far fewer.  The
-// design keeps all per-ray state in registers, the colours in shared
-// memory, and uses K1's 16x16 pixel blocks so that a warp's loads share
-// cache lines.  Ray setup and the sample -> id chain are K1's
-// (march_common.cuh).
+// design keeps all per-ray state in registers, the colours (and the LUT's
+// interval table, at most 1 KB) in shared memory, and uses K1's 16x16
+// pixel blocks so that a warp's loads share cache lines.  The baked
+// variants add two f32 loads per sample inside the volume, at the id's
+// voxel, in each pass (M and S are 58 MB at 182x218x182, more than L2
+// holds) and 6 operations for the shade; the LUT variants read a two-byte
+// index and one shared-memory byte more.  Ray setup and the sample -> voxel
+// -> id chain are K1's (march_common.cuh).
 
 #include "march_common.cuh"
 #include "block_reduce.cuh"
@@ -45,24 +61,75 @@
 namespace {
 
 constexpr int kMaxIntervals = 16;  // the JAX kernel's limit
+constexpr int kMaxLut = 1024;      // uint16 LUT indices (tf_lut <= 1024)
 constexpr int kBlock = 16;         // pixels per block edge
 constexpr int kWarps = kBlock * kBlock / 32;
 
-template <int KMAX>
+// What sample i of a ray contributes: its interval, its alpha, its shaded
+// colour's g . c' and the factor M of its rgb terms (1 unlit or off the
+// volume).  Pass A and pass B call it alike, so both compute g . c' by the
+// same expression.
+struct Sample {
+  int k;
+  float a, gd, m;
+};
+
+template <int KMAX, typename Id, bool kBaked>
+__device__ __forceinline__ Sample bwd_sample(
+    int i, const float o[3], const float d[3], float ds, float clip,
+    const Geom& g, const Id* __restrict__ ids, int id0,
+    const float* __restrict__ mgrid, const float* __restrict__ sgrid,
+    const float4* s_col, const uint8_t* s_itv, float gr, float gg,
+    float gb) {
+  int idx;
+  float m = 1.0f, sh = 0.0f;
+  if constexpr (kBaked) {
+    const long long flat = sample_voxel(i, o, d, ds, clip, g);
+    idx = flat < 0 ? id0 : (int)__ldg(ids + flat);
+    if (flat >= 0) {
+      m = __ldg(mgrid + flat);
+      sh = __ldg(sgrid + flat);
+    }
+  } else {
+    idx = sample_id(i, o, d, ds, clip, g, ids, id0);
+  }
+  Sample s;
+  s.k = sizeof(Id) == 1 ? idx : (int)s_itv[idx];
+  float4 col = s_col[s.k];
+  if constexpr (kBaked) {  // c' = c * M + S, as K1 shades it
+    col.x = col.x * m + sh;
+    col.y = col.y * m + sh;
+    col.z = col.z * m + sh;
+  }
+  s.a = col.w;
+  s.gd = (gr * col.x + gg * col.y) + gb * col.z;
+  s.m = m;
+  return s;
+}
+
+template <int KMAX, typename Id, bool kBaked>
 __global__ void __launch_bounds__(kBlock * kBlock)
 march_bwd_a1_kernel(const float* __restrict__ scal,
                     const float* __restrict__ colors, int num_intervals,
-                    const uint8_t* __restrict__ ids, Geom g, int conic,
+                    const Id* __restrict__ ids,
+                    const uint8_t* __restrict__ itv, int lut_n,
+                    const float* __restrict__ mgrid,
+                    const float* __restrict__ sgrid, Geom g, int conic,
                     const float* __restrict__ g_rgb,
                     const float* __restrict__ g_t,
                     float* __restrict__ partials) {
   __shared__ float4 s_col[KMAX];
+  __shared__ uint8_t s_itv[sizeof(Id) == 1 ? 1 : kMaxLut];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < KMAX) {
     s_col[tid] = tid < num_intervals
                      ? make_float4(colors[4 * tid], colors[4 * tid + 1],
                                    colors[4 * tid + 2], colors[4 * tid + 3])
                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  if constexpr (sizeof(Id) == 2) {
+    for (int j = tid; j < lut_n; j += blockDim.x * blockDim.y)
+      s_itv[j] = itv[j];
   }
   __syncthreads();
 
@@ -88,15 +155,16 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
     const float gg = g_rgb[3 * ray + 1];
     const float gb = g_rgb[3 * ray + 2];
 
-    // ---- pass A: total of w (g . c) and the final transmittance ----------
+    // ---- pass A: total of w (g . c') and the final transmittance ---------
     float t = 1.0f;
     float total = 0.0f;
     for (int i = 0; i < g.spr; ++i) {
-      const float4 col = s_col[sample_id(i, o, d, ds, clip, g, ids, id0)];
-      const float gd = (gr * col.x + gg * col.y) + gb * col.z;
-      const float w = t * col.w;
-      total = total + w * gd;
-      t = t * (1.0f - col.w);
+      const Sample s = bwd_sample<KMAX, Id, kBaked>(
+          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, s_col, s_itv, gr,
+          gg, gb);
+      const float w = t * s.a;
+      total = total + w * s.gd;
+      t = t * (1.0f - s.a);
     }
     const float bg_term = t * g_t[ray];  // dL/dT_N * T_N, through + T_N*bg
 
@@ -104,24 +172,25 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
     t = 1.0f;
     float pfx = 0.0f;
     for (int i = 0; i < g.spr; ++i) {
-      const int mid = sample_id(i, o, d, ds, clip, g, ids, id0);
-      const float4 col = s_col[mid];
-      const float gd = (gr * col.x + gg * col.y) + gb * col.z;
-      const float w = t * col.w;
-      pfx = pfx + w * gd;  // pass A's order: total - pfx is exact at the end
+      const Sample s = bwd_sample<KMAX, Id, kBaked>(
+          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, s_col, s_itv, gr,
+          gg, gb);
+      const float w = t * s.a;
+      pfx = pfx + w * s.gd;  // pass A's order: total - pfx is exact at the end
       const float suffix = total - pfx;
-      const float denom = 1.0f - col.w;
+      const float denom = 1.0f - s.a;
       const float num = suffix + bg_term;
-      const float da = t * gd - (denom != 0.0f ? num / denom : 0.0f);
+      const float da = t * s.gd - (denom != 0.0f ? num / denom : 0.0f);
       t = t * denom;
-      const float dr = w * gr, dg = w * gg, db = w * gb;
+      const float wm = kBaked ? w * s.m : w;  // dC/dc = w M
+      const float dr = wm * gr, dg = wm * gg, db = wm * gb;
 #pragma unroll
       for (int k = 0; k < KMAX; ++k) {
-        const bool m = mid == k;
-        acc[k][0] += m ? dr : 0.0f;
-        acc[k][1] += m ? dg : 0.0f;
-        acc[k][2] += m ? db : 0.0f;
-        acc[k][3] += m ? da : 0.0f;
+        const bool sel = s.k == k;
+        acc[k][0] += sel ? dr : 0.0f;
+        acc[k][1] += sel ? dg : 0.0f;
+        acc[k][2] += sel ? db : 0.0f;
+        acc[k][3] += sel ? da : 0.0f;
       }
     }
   }
@@ -129,35 +198,68 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
   write_block_partial<KMAX, kWarps>(acc, num_intervals, partials);
 }
 
+template <typename Id, bool kBaked>
+void launch(const float* scal, const float* colors, int K, const void* ids,
+            const uint8_t* itv, int lut_n, const float* mgrid,
+            const float* sgrid, const Geom& g, int conic, const float* g_rgb,
+            const float* g_t, float* partials, cudaStream_t s) {
+  const dim3 block(kBlock, kBlock);
+  const dim3 grid((g.height + kBlock - 1) / kBlock,
+                  (g.width + kBlock - 1) / kBlock);
+  const Id* id = static_cast<const Id*>(ids);
+  if (K <= 4) {
+    march_bwd_a1_kernel<4, Id, kBaked><<<grid, block, 0, s>>>(
+        scal, colors, K, id, itv, lut_n, mgrid, sgrid, g, conic, g_rgb, g_t,
+        partials);
+  } else if (K <= 8) {
+    march_bwd_a1_kernel<8, Id, kBaked><<<grid, block, 0, s>>>(
+        scal, colors, K, id, itv, lut_n, mgrid, sgrid, g, conic, g_rgb, g_t,
+        partials);
+  } else {
+    march_bwd_a1_kernel<16, Id, kBaked><<<grid, block, 0, s>>>(
+        scal, colors, K, id, itv, lut_n, mgrid, sgrid, g, conic, g_rgb, g_t,
+        partials);
+  }
+}
+
 }  // namespace
 
 // Launches the backward march on `stream`; returns cudaGetLastError()
 // (0 = launched).  scal: [32] f32 (ops/march.py layout); colors: [K, 4] f32,
-// K <= 16; ids: [d1, d2, d3] uint8 (C order); g_rgb: [width, height, 3] f32;
-// g_t: [width, height] f32; partials: [ceil(width/16) * ceil(height/16), K,
-// 4] f32, one [K, 4] sum per 16x16 pixel block.
+// K <= 16; ids: [d1, d2, d3] (C order), uint8 interval ids (id_bytes 1,
+// itv null, lut_n 0) or uint16 LUT indices (id_bytes 2) with itv: [lut_n]
+// uint8, the interval of each LUT entry, lut_n <= 1024; mgrid, sgrid:
+// [d1, d2, d3] f32, both null unlit; g_rgb: [width, height, 3] f32; g_t:
+// [width, height] f32; partials: [ceil(width/16) * ceil(height/16), K, 4]
+// f32, one [K, 4] sum per 16x16 pixel block.
 extern "C" int vrp_march_bwd_a1(const float* scal, const float* colors, int K,
-                                const uint8_t* ids, int d1, int d2, int d3,
-                                int depth, int width, int height, int spr,
-                                int conic, const float* g_rgb,
-                                const float* g_t, float* partials,
-                                void* stream) {
-  if (K <= 0 || K > kMaxIntervals || width <= 0 || height <= 0 || spr <= 0)
+                                const void* ids, int id_bytes,
+                                const uint8_t* itv, int lut_n,
+                                const float* mgrid, const float* sgrid,
+                                int d1, int d2, int d3, int depth, int width,
+                                int height, int spr, int conic,
+                                const float* g_rgb, const float* g_t,
+                                float* partials, void* stream) {
+  const bool lut = id_bytes == 2;
+  if ((id_bytes != 1 && id_bytes != 2) || K <= 0 || K > kMaxIntervals ||
+      width <= 0 || height <= 0 || spr <= 0 ||
+      (mgrid == nullptr) != (sgrid == nullptr) ||
+      (lut && (itv == nullptr || lut_n <= 0 || lut_n > kMaxLut)))
     return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(d1, d2, d3, depth, width, height, spr, 0, 0, 0);
-  const dim3 block(kBlock, kBlock);
-  const dim3 grid((height + kBlock - 1) / kBlock,
-                  (width + kBlock - 1) / kBlock);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (K <= 4) {
-    march_bwd_a1_kernel<4><<<grid, block, 0, s>>>(scal, colors, K, ids, g,
-                                                   conic, g_rgb, g_t, partials);
-  } else if (K <= 8) {
-    march_bwd_a1_kernel<8><<<grid, block, 0, s>>>(scal, colors, K, ids, g,
-                                                   conic, g_rgb, g_t, partials);
-  } else {
-    march_bwd_a1_kernel<16><<<grid, block, 0, s>>>(
-        scal, colors, K, ids, g, conic, g_rgb, g_t, partials);
-  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool baked = mgrid != nullptr;
+  if (!lut && !baked)
+    launch<uint8_t, false>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid, g,
+                           conic, g_rgb, g_t, partials, s);
+  else if (!lut)
+    launch<uint8_t, true>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid, g,
+                          conic, g_rgb, g_t, partials, s);
+  else if (!baked)
+    launch<uint16_t, false>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid,
+                            g, conic, g_rgb, g_t, partials, s);
+  else
+    launch<uint16_t, true>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid, g,
+                           conic, g_rgb, g_t, partials, s);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,11 @@
 // clip or brick skip, because a sample off the volume reads intensity 0,
 // whose smooth alpha is not 0 (1.8e-11 for the default TF at sharpness 200,
 // 2.6e-4 at 60), so skipping it would change the image.  The ray stops
-// before the first sample at which T <= eps (per ray; the TPU kernel tests
+// before the first sample at which |T| <= eps (per ray; the TPU kernel tests
 // max(T) > eps over a 16x16 tile per 16-sample chunk, which is within eps of
-// it; at eps 0 both march every sample that can change the image).  The
+// it for T >= 0; at eps 0 this march stops only where T == 0, so a ray whose
+// T went negative after an alpha above 1 goes on, as the reference scan
+// does, where the TPU kernel drops its tile).  The
 // TPU's 10-bit packed volume and its f32 rows (z <= 128) were layouts for
 // VMEM; here the volume stays exact f32 [X, Y, Z] in HBM at any size (29 MB
 // at 182x218x182, which the 50 MB L2 holds).
@@ -55,7 +57,7 @@ smooth_fwd_kernel(const float* __restrict__ scal,
   float s1[KMAX], s2[KMAX], w[KMAX];  // unused here: K9's
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, t = 1.0f;
   for (int i = 0; i < g.spr; ++i) {
-    if (!(t > eps)) break;
+    if (!(fabsf(t) > eps)) break;
     int b[3];
     float f[3];
     smooth_position(i, o, d, s, b, f);

@@ -1,28 +1,33 @@
 """Differentiable rendering: fit TF colours, a density scale and, in smooth
-mode, the TF interval bounds to a target image by gradient descent through
-the renderer.
+mode, the TF interval bounds, and the light's parameters, to a target image
+by gradient descent through the renderer.
 
-Counterpart of ``volumerenderingproject_tpu/diff/fit.py`` on its plain a1
-route (fit.py:212-215), its smooth-mode route (fit.py:195-211) and its
-unlit a5 route (fit.py:134-145): the loss renders through
+Counterpart of ``volumerenderingproject_tpu/diff/fit.py`` on its fused a1
+routes (fit.py:187-194, 212-215: plain, lit and LUT colour fits, and light
+fits), its smooth-mode route (fit.py:195-211) and its unlit a5 route
+(fit.py:134-145): the loss renders through
 ``ops/march_vjp.render_vrc_diff`` (forward the march kernel K1 at eps 0,
-backward the backward march kernel K4 on the GPU), with ``Interp.TRILINEAR``
-through ``ops/smooth_vjp.render_vrc_smooth_diff`` (K8 and K9, no volume
-gradient), or, with ``Algorithm.TEST``, through
-``ops/a5_vjp.render_test_diff`` (K3 and K6).  The optimizer is
-``torch.optim.Adam`` with optax's defaults.  Checkpoints are ``torch.save``
-files holding the parameters and the optimizer state, so a resumed fit
-continues bit for bit where an uninterrupted one would be.
+backward the backward march kernel K4 on the GPU, in its plain, baked-light,
+LUT or LUT + baked-light variant; with a light, K4 baked plus 11 tangent
+marches of K1 baked), with ``Interp.TRILINEAR`` through
+``ops/smooth_vjp.render_vrc_smooth_diff`` (K8 and K9, no volume gradient),
+or, with ``Algorithm.TEST``, through ``ops/a5_vjp.render_test_diff`` (K3
+and K6).  The optimizer is ``torch.optim.Adam`` with optax's defaults.
+Checkpoints are ``torch.save`` files holding the parameters and the
+optimizer state, so a resumed fit continues bit for bit where an
+uninterrupted one would be.
 
 ``fit_bounds=True`` adds ``tf_lower``/``tf_upper`` to the parameters.  Only
 the smooth classify gives them a gradient: with nearest-voxel sampling
 their gradient is zero almost everywhere, here and in the JAX package, and
-they do not move.
+they do not move.  ``light`` (an ``ops.phong.Light``) adds its six fields,
+the 10 light parameters.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): fits of light parameters and lit renders (item 9), multichannel
-fits (item 10), fits of more than 16 intervals (item 11) and sharded fits
-over a mesh (item 14).
+item): what only the JAX package's XLA scan fits (item 11a: conic lit fits,
+light fits of a5, smooth or LUT renders or from a non-uniform light colour,
+fits of more than 16 intervals), scattering (item 9), multichannel fits
+(item 10) and sharded fits over a mesh (item 14).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 
 from ..ops.a5_vjp import render_test_diff
 from ..ops.march_vjp import render_vrc_diff
+from ..ops.phong import Light
 from ..ops.smooth_vjp import render_vrc_smooth_diff
 from ..scene.transfer_function import TransferFunction
 from ..utils.config import Algorithm, Interp, RenderConfig
@@ -45,50 +51,44 @@ from ..utils.device import resolve_device
 _f32 = torch.float32
 
 
-def _not_ported_light():
-    return NotImplementedError(
-        "fitting light parameters is not ported yet: ROADMAP.md item 9 "
-        "(lighting, LUT and scattering)")
-
-
 @dataclasses.dataclass(frozen=True)
 class FitParams:
     """The optimisable render parameters, leaf tensors that require grad:
-    ``tf_colors`` [K, 4], the scalar ``density_scale`` and, for a bound
-    fit, ``tf_lower``/``tf_upper`` [K] (``None`` otherwise).  The JAX
-    package's ``light`` field stays ``None``."""
+    ``tf_colors`` [K, 4], the scalar ``density_scale``, for a bound fit
+    ``tf_lower``/``tf_upper`` [K], and for a light fit ``light``, an
+    ``ops.phong.Light`` whose six fields are leaves (``None`` where not
+    fitted)."""
 
     tf_colors: torch.Tensor
     density_scale: torch.Tensor
     tf_lower: Optional[torch.Tensor] = None
     tf_upper: Optional[torch.Tensor] = None
-    light: Optional[object] = None
-
-    def __post_init__(self):
-        if self.light is not None:
-            raise _not_ported_light()
+    light: Optional[Light] = None
 
     @staticmethod
     def init(tf: TransferFunction, *, fit_bounds: bool = False,
-             light=None) -> "FitParams":
-        if light is not None:
-            raise _not_ported_light()
+             light: Optional[Light] = None) -> "FitParams":
+        dev = tf.colors.device
 
         def leaf(t):
-            return t.detach().to(_f32).clone().requires_grad_()
+            return t.detach().to(dev, _f32).clone().requires_grad_()
 
         return FitParams(
             tf_colors=leaf(tf.colors),
-            density_scale=torch.tensor(1.0, dtype=_f32,
-                                       device=tf.colors.device,
+            density_scale=torch.tensor(1.0, dtype=_f32, device=dev,
                                        requires_grad=True),
             tf_lower=leaf(tf.lower) if fit_bounds else None,
-            tf_upper=leaf(tf.upper) if fit_bounds else None)
+            tf_upper=leaf(tf.upper) if fit_bounds else None,
+            light=None if light is None else Light(
+                *(leaf(t) for t in light.fields())))
 
     def parameters(self) -> List[torch.Tensor]:
-        """The parameter tensors, in the JAX pytree's field order."""
+        """The parameter tensors, in the JAX pytree's leaf order (the
+        light's fields last, in ``Light``'s field order)."""
+        light = () if self.light is None else self.light.fields()
         return [p for p in (self.tf_colors, self.density_scale,
-                            self.tf_lower, self.tf_upper) if p is not None]
+                            self.tf_lower, self.tf_upper, *light)
+                if p is not None]
 
 
 def _apply_params(tf: TransferFunction, params: FitParams
@@ -120,15 +120,19 @@ def _render_with_density(volume, tf: TransferFunction, camera,
                          light=None) -> torch.Tensor:
     """Scale the TF alphas by the (differentiable) density, then render
     through the differentiable march of ``config.algorithm`` and
-    ``config.interp`` (fit.py:124-153, 195-215): nearest-voxel a1 folds
-    ``config.density_scale`` in as well; smooth a1 takes it only at 1 (the
-    JAX package's smooth kernels do too), with no volume gradient; a5 reads
-    none and samples its own way whatever ``config.interp`` says."""
-    if light is not None:
-        raise _not_ported_light()
+    ``config.interp`` (fit.py:124-153, 187-215): nearest-voxel a1 folds
+    ``config.density_scale`` in as well and takes lit and LUT configs, and
+    with ``light`` shades with it, differentiably; smooth a1 takes it only
+    at 1 (the JAX package's smooth kernels do too), with no volume
+    gradient; a5 reads none and samples its own way whatever
+    ``config.interp`` says.  A light on a config the fused marches do not
+    fit raises, naming ROADMAP.md item 11a."""
     colors = torch.cat([tf.colors[:, :3], tf.colors[:, 3:4] * density], dim=1)
     tf2 = TransferFunction(lower=tf.lower, upper=tf.upper, colors=colors,
                            hg_g=tf.hg_g)
+    if light is not None:  # fit.py:187-194; render_vrc_diff checks it
+        return render_vrc_diff(volume, tf2, camera, config,
+                               device=volume.data.device, light=light)
     if config.algorithm is Algorithm.TEST:
         diff = render_test_diff
     elif config.interp is Interp.TRILINEAR:
@@ -169,8 +173,9 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
                           fit_bounds: bool = False, light=None,
                           device=None) -> Tuple[FitParams, list]:
     """Optimise TF colours and density (and with ``fit_bounds`` the interval
-    bounds) against ``target`` [W, H, 4] on ``device`` (CUDA unless given)
-    -> (params, per-step losses).
+    bounds, with ``light`` the light's parameters, starting from it) against
+    ``target`` [W, H, 4] on ``device`` (CUDA unless given) -> (params,
+    per-step losses).
 
     ``resume=True`` restores the latest checkpoint in ``checkpoint_dir``
     (parameters and optimizer state) and continues up to ``steps`` steps in
@@ -180,7 +185,8 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
     if not isinstance(target, torch.Tensor):
         target = torch.tensor(np.asarray(target), dtype=_f32)
     target = target.to(device=dev, dtype=_f32)
-    params = FitParams.init(tf, fit_bounds=fit_bounds, light=light)
+    params = FitParams.init(tf, fit_bounds=fit_bounds,
+                            light=None if light is None else light.to(dev))
     opt_state = None
     start = 0
     if resume and checkpoint_dir:
@@ -212,13 +218,18 @@ def _checkpoint_path(directory: str, step: int) -> str:
 
 def save_checkpoint(directory: str, step: int, params: FitParams,
                     optimizer: Optional[torch.optim.Optimizer] = None) -> None:
-    """Write the parameters (the bounds too in a bound fit) and the
-    optimizer's state at ``step``."""
+    """Write the parameters (the bounds too in a bound fit, the light's
+    fields under ``light`` in a light fit, as the JAX package's checkpoint
+    does) and the optimizer's state at ``step``."""
     os.makedirs(directory, exist_ok=True)
     state = {"params": {
         name: getattr(params, name).detach().cpu()
         for name in ("tf_colors", "density_scale", "tf_lower", "tf_upper")
         if getattr(params, name) is not None}}
+    if params.light is not None:
+        state["params"]["light"] = {
+            f.name: getattr(params.light, f.name).detach().cpu()
+            for f in dataclasses.fields(Light)}
     if optimizer is not None:
         state["opt"] = optimizer.state_dict()
     path = _checkpoint_path(directory, step)
@@ -241,8 +252,13 @@ def load_checkpoint(directory: str, step: int, with_optimizer: bool = False,
     dev = resolve_device(device)
     state = torch.load(_checkpoint_path(directory, step), map_location=dev,
                        weights_only=True)
+    p = dict(state["params"])
+    light = p.pop("light", None)
+    if light is not None:
+        light = Light(**{k: t.to(dev).requires_grad_()
+                         for k, t in light.items()})
     params = FitParams(**{name: t.to(dev).requires_grad_()
-                          for name, t in state["params"].items()})
+                          for name, t in p.items()}, light=light)
     if not with_optimizer:
         return params
     return params, state["opt"]

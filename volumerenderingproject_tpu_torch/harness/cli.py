@@ -2,7 +2,10 @@
 
   render   one frame to PNG
   fit      fit TF colours and density (``--fit-bounds``: and the interval
-           bounds, in smooth mode ``--interp trilinear``) to a target PNG
+           bounds, in smooth mode ``--interp trilinear``; ``--fit-light``:
+           and the light's 10 parameters, from the default light) to a
+           target PNG; lit (``--lighting``) and LUT (``--config``) renders
+           fit too
 
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
 subcommand runs on CUDA unless ``--device cpu`` is given.
@@ -53,11 +56,11 @@ def _config(args):
         over["height"] = args.height
     if args.spr:
         over["samples_per_ray"] = args.spr
-    if getattr(args, "lighting", False):
+    if args.lighting:
         over["lighting"] = True
-    if getattr(args, "gradient_filter", None):
+    if args.gradient_filter:
         over["gradient_filter"] = args.gradient_filter
-    if getattr(args, "presmooth", None):
+    if args.presmooth:
         over["presmooth_sigma"] = args.presmooth
     if args.interp:
         over["interp"] = Interp(args.interp)
@@ -110,15 +113,18 @@ def cmd_fit(args) -> int:
     from ..utils import imageio
     from ..utils.device import resolve_device
 
-    if args.fit_light:
-        raise NotImplementedError(
-            "--fit-light is not ported yet: ROADMAP.md item 9 (lighting, LUT "
-            "and scattering)")
+    from ..ops import phong
+    from ..ops.march_vjp import check_light_fit_supported
+
     device = resolve_device(args.device)
     cfg = _config(args)
     volume = _load_volume(args, device)
     tf = _tf(args, device)
     cam = _camera(args, cfg, device)
+    light = phong.default_light(device) if args.fit_light else None
+    if light is not None:  # before the target's render
+        check_light_fit_supported(cfg, volume.channels, tf.num_intervals,
+                                  light)
     if args.target:
         target = imageio.from_display(imageio.load_png(args.target),
                                       cfg.algorithm)
@@ -134,10 +140,13 @@ def cmd_fit(args) -> int:
         volume, cam, target, tf, cfg, steps=args.steps,
         learning_rate=args.lr, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, fit_bounds=args.fit_bounds,
-        device=device)
+        light=light, device=device)
     dt = time.time() - t0
     print(f"fit: loss {losses[0]:.6f} -> {losses[-1]:.6f} in {args.steps} "
           f"steps on {device} in {dt:.2f}s")
+    if params.light is not None:
+        vec = phong.light_to_vec(params.light).detach().cpu().tolist()
+        print("fitted light:", [round(v, 4) for v in vec])
     if args.out_tf:
         fitted = TransferFunction(
             tf.lower if params.tf_lower is None else params.tf_lower.detach(),
@@ -169,6 +178,11 @@ def _common(sp) -> None:
                     help="a1 sampling: nearest (the default), trilinear "
                          "(smooth mode) or trilinear_color (not ported yet: "
                          "the renderer raises)")
+    sp.add_argument("--lighting", action="store_true",
+                    help="Phong gradient shading with the default light")
+    sp.add_argument("--gradient-filter", choices=["central", "sobel"])
+    sp.add_argument("--presmooth", type=float,
+                    help="Gaussian sigma for the pre-render gradient filter")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -178,11 +192,6 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("render", help="render one frame to PNG")
     _common(sp)
     sp.add_argument("--out")
-    sp.add_argument("--lighting", action="store_true",
-                    help="Phong gradient shading with the default light")
-    sp.add_argument("--gradient-filter", choices=["central", "sobel"])
-    sp.add_argument("--presmooth", type=float,
-                    help="Gaussian sigma for the pre-render gradient filter")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("fit", help="optimize TF colors to a target image")
@@ -197,7 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="optimize TF interval bounds too (smooth mode: "
                          "--interp trilinear)")
     sp.add_argument("--fit-light", action="store_true",
-                    help="optimize the light parameters (not ported yet)")
+                    help="optimize the light parameters too, from the "
+                         "default light (a1, ortho, no LUT)")
     sp.set_defaults(fn=cmd_fit)
     return p
 

@@ -5,7 +5,8 @@ package's pytrees hold, so both packages render identical inputs.
     transfer_function_from_numpy(lower, upper, colors, hg_g)
     camera_from_numpy(position, front, right, up, top_left)
     light_from_numpy(direction, color, ambient, diffuse, specular, shininess)
-    fit_params_from_numpy(tf_colors, density_scale, tf_lower, tf_upper)
+    fit_params_from_numpy(tf_colors, density_scale, tf_lower, tf_upper,
+                          light)
     adam_state_from_numpy(optimizer, params, count, mu, nu)
 
 Each takes ``device`` (CUDA unless given) or the device of what it fills.
@@ -66,17 +67,23 @@ def light_from_numpy(direction, color, ambient, diffuse, specular, shininess,
 
 
 def fit_params_from_numpy(tf_colors, density_scale, tf_lower=None,
-                          tf_upper=None, device=None) -> FitParams:
+                          tf_upper=None, light=None, device=None) -> FitParams:
     """FitParams from the JAX package's ``FitParams`` fields: leaf tensors
-    that require grad; the bounds stay ``None`` unless given."""
+    that require grad; the bounds and the light stay ``None`` unless given
+    (``light`` as a mapping of the JAX ``Light``'s field names to
+    arrays)."""
     dev = resolve_device(device)
 
     def leaf(a):
         return None if a is None else _f32(a, dev).requires_grad_()
 
+    if light is not None:
+        light = Light(*(t.requires_grad_() for t in light_from_numpy(
+            **light, device=dev).fields()))
     return FitParams(tf_colors=leaf(tf_colors),
                      density_scale=leaf(density_scale),
-                     tf_lower=leaf(tf_lower), tf_upper=leaf(tf_upper))
+                     tf_lower=leaf(tf_lower), tf_upper=leaf(tf_upper),
+                     light=light)
 
 
 def adam_state_from_numpy(optimizer: torch.optim.Optimizer, params: FitParams,
@@ -84,8 +91,8 @@ def adam_state_from_numpy(optimizer: torch.optim.Optimizer, params: FitParams,
     """Load optax's ``ScaleByAdamState`` into ``optimizer``'s state for
     ``params``: ``count`` steps taken, and the first and second moments
     ``mu``, ``nu`` as tuples of arrays in ``params.parameters()`` order:
-    (tf_colors, density_scale), then (tf_lower, tf_upper) in a bound
-    fit."""
+    (tf_colors, density_scale), then (tf_lower, tf_upper) in a bound fit,
+    then the light's six fields in a light fit (optax's leaf order)."""
     if not len(mu) == len(nu) == len(params.parameters()):
         raise ValueError("mu and nu need one array per parameter")
     for p, m, v in zip(params.parameters(), mu, nu):

@@ -28,8 +28,9 @@ Prep (per call, plain PyTorch):
     factors are exact for any camera.
 
 The kernel's only skip is early termination: it stops a ray before the
-first sample at which T <= eps, which changes the output by at most eps
-times the largest colour; :func:`march_a5_plain` stops at the same sample.
+first sample at which |T| <= eps, which changes the output by at most eps
+times the largest colour (a sample of alpha above 1 makes T negative, and
+the ray goes on); :func:`march_a5_plain` stops at the same sample.
 ``config`` fields the a5 path does not read (kernel.cu:72-187): ``conic``,
 ``interp``, ``density_scale``, ``tf_lut``, ``front_clip`` and
 ``empty_space_skipping``; its rays start on the screen plane and step by
@@ -225,7 +226,7 @@ def march_a5_plain(a: A5Args, stats: dict | None = None) -> torch.Tensor:
     t = torch.ones((w, h, 1), dtype=_f32, device=dev)
     needed = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(a.spr):
-        active = t > eps
+        active = t.abs() > eps
         mid, frac, inside, flat0 = corners(i)
         rgba = torch.where(inside[..., None],
                            trilinear_mix_colors(a.colors[mid], frac),

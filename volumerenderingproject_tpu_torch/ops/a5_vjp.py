@@ -57,8 +57,10 @@ def check_diff_supported(config: RenderConfig, channels: int,
     a5.check_supported(config, channels)
     if config.lighting:
         raise NotImplementedError(
-            "lit a5 fits are not ported yet: ROADMAP.md item 9 (lighting, "
-            "LUT and scattering) and item 11 (K6's baked-light variant)")
+            "lit a5 fits are not ported yet: ROADMAP.md item 11a (the scan "
+            "route for fits; the JAX package has no baked-light a5 backward "
+            "kernel and fits them through its XLA scan) and item 9 "
+            "(lighting, LUT and scattering)")
     if num_intervals > MAX_INTERVALS:
         raise NotImplementedError(
             f"the differentiable a5 march takes at most {MAX_INTERVALS} TF "

@@ -30,8 +30,9 @@ and leaves (C, T) unchanged.  A negative alpha (a fit can drive one below
 0) changes T, so it counts as occupied.  When TF(0).alpha != 0 (samples off
 the volume change the image) or ``config.empty_space_skipping`` is off, the
 kernel marches every sample.  Early termination stops a ray before the
-first sample at which T <= eps, which changes the output by at most eps
-times the largest colour; :func:`march_plain` stops at the same sample.
+first sample at which |T| <= eps, which changes the output by at most eps
+times the largest colour (a sample of alpha above 1, which a fit can reach,
+makes T negative, and the ray goes on); :func:`march_plain` stops at the same sample.
 """
 
 from __future__ import annotations
@@ -84,6 +85,9 @@ class MarchArgs(NamedTuple):
     density_scale: float
     mgrid: Optional[torch.Tensor] = None  # [X, Y, Z] f32 baked M, lit only
     sgrid: Optional[torch.Tensor] = None  # [X, Y, Z] f32 baked S, lit only
+    # [N] uint8: the TF interval of each LUT entry (``lut_intervals``); set
+    # by the differentiable march, whose ``colors`` are then the TF's [K, 4]
+    itv: Optional[torch.Tensor] = None
 
 
 def material_ids(data: torch.Tensor, tf, cal_max_trunc: torch.Tensor
@@ -351,7 +355,7 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
     t = torch.ones((w, h, 1), dtype=_f32, device=dev)
     needed = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(a.spr):
-        active = t > eps
+        active = t.abs() > eps
         mid, valid, flat = ids_at(i)
         rgba = colors[mid]
         alpha = rgba[..., 3:4]

@@ -29,6 +29,8 @@ _f32 = torch.float32
 GRAD_THRESHOLD = 1e-3
 _FIELDS = ("direction", "color", "ambient", "diffuse", "specular",
            "shininess")
+# direction 3, color 3, ambient, diffuse, specular, shininess
+N_LIGHT_PARAMS = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +48,10 @@ class Light:
 
     def to(self, device) -> "Light":
         return Light(*(getattr(self, k).to(device) for k in _FIELDS))
+
+    def fields(self) -> Tuple[torch.Tensor, ...]:
+        """The six tensors in the JAX pytree's leaf order."""
+        return tuple(getattr(self, k) for k in _FIELDS)
 
 
 def default_light(device=None) -> Light:
@@ -78,8 +84,11 @@ def dot3(a: torch.Tensor, b: torch.Tensor, keepdim: bool = False
 
 
 def norm3(a: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
-    """Euclidean length over the last axis (size 3)."""
-    return torch.sqrt(dot3(a, a, keepdim))
+    """Euclidean length over the last axis (size 3), its square root
+    correctly rounded: taken in float64 and rounded once (the vectorised
+    float32 ``torch.sqrt`` on the CPU is an ulp off on some inputs, which
+    ``|n.h|^shininess`` magnifies shininess-fold)."""
+    return torch.sqrt(dot3(a, a, keepdim).double()).to(_f32)
 
 
 def safe_pow(base: torch.Tensor, exponent) -> torch.Tensor:
@@ -170,3 +179,44 @@ def bake_light_grids_from_grad(grad: torch.Tensor, light: Light,
     m = 1.0 - w + w * (light.ambient + light.diffuse * ndotl * lc)
     s = w * light.specular * safe_pow(ndoth, light.shininess) * lc
     return m.contiguous(), s.contiguous()
+
+
+def bake_light_vec(grad: torch.Tensor, light_vec: torch.Tensor,
+                   view_dir: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, S) of the light vector ``light_vec`` [10] (:func:`light_to_vec`)
+    on the gradient field ``grad`` [X, Y, Z, 3], with the light colour
+    collapsed to its channel mean first, as the JAX package's
+    light-differentiable bake does (pallas_march_vjp.py:1129-1135): the
+    same grids for a uniform colour, and equal gradients for the three
+    colour components."""
+    lg = light_from_vec(light_vec)
+    mean = lg.color.mean().expand(3)
+    return bake_light_grids_from_grad(
+        grad, dataclasses.replace(lg, color=mean), view_dir)
+
+
+def bake_tangents(data: torch.Tensor, config: RenderConfig,
+                  light_vec: torch.Tensor, view_dir: torch.Tensor,
+                  grad: torch.Tensor | None = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward-mode derivatives of :func:`bake_light_vec` along each of the
+    :data:`N_LIGHT_PARAMS` light parameters -> (dM, dS), each
+    [10, X, Y, Z] f32: ``jax.jvp`` of the JAX bake with a one-hot tangent,
+    for every parameter at once (``torch.func.jvp`` under ``vmap``).  The
+    gradient field does not depend on the light; pass ``grad`` where it is
+    already built."""
+    if grad is None:
+        grad = conv3d.gradient_field(data, config.gradient_filter,
+                                     config.presmooth_sigma)
+    light_vec = light_vec.detach().to(_f32)
+    basis = torch.eye(N_LIGHT_PARAMS, dtype=_f32, device=light_vec.device)
+
+    def tangent(e):
+        return torch.func.jvp(
+            lambda v: bake_light_vec(grad, v, view_dir), (light_vec,),
+            (e,))[1]
+
+    with torch.no_grad():
+        dm, ds = torch.func.vmap(tangent)(basis)
+    return dm.contiguous(), ds.contiguous()

@@ -17,7 +17,7 @@ the scalar vector and the image of ``render_vrc_smooth_pallas``
 
 Every sample is marched: off the volume a sample reads intensity 0, whose
 smooth alpha is not 0, so no box clip or brick skip applies.  A ray stops
-before the first sample at which T <= eps.  The volume is one contiguous
+before the first sample at which |T| <= eps.  The volume is one contiguous
 f32 [X, Y, Z] tensor at every size: the TPU kernel's f32 rows (z <= 128)
 and its 10-bit packed grid were VMEM layouts and are not ported.
 
@@ -214,7 +214,7 @@ def march_smooth_plain(a: SmoothArgs, stats: dict | None = None
     live = torch.zeros((), dtype=torch.int64, device=dev)
     inside = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(a.spr):
-        active = t > eps
+        active = t.abs() > eps
         rgba, _, _, _, vox = sample(i)
         alpha = rgba[..., 3:4]
         c = torch.where(active, c + (t * alpha) * rgba[..., :3], c)

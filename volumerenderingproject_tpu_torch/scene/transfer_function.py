@@ -96,6 +96,12 @@ class TransferFunction:
         and the last one is 1.  (``torch.linspace`` and the IEEE quotient
         each differ from it by an ulp at many points, and a point on an
         interval bound then takes another colour.)"""
+        return self.colors[self.lut_intervals(resolution)]
+
+    def lut_intervals(self, resolution: int = 256) -> torch.Tensor:
+        """Index (int64) [R] of the interval each entry of
+        :meth:`to_lut` takes: its own grid's classification, so a LUT
+        entry's colour and the interval its gradient reaches agree."""
         dev = self.colors.device
         if resolution == 1:
             grid = torch.zeros(1, dtype=_f32, device=dev)
@@ -105,7 +111,7 @@ class TransferFunction:
                 torch.arange(resolution - 1, dtype=_f32, device=dev)
                 * torch.tensor(recip, device=dev),
                 torch.ones(1, dtype=_f32, device=dev)])
-        return self.classify(grid)
+        return self.classify_index(grid)
 
 
 def _table(lowers, uppers, colors, gs, device) -> TransferFunction:
