@@ -148,6 +148,44 @@ K1 baked), on both volumes, with their own seeds:
      158-178: 150 steps at lr 2e-2) through the kernels: the last loss
      below 0.2 of the first, the ambient error halved.
 
+Single scattering and volumes beyond the TPU's resident budget (the JAX
+package's streamed kernels K2, K5 and K7, which the port folds into K1, K4
+and K6: on the card the volume stays in device memory), with their own
+seeds:
+
+  3k. bench.py's dense sphere (bench.py:214-219) at 320^3 and, by the same
+     formula, 512^3, at its streamed rows' shapes (304x304 pixels, 300
+     samples): K1 plain and baked, K3 unlit and baked (bit-exact to their
+     plain versions at eps 0; eps 1e-3 within TOL_EPS), K4 plain and baked
+     and K6 (within TOL_GRAD of max |dplain|), at 320^3 K8 and K9 too; each
+     kernel's time, its plain version's, its bound and the peak memory of
+     prep and kernel;
+  3l. scattered renders (strength 1.5) on the MNI-dims and dense 320^3
+     volumes: a1 with non-zero HG g, a1 lit, a1 LUT 64 and a5, through K1
+     and K3 baked, bit-exact to their plain versions at eps 0; the kernel,
+     the scatter bake and the frame timed; the transmittance sweep and the
+     scatter bake at 512^3;
+  4e. 8 orbit frames through ``render()`` for streamed_320,
+     streamed_lit_320 and streamed_a5_320 and their 512^3 twins, launches
+     by variant set to 0 just before and read just after, peak memory;
+  4f. 8 scattered orbit frames through ``render()`` on the MNI-dims volume
+     (a1 700x700x500, ``sobel_lit_700``, a5 500x500x500), K1 or K3 baked
+     launched once a frame;
+  5h. the CLI ``render --scattering`` (a1 and a5) and ``fit --scattering``,
+     started with the other CLI chains;
+  6e. small scattered renders (a1 with HG g, lit, LUT 64; a5) against the
+     plain scan within TOL_EXACT;
+  7j. 5 colour-fit steps after a warm-up (a1, lit a1, a5) at 320^3 and
+     512^3: ms/step, launches, device busy ms and idle share under
+     torch.profiler, peak memory;
+  7k. 5 scattered fit steps at ``sobel_lit_700`` on both volumes: K1 baked
+     launched 1 + K + 1 times a step (the render, one tangent march per
+     interval, the S -> 0 base) and K4 baked once; the same under
+     torch.profiler; 5 steps at lr 3e-6 that must descend; the alpha
+     gradient through T_light, kernels against plain, within TOL_LIGHT of
+     its largest component; a central difference along the gradient within
+     TOL_FD.
+
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
 of 3 windows.
@@ -296,6 +334,16 @@ LIGHT_FD_STEP = 1e-3  # central difference in ambient and direction[0]
 # the JAX package's light-recovery case (tests/test_fit_params.py:158-178)
 LIGHT_RECOVERY_STEPS = 150
 LIGHT_RECOVERY_LR = 2e-2
+# volumes beyond the TPU's resident budget: bench.py's streamed rows
+# (bench.py:214-240) on its dense sphere at 320^3 and, by the same formula,
+# 512^3
+LARGE_SIZES = (320, 512)
+LARGE_SHAPE = dict(width=304, height=304, samples_per_ray=300)
+LARGE_ROWS = {"streamed": {}, "streamed_lit": dict(lighting=True),
+              "streamed_a5": dict(a5=True)}
+# single scattering: test_scatter_fused_hg_g's materials and strength 1.5
+SCATTER_HG = (0.0, 0.7, -0.3, 0.5)
+SCATTER_STRENGTH = 1.5
 # timed windows per measurement; the median is reported
 TIMING_WINDOWS = 3
 # GPU cycles spun before a kernel's timed window (~50 ms at 1.98 GHz), so
@@ -495,6 +543,12 @@ def samples_needed(plain, args) -> float:
         plain(a, stats)
         total += stats["samples"]
     return total / len(args)
+
+
+def read_bytes(grid_bytes: float, reads: float) -> float:
+    """Bytes of a grid that the samples read: one read each, at most the
+    whole grid (the work follows the data: count what it needs)."""
+    return min(grid_bytes, reads)
 
 
 def bound(ops: float, nbytes: float):
@@ -756,9 +810,9 @@ def a5_kernel_phases(P, a5, a5_vjp, volumes, tf, edge, rng, per_volume):
         samples = samples_needed(a5.march_a5_plain, args)
         plain_ms = timed_ms(lambda: a5.march_a5_plain(args[0]), 1)
         rays = A5_W * A5_H
-        nbytes = math.prod(vol.dims) + args[0].colors.numel() * 4 + rays * 16
         bound_ms, bound_by, ops_ms, bytes_ms = bound(
-            samples * FLOPS_PER_A5_SAMPLE + rays * FLOPS_PER_A5_RAY, nbytes)
+            samples * FLOPS_PER_A5_SAMPLE + rays * FLOPS_PER_A5_RAY,
+            bound_bytes(args[0], rays, samples, 8))
         per_volume[vname].update(
             a5_ms=k3_ms, a5_plain_ms=plain_ms, a5_prep_ms=prep_ms,
             a5_bound_ms=bound_ms, a5_bound_by=bound_by, a5_samples=samples)
@@ -799,8 +853,8 @@ def a5_kernel_phases(P, a5, a5_vjp, volumes, tf, edge, rng, per_volume):
         rays = A5_W * A5_H
         # at eps 0 no ray stops early: the samples inside the volume
         inside = samples_needed(a5.march_a5_plain, [a])
-        nbytes = (math.prod(vol.dims) + rays * 16 + k * 16
-                  + a5_vjp.num_blocks(A5_W, A5_H) * k * 16)
+        nbytes = (read_bytes(math.prod(vol.dims), inside * 8) + rays * 16
+                  + k * 16 + a5_vjp.num_blocks(A5_W, A5_H) * k * 16)
         ops = (inside * (FLOPS_PER_A5_BWD_SAMPLE
                          + min(8, k) * FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL)
                + (rays * A5_SPR - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
@@ -928,15 +982,20 @@ def reset_launches(*mods) -> None:
         m.variant_launches = dict.fromkeys(m.variant_launches, 0)
 
 
-def bound_bytes(a, rays: int) -> int:
-    """Bytes a march must move: its id grid, brick map (a1), colours, baked
-    grids and output, each once."""
-    n = a.ids.numel() * a.ids.element_size() + a.colors.numel() * 4 + rays * 16
+def bound_bytes(a, rays: int, samples: float, id_reads: int = 1) -> float:
+    """Bytes a march must move, each once: the ids its ``samples`` read
+    (``id_reads`` a sample: 1 for a1, the 8 corners for a5; at most the id
+    grid), the brick map (a1), the colours, the baked (M, S) at the
+    sampled voxels (8 bytes a sample, at most the two grids) and the
+    output."""
+    size = a.ids.element_size()
+    n = (read_bytes(a.ids.numel() * size, samples * id_reads * size)
+         + a.colors.numel() * 4 + rays * 16)
     occ = getattr(a, "occ", None)  # the a5 march has no brick map
     if occ is not None:
         n += occ.numel() * 4
     if a.mgrid is not None:
-        n += (a.mgrid.numel() + a.sgrid.numel()) * 4
+        n += read_bytes((a.mgrid.numel() + a.sgrid.numel()) * 4, samples * 8)
     return n
 
 
@@ -1049,7 +1108,7 @@ def lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text, rng,
             ops = samples * (FLOPS_PER_SAMPLE + (
                 FLOPS_PER_BAKED_SAMPLE if cfg.lighting else 0))
             bound_ms, bound_by, ops_ms, bytes_ms = bound(
-                ops, bound_bytes(args[0], rays))
+                ops, bound_bytes(args[0], rays, samples))
             per_volume[vname][cname] = dict(
                 variant=var, ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
                 bake_ms=bake_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1102,7 +1161,7 @@ def lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text, rng,
         rays = cfg.width * cfg.height
         bound_ms, bound_by, ops_ms, bytes_ms = bound(
             samples * (FLOPS_PER_A5_SAMPLE + FLOPS_PER_BAKED_SAMPLE)
-            + rays * FLOPS_PER_A5_RAY, bound_bytes(args[0], rays))
+            + rays * FLOPS_PER_A5_RAY, bound_bytes(args[0], rays, samples, 8))
         per_volume[vname]["a5_lit_300"] = dict(
             variant="a5_baked", ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
             bake_ms=bake_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1403,7 +1462,8 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
                          + (k - 1) * FLOPS_PER_SMOOTH_SAMPLE_PER_INTERVAL)
                + (live - inside) * FLOPS_PER_SMOOTH_OUTSIDE_SAMPLE
                + rays * FLOPS_PER_SMOOTH_RAY)
-        nbytes = vol.data.numel() * 4 + k * 24 + rays * 16
+        nbytes = (read_bytes(vol.data.numel() * 4, inside * 32) + k * 24
+                  + rays * 16)  # 8 f32 corners a sample with one in the volume
         bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
         per_volume[vname]["smooth"] = dict(
             ms=ms, plain_ms=plain_ms, prep_ms=prep_ms, bound_ms=bound_ms,
@@ -1458,7 +1518,8 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             k = a.colors.shape[0]
             rays = W * H
             total = rays * SPR
-            nbytes = (vol.data.numel() * 4 + rays * 16 + k * 24
+            nbytes = (read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
+                      + rays * 16 + k * 24
                       + smooth_vjp.num_blocks(W, H) * k * 24)
             b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False),
                       nbytes)
@@ -1773,7 +1834,8 @@ def k4_variant_phases(P, march, march_vjp, volumes, tf, from_text, rng,
                 march_vjp._fwd_args(x), st), [a])
             k = a.colors.shape[0]
             baked = a.mgrid is not None
-            nbytes = (a.ids.numel() * a.ids.element_size() + rays * 16
+            nbytes = (read_bytes(a.ids.numel() * a.ids.element_size(),
+                                 inside * a.ids.element_size()) + rays * 16
                       + k * 16 + march_vjp.num_blocks(cfg.width, cfg.height)
                       * k * 16)
             if a.itv is not None:
@@ -2044,6 +2106,606 @@ def lit_fit_cli_phase(tmp: str, from_text) -> None:
                   f"cli fit --fit-light printed {vec}")
 
 
+# ---- the scattering and large-volume slice --------------------------------
+
+def peak_mb(base: int) -> tuple:
+    """(peak allocated MiB since the last reset, its part above ``base``
+    bytes, the memory allocated at that reset)."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2**20, (peak - base) / 2**20
+
+
+def mem_reset() -> int:
+    """Reset the peak-memory counter -> the bytes allocated now."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def large_config(P, row: str, **kw):
+    """The RenderConfig of bench.py's streamed row ``row`` (LARGE_ROWS)."""
+    extra = dict(LARGE_ROWS[row])
+    if extra.pop("a5", False):
+        extra["algorithm"] = P.Algorithm.TEST
+    return P.RenderConfig(**LARGE_SHAPE, **extra, **kw)
+
+
+def dense_volume(P, n: int):
+    """bench.py:214-219's dense sphere at n^3, built with numpy: intensity
+    55 + 60 r^2 inside r^2 < 0.8 of the [-1, 1]^3 cube, 0 outside."""
+    xs = np.linspace(-1, 1, n, dtype=np.float32)
+    r2 = (xs[:, None, None] ** 2 + xs[None, :, None] ** 2
+          + xs[None, None, :] ** 2)
+    return P.make_volume(
+        np.where(r2 < 0.8, 55.0 + 60.0 * r2, 0.0).astype(np.float32))
+
+
+def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
+                        phong, large, tf, rng) -> dict:
+    """Phase 3k: at bench.py's streamed rows (304x304 pixels, 300 samples)
+    on the dense 320^3 and 512^3 volumes, K1 plain and baked and K3 unlit
+    and baked against their plain versions (bit-exact at eps 0; eps 1e-3
+    within TOL_EPS of the exact render), K4 plain and baked and K6 (within
+    TOL_GRAD of max |dplain|), and at 320^3 K8 (TOL_SMOOTH) and K9; each
+    kernel's ms per launch at eps 1e-3 (forward) or 0 (backward), its
+    plain version's, its bound and the peak memory of prep + kernel ->
+    {volume: {kernel: numbers}}."""
+    import torch
+
+    res = {}
+    grad_rng = np.random.default_rng(31)
+    test = P.Algorithm.TEST
+    for vname, vol in large.items():
+        cam = orbit_cameras(P, rng, 1)[0]
+        base = P.RenderConfig(**LARGE_SHAPE)
+        rays = base.width * base.height
+        r = res[vname] = {}
+        for key, cfg in (("k1", base),
+                         ("k1_baked", base.replace(lighting=True)),
+                         ("k3", base.replace(algorithm=test)),
+                         ("k3_baked", base.replace(algorithm=test,
+                                                   lighting=True))):
+            is_a5 = cfg.algorithm is test
+            prep = a5.prepare_a5 if is_a5 else march.prepare
+            kernel = a5.march_a5_kernel if is_a5 else march.march_kernel
+            plain = a5.march_a5_plain if is_a5 else march.march_plain
+            label = f"{vname}/{key}"
+            m0 = mem_reset()
+            a = prep(vol, tf, cam, cfg, 1e-3)
+            ms = timed_ms(lambda: kernel(a), 10, prefill=True, label=label)
+            peak, own = peak_mb(m0)
+            prep_ms = timed_ms(lambda: prep(vol, tf, cam, cfg, 1e-3), 2)
+            _, exact, e = exact_vs_plain(kernel, plain, f"{label} eps0",
+                                         prep(vol, tf, cam, cfg, 0.0))
+            e2 = float((kernel(a) - exact).abs().max())
+            log(f"{label}: kernel at eps 1e-3 vs exact plain max err "
+                f"{e2:.3e} (tol {TOL_EPS:g})")
+            check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
+            samples = samples_needed(plain, [a])
+            plain_ms = timed_ms(lambda: plain(a), 1)
+            per = (FLOPS_PER_A5_SAMPLE if is_a5 else FLOPS_PER_SAMPLE) + (
+                FLOPS_PER_BAKED_SAMPLE if cfg.lighting else 0)
+            b = bound(samples * per + (rays * FLOPS_PER_A5_RAY if is_a5
+                                       else 0),
+                      bound_bytes(a, rays, samples, 8 if is_a5 else 1))
+            r[key] = dict(ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
+                          bound_ms=b[0], bound_by=b[1], samples=samples,
+                          err=e, err_eps=e2, peak_mb=peak, own_mb=own)
+            log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, prep "
+                f"{prep_ms:.4f} ms, needed samples {samples}, bound "
+                f"{b[2]:.4f} ms (operations) / {b[3]:.4f} ms (bytes), peak "
+                f"memory {peak:.1f} MiB ({own:.1f} MiB above the start)")
+            del a, exact
+            torch.cuda.empty_cache()
+        for key, cfg in (("k4", base),
+                         ("k4_baked", base.replace(lighting=True)),
+                         ("k6", base.replace(algorithm=test))):
+            is_a5 = key == "k6"
+            label = f"{vname}/{key}"
+            m0 = mem_reset()
+            if is_a5:
+                a, _ = a5_vjp.prepare_a5_diff(vol, tf, cam, cfg)
+                kernel, plain = (a5_vjp.march_a5_bwd_kernel,
+                                 a5_vjp.march_a5_bwd_plain)
+            else:
+                a, _ = march_vjp.prepare_diff(vol, tf, cam, cfg)
+                kernel, plain = (march_vjp.march_bwd_kernel,
+                                 march_vjp.march_bwd_plain)
+            g = cotangents(a, grad_rng)
+            ms = timed_ms(lambda: kernel(a, *g), 5, prefill=True, label=label)
+            peak, own = peak_mb(m0)
+            e_abs, e_rel = bwd_vs_plain(kernel, plain, label, a, g)
+            plain_ms = timed_ms(lambda: plain(a, *g), 1)
+            k = a.colors.shape[0]
+            total = rays * cfg.samples_per_ray
+            fwd_plain = a5.march_a5_plain if is_a5 else march.march_plain
+            inside = samples_needed(fwd_plain, [a])
+            nbytes = (read_bytes(a.ids.numel(), inside * (8 if is_a5 else 1))
+                      + rays * 16 + k * 16
+                      + march_vjp.num_blocks(cfg.width, cfg.height) * k * 16)
+            if is_a5:
+                ops = (inside * (FLOPS_PER_A5_BWD_SAMPLE + min(8, k)
+                                 * FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL)
+                       + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                       + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
+                                 + FLOPS_PER_A5_BWD_RAY))
+            else:
+                baked = a.mgrid is not None
+                if baked:
+                    nbytes += 8 * min(inside, a.mgrid.numel())
+                ops = (inside * (FLOPS_PER_BWD_SAMPLE + (
+                    FLOPS_PER_BWD_BAKED_SAMPLE if baked else 0))
+                       + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                       + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
+                                 + FLOPS_PER_BWD_RAY))
+            b = bound(ops, nbytes)
+            r[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                          bound_by=b[1], inside=inside, err=e_abs,
+                          err_rel=e_rel, peak_mb=peak, own_mb=own)
+            log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                f"samples inside {inside} of {total}, bound {b[2]:.4f} ms "
+                f"(operations) / {b[3]:.4f} ms (bytes), peak memory "
+                f"{peak:.1f} MiB ({own:.1f} MiB above the start)")
+            del a, g
+            torch.cuda.empty_cache()
+        if vol.dims[0] != LARGE_SIZES[0]:
+            continue
+        # smooth mode at 320^3 (the JAX package runs its scan there)
+        cfg = base.replace(interp=P.Interp.TRILINEAR)
+        m0 = mem_reset()
+        a = smooth.prepare_smooth(vol, tf, cam, cfg, 0.0)
+        ms = timed_ms(lambda: smooth.march_smooth_kernel(a), 5, prefill=True,
+                      label=f"{vname}/k8")
+        peak, own = peak_mb(m0)
+        got, want = smooth.march_smooth_kernel(a), smooth.march_smooth_plain(a)
+        e = float((got - want).abs().max())
+        log(f"{vname}/k8: K8 vs plain max err {e:.3e} (tol {TOL_SMOOTH:g})")
+        check(e <= TOL_SMOOTH, f"{vname}/k8: max err {e}")
+        stats = {}
+        smooth.march_smooth_plain(a, stats)
+        plain_ms = timed_ms(lambda: smooth.march_smooth_plain(a), 1)
+        k = tf.num_intervals
+        b = bound(stats["inside"] * (FLOPS_PER_SMOOTH_SAMPLE + (k - 1)
+                                     * FLOPS_PER_SMOOTH_SAMPLE_PER_INTERVAL)
+                  + (stats["samples"] - stats["inside"])
+                  * FLOPS_PER_SMOOTH_OUTSIDE_SAMPLE
+                  + rays * FLOPS_PER_SMOOTH_RAY,
+                  read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
+                  + k * 24 + rays * 16)
+        r["k8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                       bound_by=b[1], err=e, peak_mb=peak, own_mb=own)
+        log(f"{vname}/k8: K8 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}), peak memory {peak:.1f} MiB")
+        del a
+        a = smooth_vjp.prepare_smooth_diff(vol, tf, cam, cfg)
+        g = cotangents(a, grad_rng)
+        m0 = mem_reset()
+        ms = timed_ms(lambda: smooth_vjp.march_smooth_bwd_kernel(a, *g), 5,
+                      prefill=True, label=f"{vname}/k9")
+        peak, own = peak_mb(m0)
+        errs = smooth_bwd_vs_plain(smooth_vjp, f"{vname}/k9", a, g)
+        plain_ms = timed_ms(lambda: smooth_vjp.march_smooth_bwd_plain(a, *g),
+                            1)
+        total = rays * cfg.samples_per_ray
+        b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False),
+                  read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
+                  + rays * 16 + k * 24
+                  + smooth_vjp.num_blocks(cfg.width, cfg.height) * k * 24)
+        r["k9"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                       bound_by=b[1], err=max(v[0] for v in errs.values()),
+                       err_rel=max(v[1] for v in errs.values()),
+                       peak_mb=peak, own_mb=own)
+        log(f"{vname}/k9: K9 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]}), peak memory {peak:.1f} MiB")
+        del a, g
+        torch.cuda.empty_cache()
+    return res
+
+
+def large_render_phase(P, march, a5, large, tf, rng) -> dict:
+    """Phase 4e: bench.py's streamed_320, streamed_lit_320 and
+    streamed_a5_320 rows and their 512^3 twins, 8 orbit frames each after a
+    warm-up through ``render()`` (eps 1e-3), with each variant's launches
+    set to 0 just before and read just after -> {volume/row: numbers}."""
+    import torch
+
+    res = {}
+    for vname, vol in large.items():
+        for row in LARGE_ROWS:
+            cfg = large_config(P, row, early_termination=1e-3)
+            is_a5 = cfg.algorithm is P.Algorithm.TEST
+            var = "baked" if cfg.lighting else ("unlit" if is_a5 else "plain")
+            mod = a5 if is_a5 else march
+            cams = orbit_cameras(P, rng)
+            P.render(vol, tf, cams[-1], cfg)  # warm-up frame
+            m0 = mem_reset()
+            reset_launches(march, a5)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            imgs = [P.render(vol, tf, cam, cfg) for cam in cams]
+            end.record()
+            torch.cuda.synchronize()
+            launches = dict(mod.variant_launches)
+            ms = start.elapsed_time(end) / len(imgs)
+            peak, own = peak_mb(m0)
+            label = f"{vname}/{row}"
+            for img in imgs:
+                check(tuple(img.shape) == (cfg.width, cfg.height, 4)
+                      and bool(torch.isfinite(img).all()),
+                      f"{label}: bad image")
+                fg = float(((img[..., :3] - 0.2).abs().amax(-1) > 0.05)
+                           .float().mean())
+                check(fg > 0.01, f"{label}: image is background only ({fg})")
+            log(f"{label}: render() {ms:.4f} ms/frame, "
+                f"{cfg.width * cfg.height / ms * 1e3:.4e} rays/s, launches "
+                f"{launches} for {len(imgs)} frames, peak memory {peak:.1f} "
+                f"MiB ({own:.1f} MiB above the start)")
+            check(launches[var] == len(imgs)
+                  and sum(launches.values()) == len(imgs),
+                  f"{label}: launches {launches}")
+            res[label] = dict(ms=ms, launches=launches[var], variant=var,
+                              peak_mb=peak, own_mb=own)
+            del imgs
+            torch.cuda.empty_cache()
+    return res
+
+
+def large_fit_phase(P, fit, march, march_vjp, a5, a5_vjp, phong, large, tf,
+                    rng) -> dict:
+    """Phase 7j: 5 colour-fit steps after a warm-up (a1, lit a1 and a5, at
+    the streamed rows' shapes) on the dense 320^3 and 512^3 volumes: ms per
+    step, launches of each kernel (1 forward and 1 backward a step), the
+    same steps under torch.profiler for the device's busy ms and idle
+    share, and the peak memory -> {volume/row: numbers}."""
+    import torch
+
+    res = {}
+    for vname, vol in large.items():
+        for row in LARGE_ROWS:
+            cfg = large_config(P, row)
+            is_a5 = cfg.algorithm is P.Algorithm.TEST
+            fwd, bwd = (a5, a5_vjp) if is_a5 else (march, march_vjp)
+            var = "baked" if cfg.lighting else ("unlit" if is_a5 else "plain")
+            names = (("march_a5_kernel", "march_bwd_a5_kernel") if is_a5 else
+                     ("march_a1_kernel", "march_bwd_a1_kernel"))
+            cam = orbit_cameras(P, rng, 1)[0]
+            target = P.render(vol, tf, cam, cfg)
+            start_tf, _ = lit_fit_start(P, phong, tf, rng, False)
+
+            def run(steps):
+                return fit.fit_transfer_function(vol, cam, target, start_tf,
+                                                 cfg, steps=steps,
+                                                 learning_rate=FIT_LR)
+
+            run(1)  # warm-up step
+            m0 = mem_reset()
+            reset_launches(march, march_vjp, a5)
+            a5_vjp.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, losses = run(FIT_STEPS)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = start.elapsed_time(end) / FIT_STEPS
+            peak, own = peak_mb(m0)
+            k_fwd = fwd.variant_launches[var]
+            k_bwd = bwd.launches if is_a5 else bwd.variant_launches[var]
+            label = f"{vname}/{row} fit"
+            log(f"{label}: losses {losses}, {step_ms:.4f} ms/step, launches "
+                f"forward {k_fwd} backward {k_bwd} for {FIT_STEPS} steps, "
+                f"peak memory {peak:.1f} MiB ({own:.1f} MiB above the start)")
+            check(k_fwd == k_bwd == FIT_STEPS == fwd.launches,
+                  f"{label}: launches {k_fwd} {k_bwd}")
+            check(all(math.isfinite(v) for v in losses),
+                  f"{label}: loss not finite")
+            trace = profile_fit(lambda: run(FIT_STEPS), names)
+            log(f"{label}: under torch.profiler "
+                f"{trace['wall_ms'] / FIT_STEPS:.4f} ms/step, device busy "
+                f"{trace['busy_ms'] / FIT_STEPS:.4f} ms/step (forward "
+                f"{trace['k1_ms'] / FIT_STEPS:.4f}, backward "
+                f"{trace['k4_ms'] / FIT_STEPS:.4f}), idle "
+                f"{trace['idle_share']:.4f}")
+            res[label] = dict(step_ms=step_ms, fwd=k_fwd, bwd=k_bwd,
+                              busy_ms=trace["busy_ms"] / FIT_STEPS,
+                              idle_share=trace["idle_share"], peak_mb=peak,
+                              own_mb=own, variant=var, a5=is_a5)
+            torch.cuda.empty_cache()
+    return res
+
+
+def scatter_tf(P, tf):
+    """The default TF with test_scatter_fused_hg_g's materials."""
+    import torch
+
+    return P.TransferFunction(tf.lower, tf.upper, tf.colors, torch.tensor(
+        SCATTER_HG, dtype=torch.float32, device=tf.colors.device))
+
+
+def scatter_kernel_phase(P, march, a5, phong, volumes, tf, rng) -> dict:
+    """Phase 3l: scattered renders (strength 1.5) at the streamed rows'
+    shapes on the MNI-dims and dense 320^3 volumes: a1 unlit (with non-zero
+    HG g), lit and LUT 64, and a5, through K1 and K3 baked against their
+    plain versions (bit-exact at eps 0, eps 1e-3 within TOL_EPS); the
+    kernel's, the scatter bake's and the frame's time; then the
+    transmittance sweep and the scatter bake at 512^3 -> numbers."""
+    import torch
+
+    res = {}
+    base = P.RenderConfig(**LARGE_SHAPE, scattering=True,
+                          scattering_strength=SCATTER_STRENGTH)
+    tf_hg = scatter_tf(P, tf)
+    light = phong.default_light()
+    for vname, vol in volumes.items():
+        cam = orbit_cameras(P, rng, 1)[0]
+        for key, tfx, cfg in (
+                ("a1_hg", tf_hg, base), ("a1_lit", tf, base.replace(
+                    lighting=True)),
+                ("a1_lut64", tf, base.replace(tf_lut=64)),
+                ("a5", tf, base.replace(algorithm=P.Algorithm.TEST))):
+            is_a5 = cfg.algorithm is P.Algorithm.TEST
+            prep = a5.prepare_a5 if is_a5 else march.prepare
+            kernel = a5.march_a5_kernel if is_a5 else march.march_kernel
+            plain = a5.march_a5_plain if is_a5 else march.march_plain
+            label = f"scatter {vname}/{key}"
+            a0 = prep(vol, tfx, cam, cfg, 0.0)
+            check(a0.sgrid is not None, f"{label}: no baked S grid")
+            _, exact, e = exact_vs_plain(kernel, plain, f"{label} eps0", a0)
+            got = kernel(prep(vol, tfx, cam, cfg, 1e-3))
+            e2 = float((got - exact).abs().max())
+            log(f"{label}: kernel at eps 1e-3 vs exact plain max err "
+                f"{e2:.3e} (tol {TOL_EPS:g})")
+            check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
+            a = prep(vol, tfx, cam, cfg, 1e-3)
+            ms = timed_ms(lambda: kernel(a), 10, prefill=True, label=label)
+            frame_cfg = cfg.replace(early_termination=1e-3)
+            frame_ms = timed_ms(lambda: P.render(vol, tfx, cam, frame_cfg), 3)
+            cal = vol.cal_max.to(torch.float32)
+            cal_g = cal if is_a5 else torch.trunc(cal)
+            bake_ms = timed_ms(lambda: phong.bake_scatter_grid(
+                vol.data, tfx, cfg, light, cam.front, cal_g,
+                torch.trunc(cal)), 3)
+            res[label] = dict(err=e, err_eps=e2, ms=ms, frame_ms=frame_ms,
+                              bake_ms=bake_ms, variant="a5_baked" if is_a5
+                              else march.variant(a))
+            log(f"{label}: kernel {ms:.4f} ms, frame through render() "
+                f"{frame_ms:.4f} ms, scatter bake {bake_ms:.4f} ms "
+                f"({bake_ms / frame_ms:.3f} of the frame)")
+            del a, a0, exact, got
+            torch.cuda.empty_cache()
+    return res
+
+
+def sweep_phase(P, phong, vol, tf) -> dict:
+    """The transmittance sweep and the whole scatter bake on one volume
+    (phase 3l, at 512^3): ms per call and peak memory."""
+    import torch
+
+    cfg = P.RenderConfig(scattering=True)
+    light = phong.default_light()
+    cal = torch.trunc(vol.cal_max.to(torch.float32))
+    alpha = tf.classify(vol.data.clamp_min(0.0) / cal)[..., 3].contiguous()
+    m0 = mem_reset()
+    sweep_ms = timed_ms(lambda: phong.light_transmittance_grid(
+        alpha, light.direction), 2)
+    bake_ms = timed_ms(lambda: phong.bake_scatter_grid(
+        vol.data, tf, cfg, light, P.reset_preset().front, cal, cal), 2)
+    peak, own = peak_mb(m0)
+    t = phong.light_transmittance_grid(alpha, light.direction)
+    check(bool(torch.isfinite(t).all()) and float(t.max()) <= 1.0
+          and float(t.min()) >= 0.0, "the transmittance grid is out of [0, 1]")
+    planes = int(max(vol.dims))
+    log(f"dense_{vol.dims[0]}: transmittance sweep {sweep_ms:.4f} ms (up to "
+        f"{planes} planes), scatter bake {bake_ms:.4f} ms, peak memory "
+        f"{peak:.1f} MiB ({own:.1f} MiB above the start)")
+    return dict(sweep_ms=sweep_ms, bake_ms=bake_ms, peak_mb=peak,
+                own_mb=own)
+
+
+def scatter_small_phase(P, sphere, tf) -> float:
+    """Phase 6e: small scattered renders (100x100x100 on the sphere)
+    through the kernels against the plain scan, within TOL_EXACT."""
+    small = P.RenderConfig(width=100, height=100, samples_per_ray=100,
+                           scattering=True,
+                           scattering_strength=SCATTER_STRENGTH)
+    worst = 0.0
+    for name, tfx, c in (
+            ("a1 hg", scatter_tf(P, tf), small),
+            ("a1 lit", tf, small.replace(lighting=True)),
+            ("a1 LUT 64", tf, small.replace(tf_lut=64)),
+            ("a5", scatter_tf(P, tf), small.replace(
+                algorithm=P.Algorithm.TEST))):
+        got = P.render(sphere, tfx, P.reset_preset(), c)
+        ref = P.render(sphere, tfx, P.reset_preset(), c, mode="scan")
+        e = float((got - ref).abs().max())
+        worst = max(worst, e)
+        log(f"scattered {name} sphere 100x100x100: kernel vs plain scan max "
+            f"err {e:.3e} (tol {TOL_EXACT:g})")
+        check(e <= TOL_EXACT, f"scattered {name} kernel vs scan: {e}")
+    return worst
+
+
+def scatter_render_phase(P, march, a5, vol, tf, rng) -> dict:
+    """Phase 4f: 8 scattered orbit frames after a warm-up through
+    ``render()`` (eps 1e-3) on the MNI-dims volume: a1 700x700x500, a1
+    ``sobel_lit_700`` lit, a5 500x500x500; each variant's launches set to 0
+    just before and read just after -> {config: numbers}."""
+    import torch
+
+    res = {}
+    for name, cfg, mod in (
+            ("a1_700", P.RenderConfig(width=W, height=H, samples_per_ray=SPR),
+             march),
+            ("sobel_lit_700", P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"]),
+             march),
+            ("a5_500", P.RenderConfig(width=A5_W, height=A5_H,
+                                      samples_per_ray=A5_SPR,
+                                      algorithm=P.Algorithm.TEST), a5)):
+        cfg = cfg.replace(scattering=True, early_termination=1e-3)
+        cams = orbit_cameras(P, rng)
+        P.render(vol, tf, cams[-1], cfg)  # warm-up frame
+        reset_launches(march, a5)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        imgs = [P.render(vol, tf, cam, cfg) for cam in cams]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / len(imgs)
+        launches = dict(mod.variant_launches)
+        for img in imgs:
+            check(bool(torch.isfinite(img).all()),
+                  f"scatter {name}: bad image")
+        log(f"scattered {name}: render() {ms:.4f} ms/frame, "
+            f"{cfg.width * cfg.height / ms * 1e3:.4e} rays/s, launches "
+            f"{launches} for {len(imgs)} frames")
+        check(launches["baked"] == len(imgs)
+              and sum(launches.values()) == len(imgs),
+              f"scattered {name}: launches {launches}")
+        res[name] = dict(ms=ms, launches=launches["baked"],
+                         a5=mod is a5)
+    return res
+
+
+def scatter_fit_phase(P, fit, march, march_vjp, phong, vname, vol, rng
+                      ) -> dict:
+    """Phase 7k at ``sobel_lit_700`` with scattering on one volume: 5 fit
+    steps after a warm-up (ms/step; K1 baked launched 1 + K + 1 times a
+    step, K4 baked once), the same under torch.profiler, 5 steps at lr
+    3e-6 that must descend, the colour gradient (its alpha column through
+    T_light) through the kernels against the plain versions (TOL_LIGHT of
+    its largest component) and a central difference along it (TOL_FD)."""
+    import torch
+
+    cfg = P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"], scattering=True)
+    tf = P.default_transfer_function()
+    cam = orbit_cameras(P, rng, 1)[0]
+    target = P.render(vol, tf, cam, cfg)
+    start_tf, _ = lit_fit_start(P, phong, tf, rng, False)
+    k = tf.num_intervals
+    label = f"scattered fit {vname}/sobel_lit_700"
+
+    def run(steps, lr=FIT_LR):
+        return fit.fit_transfer_function(vol, cam, target, start_tf, cfg,
+                                         steps=steps, learning_rate=lr)
+
+    run(1)  # warm-up step
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_launches(march, march_vjp)
+    start.record()
+    _, losses = run(FIT_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / FIT_STEPS
+    k1 = dict(march.variant_launches)
+    k4 = dict(march_vjp.variant_launches)
+    log(f"{label}: losses {losses}, {step_ms:.4f} ms/step, launches K1 {k1} "
+        f"K4 {k4} for {FIT_STEPS} steps")
+    check(k1["baked"] == (1 + k + 1) * FIT_STEPS == sum(k1.values())
+          and k4["baked"] == FIT_STEPS == sum(k4.values()),
+          f"{label}: launches K1 {k1} K4 {k4}")
+    check(all(math.isfinite(v) for v in losses), f"{label}: loss not finite")
+    trace = profile_fit(lambda: run(FIT_STEPS),
+                        ("march_a1_kernel", "march_bwd_a1_kernel"))
+    log(f"{label}: under torch.profiler {trace['wall_ms'] / FIT_STEPS:.4f} "
+        f"ms/step, device busy {trace['busy_ms'] / FIT_STEPS:.4f} ms/step (K1 "
+        f"{trace['k1_ms'] / FIT_STEPS:.4f}, K4 "
+        f"{trace['k4_ms'] / FIT_STEPS:.4f}), idle {trace['idle_share']:.4f}, "
+        f"{trace['kernels']} device operations")
+    reset_launches(march, march_vjp)
+    _, descent = run(FIT_STEPS, FIT_DESCENT_LR)
+    log(f"{label}: losses at lr {FIT_DESCENT_LR:g} {descent}")
+    check(all(b < a for a, b in zip(descent, descent[1:])),
+          f"{label}: the loss did not fall at every step")
+
+    def grads():
+        params = fit.FitParams.init(start_tf)
+        fit.render_loss(params, start_tf, vol, cam, target, cfg).backward()
+        return params, [p.grad for p in params.parameters()]
+
+    params, g = grads()
+    routes = swap_plain_a1(march, march_vjp)
+    try:
+        _, gp = grads()
+    finally:
+        march_vjp._forward, march_vjp._backward = routes
+    scale = float(gp[0][:, 3].abs().max())
+    err = float((g[0][:, 3] - gp[0][:, 3]).abs().max()) / scale
+    err_all = max(float((a - b).abs().max()) for a, b in zip(g, gp)) / max(
+        float(b.abs().max()) for b in gp)
+    log(f"{label}: alpha gradient kernels {g[0][:, 3].tolist()} vs plain "
+        f"{gp[0][:, 3].tolist()}: max err {err:.3e} of max {scale:.4e} (tol "
+        f"{TOL_LIGHT:g}); all parameters {err_all:.3e}")
+    check(scale > 0.0 and err <= TOL_LIGHT and err_all <= TOL_LIGHT,
+          f"{label}: gradient kernels vs plain {err} {err_all}")
+    norm = math.sqrt(sum(float((x.double() ** 2).sum()) for x in g))
+    with torch.no_grad():
+        up, down = (fit.FitParams(*(p + (h / norm) * x for p, x in zip(
+            params.parameters(), g))) for h in (FD_STEP, -FD_STEP))
+        l_up, l_down = (float(fit.render_loss(q, start_tf, vol, cam, target,
+                                              cfg)) for q in (up, down))
+        predicted = sum(float((x.double() * (u - d).double()).sum())
+                        for x, u, d in zip(g, up.parameters(),
+                                           down.parameters()))
+    fd_err = abs((l_up - l_down) - predicted) / abs(predicted)
+    log(f"{label}: central difference {l_up - l_down:.6g} against "
+        f"{predicted:.6g} from the gradient (relative err {fd_err:.3e}, tol "
+        f"{TOL_FD:g})")
+    check(fd_err <= TOL_FD and l_down < l_up, f"{label}: gradient check")
+    return dict(step_ms=step_ms, k1=k1["baked"], k4=k4["baked"],
+                busy_ms=trace["busy_ms"] / FIT_STEPS,
+                idle_share=trace["idle_share"], err=err, fd_err=fd_err,
+                losses=losses, descent=descent)
+
+
+def scatter_cli_phase(tmp: str, from_text) -> None:
+    """Phase 5h: the CLI's ``render --scattering`` (a1 and a5) and ``fit
+    --scattering`` (a1), started together; each must exit 0 and write a
+    valid PNG or a TF file that parses."""
+    size = ["--width", "304", "--height", "304", "--spr", "300",
+            "--scattering", "--scattering-strength", str(SCATTER_STRENGTH)]
+    runs = {
+        "render_a1": ["render", *size, "--out", os.path.join(tmp, "s1.png")],
+        "render_a5": ["render", *size, "--algorithm", "test", "--out",
+                      os.path.join(tmp, "s5.png")],
+        "fit_a1": ["fit", *size, "--steps", "2", "--out-tf",
+                   os.path.join(tmp, "fit_scatter.txt")],
+    }
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch", argv[0],
+         "--data", "sphere", *argv[1:]], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, argv in runs.items()}
+    results = {}
+    try:
+        for name, proc in procs.items():
+            results[name] = proc.communicate(timeout=300)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        stdout, stderr = results[name]
+        log(f"cli {name} --scattering exit {proc.returncode}: "
+            f"{stdout.strip()} {stderr.strip()[-2000:]}")
+        check(proc.returncode == 0, f"cli {name} --scattering failed")
+    check_png(os.path.join(tmp, "s1.png"), 304, 304)
+    check_png(os.path.join(tmp, "s5.png"), 304, 304)
+    with open(os.path.join(tmp, "fit_scatter.txt")) as f:
+        fitted = from_text(f.read())
+    check(fitted.num_intervals == 4
+          and bool(np.isfinite(fitted.colors.cpu().numpy()).all()),
+          "cli fit --scattering wrote a bad transfer function")
+
+
 class PhaseClock:
     """Prints each phase's seconds on a line of its own."""
 
@@ -2180,8 +2842,8 @@ def main() -> int:
         samples = samples_needed(march.march_plain, args)
         plain_ms = timed_ms(lambda: march.march_plain(args[0]), 2)
         voxels = math.prod(vol.dims)
-        nbytes = (voxels + args[0].occ.numel() * 4 + args[0].colors.numel() * 4
-                  + W * H * 16)
+        nbytes = (read_bytes(voxels, samples) + args[0].occ.numel() * 4
+                  + args[0].colors.numel() * 4 + W * H * 16)
         bound_ms, bound_by, ops_ms, bytes_ms = bound(
             samples * FLOPS_PER_SAMPLE, nbytes)
         per_volume[vname] = dict(ms=kernel_ms, plain_ms=plain_ms,
@@ -2232,7 +2894,8 @@ def main() -> int:
             samples = W * H * SPR  # every sample of every ray: no skip
             # at eps 0 no ray stops early: the samples inside the volume
             inside = samples_needed(march.march_plain, [a])
-            nbytes = (math.prod(vol.dims) + W * H * 16 + k * 16
+            nbytes = (read_bytes(math.prod(vol.dims), inside) + W * H * 16
+                      + k * 16
                       + march_vjp.num_blocks(W, H) * k * 16)
             ops = (inside * FLOPS_PER_BWD_SAMPLE
                    + (samples - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
@@ -2279,6 +2942,22 @@ def main() -> int:
     k4_errs = k4_variant_phases(P, march, march_vjp, volumes, tf, from_text,
                                 np.random.default_rng(21), per_volume)
     clock("3j K4 variants vs plain")
+
+    # ---- 3k. volumes beyond the TPU's resident budget: 320^3 and 512^3 -----
+    large = {f"dense_{n}": dense_volume(P, n) for n in LARGE_SIZES}
+    large_k = large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth,
+                                  smooth_vjp, phong, large, tf,
+                                  np.random.default_rng(30))
+    clock("3k kernels vs plain at 320^3 and 512^3")
+
+    # ---- 3l. scattered renders: K1 and K3 baked vs plain; the sweep --------
+    scatter_k = scatter_kernel_phase(
+        P, march, a5, phong, {"mni_dims_182x218x182":
+                              volumes["mni_dims_182x218x182"],
+                              "dense_320": large["dense_320"]}, tf,
+        np.random.default_rng(32))
+    sweep = sweep_phase(P, phong, large["dense_512"], tf)
+    clock("3l scattered kernels vs plain, the sweep at 512^3")
 
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
@@ -2329,6 +3008,17 @@ def main() -> int:
                                           per_volume)
     clock("4d smooth render path")
 
+    # ---- 4e. the streamed rows' render paths at 320^3 and 512^3 ------------
+    large_r = large_render_phase(P, march, a5, large, tf,
+                                 np.random.default_rng(33))
+    clock("4e large-volume render paths")
+
+    # ---- 4f. the scattered render paths -------------------------------------
+    scatter_r = scatter_render_phase(P, march, a5,
+                                     volumes["mni_dims_182x218x182"], tf,
+                                     np.random.default_rng(34))
+    clock("4f scattered render paths")
+
     # ---- 5-5g. the CLI: its chains of processes run together, since each
     # process spends most of its time starting up ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2336,11 +3026,12 @@ def main() -> int:
                   lambda: a5_cli_phase(tmp, tf, from_text),  # 5c, 5d
                   lambda: lit_cli_phase(tmp),  # 5e
                   lambda: smooth_cli_phase(tmp, tf, from_text),  # 5f
-                  lambda: lit_fit_cli_phase(tmp, from_text)]  # 5g
+                  lambda: lit_fit_cli_phase(tmp, from_text),  # 5g
+                  lambda: scatter_cli_phase(tmp, from_text)]  # 5h
         with ThreadPoolExecutor(len(chains)) as pool:
             for job in [pool.submit(c) for c in chains]:
                 job.result()
-    clock("5-5g CLI")
+    clock("5-5h CLI")
 
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
@@ -2385,7 +3076,10 @@ def main() -> int:
         f"{e:.3e} (tol {TOL_EXACT:g})")
     check(e <= TOL_EXACT, f"K8 vs smooth reference scan: {e}")
 
-    clock("6-6d small renders vs the reference scans")
+    # ---- 6e. small scattered inputs against the plain scan ------------------
+    scatter_small = scatter_small_phase(P, sphere, tf)
+
+    clock("6-6e small renders vs the reference scans")
 
     # ---- 7. the fit path -----------------------------------------------------
     fit_rng = np.random.default_rng(4)
@@ -2499,6 +3193,18 @@ def main() -> int:
     light_recovery = light_recovery_phase(P, fit, march, march_vjp, phong)
     clock("7i light recovery")
 
+    # ---- 7j. colour fits at 320^3 and 512^3 ---------------------------------
+    large_f = large_fit_phase(P, fit, march, march_vjp, a5, a5_vjp, phong,
+                              large, tf, np.random.default_rng(35))
+    clock("7j large-volume fit paths")
+
+    # ---- 7k. the scattered fit ----------------------------------------------
+    scatter_f = {vname: scatter_fit_phase(P, fit, march, march_vjp, phong,
+                                          vname, vol,
+                                          np.random.default_rng(36))
+                 for vname, vol in volumes.items()}
+    clock("7k scattered fit path")
+
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
         "name": "march_a1",
@@ -2549,14 +3255,24 @@ def main() -> int:
         "bound_by": main_vol["a5_bwd_bound_by"],
         "library_ms": None,
     }]
+    # the scattered paths ride the baked variants
+    scatter_k1 = sum(r["k1"] for r in scatter_f.values()) + sum(
+        r["launches"] for r in scatter_r.values() if not r["a5"])
+    scatter_k3 = sum(r["launches"] for r in scatter_r.values() if r["a5"])
+    scatter_k4 = sum(r["k4"] for r in scatter_f.values())
+    scatter_errs = {"baked": 0.0, "lut_baked": 0.0, "a5_baked": 0.0}
+    for r in scatter_k.values():
+        scatter_errs[r["variant"]] = max(scatter_errs[r["variant"]],
+                                         r["err"])
     for var, cname, src, line in (
             ("lut", "lut_300", "march.cu", "pallas_march.py:103"),
             ("baked", "sobel_lit_700", "march.cu", "pallas_march.py:103"),
             ("lut_baked", "lut_phong_300", "march.cu", "pallas_march.py:103"),
             ("a5_baked", "a5_lit_300", "a5.cu", "pallas_a5.py:67")):
         r = main_vol[cname]
-        fit_k1 = 0 if var == "a5_baked" else (
-            lit_fit[var]["k1"] + (light_fit["k1"] if var == "baked" else 0))
+        fit_k1 = scatter_k3 if var == "a5_baked" else (
+            lit_fit[var]["k1"] + (light_fit["k1"] + scatter_k1
+                                  if var == "baked" else 0))
         kernels.append({
             "name": "march_a5_baked" if var == "a5_baked"
             else f"march_a1_{var}",
@@ -2564,7 +3280,7 @@ def main() -> int:
             "source": f"volumerenderingproject_tpu_torch/csrc/{src}",
             "replaces": f"volumerenderingproject_tpu/ops/{line}",
             "launches": lit_launches[var] + fit_k1,
-            "max_abs_err": lit_errs[var],
+            "max_abs_err": max(lit_errs[var], scatter_errs.get(var, 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -2579,7 +3295,7 @@ def main() -> int:
             "source": "volumerenderingproject_tpu_torch/csrc/march_bwd.cu",
             "replaces": "volumerenderingproject_tpu/ops/pallas_march_vjp.py:88",
             "launches": lit_fit[var]["k4"] + (
-                light_fit["k4"] if var == "baked" else 0),
+                light_fit["k4"] + scatter_k4 if var == "baked" else 0),
             "max_abs_err": k4_errs[var][0],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -2613,6 +3329,46 @@ def main() -> int:
         "bound_by": sm["bwd_bound_by"],
         "library_ms": None,
     }]
+    # the streamed TPU kernels folded into K1, K3, K4 and K6: the same CUDA
+    # kernels on volumes beyond the TPU's resident budget, at 512^3
+    big = large_k[f"dense_{LARGE_SIZES[-1]}"]
+    for name, src, line, key, fwd, rows in (
+            ("march_a1_large", "march.cu", "pallas_march.py:2485", "k1",
+             True, ("streamed", "streamed_lit")),
+            ("march_a5_large", "a5.cu", "pallas_a5.py:1105", "k3", True,
+             ("streamed_a5",)),
+            ("march_bwd_a1_large", "march_bwd.cu",
+             "pallas_march_vjp.py:624", "k4", False,
+             ("streamed", "streamed_lit")),
+            ("march_bwd_a5_large", "a5_bwd.cu", "pallas_a5.py:1429", "k6",
+             False, ("streamed_a5",))):
+        count = sum(r["fwd" if fwd else "bwd"] for lbl, r in large_f.items()
+                    if lbl.split("/")[1].split()[0] in rows)
+        if fwd:
+            count += sum(r["launches"] for lbl, r in large_r.items()
+                         if lbl.split("/")[1] in rows)
+        errs = [r[key]["err"] for r in large_k.values()] + [
+            r[f"{key}_baked"]["err"] for r in large_k.values()
+            if f"{key}_baked" in r]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"volumerenderingproject_tpu_torch/csrc/{src}",
+            "replaces": f"volumerenderingproject_tpu/ops/{line}",
+            "launches": count,
+            "max_abs_err": max(errs),
+            "ms": big[key]["ms"],
+            "plain_ms": big[key]["plain_ms"],
+            "bound_ms": big[key]["bound_ms"],
+            "bound_by": big[key]["bound_by"],
+            "library_ms": None,
+        })
+    log(f"large volumes: kernels {json.dumps(large_k)}; render paths "
+        f"{json.dumps(large_r)}; fit paths {json.dumps(large_f)}")
+    log(f"scattering: kernels {json.dumps(scatter_k)}; transmittance sweep "
+        f"{json.dumps(sweep)}; render paths {json.dumps(scatter_r)}; fits "
+        f"{json.dumps(scatter_f)}; small renders vs the scan "
+        f"{scatter_small:.3e}")
     log(f"K9 max errors (abs, relative to max |dplain|) over all cases: "
         f"{smooth_errs['k9']}; smooth central differences max relative err "
         f"{smooth_errs['fd']:.3e}; bound recovery {recovery}")

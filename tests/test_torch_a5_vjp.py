@@ -207,7 +207,7 @@ def test_fit_matches_jax(scene):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(lighting=True), "item 9"),
-    (dict(scattering=True), "item 9"),
+    (dict(scattering=True), "item 11a"),
 ])
 def test_unported_diff_options_raise(scene, kw, item):
     jv, jc, cfg, target = scene

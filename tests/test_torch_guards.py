@@ -154,6 +154,30 @@ def test_a5_entry_points_without_device_need_cuda(no_cuda, entry):
               P.reset_preset(device="cpu"), cfg)
 
 
+@pytest.mark.parametrize("entry", [
+    lambda vol, tf, cam, cfg: P.render(vol, tf, cam, cfg),
+    lambda vol, tf, cam, cfg: P.render(
+        vol, tf, cam, cfg.replace(algorithm=P.Algorithm.TEST)),
+    lambda vol, tf, cam, cfg: march_vjp.render_vrc_scatter_diff(vol, tf, cam,
+                                                                cfg),
+    lambda vol, tf, cam, cfg: fit.fit_transfer_function(
+        vol, cam, np.zeros((8, 8, 4), np.float32), tf, cfg, steps=1),
+])
+def test_scatter_entry_points_without_device_need_cuda(no_cuda, entry):
+    vol = synthetic.centered_sphere(8, device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4,
+                         scattering=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(vol, P.default_transfer_function(device="cpu"),
+              P.reset_preset(device="cpu"), cfg)
+
+
+def test_cli_scattering_without_device_needs_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["render", "--width", "8", "--height", "8", "--spr", "4",
+                  "--scattering"])
+
+
 def test_fit_without_device_needs_cuda(no_cuda):
     vol = synthetic.centered_sphere(8, device="cpu")
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4)

@@ -439,7 +439,7 @@ def test_cli_fit_light_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cfg_kw,light_kw,item", [
-    (dict(scattering=True), {}, "item 9"),
+    (dict(scattering=True), {}, "item 11a"),
     (dict(lighting=True, conic=True), {}, "item 11a"),
     (dict(tf_lut=256), {}, "item 11a"),
     (dict(algorithm=Algorithm.TEST), {}, "item 11a"),

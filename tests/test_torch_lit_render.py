@@ -167,8 +167,8 @@ def test_lit_early_termination_bound(scene):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(lighting=True, conic=True), NotImplementedError, "item 9"),
-    (dict(scattering=True), NotImplementedError, "item 9"),
-    (dict(scattering=True, algorithm=Algorithm.TEST), NotImplementedError,
+    (dict(scattering=True, conic=True), NotImplementedError, "item 9"),
+    (dict(scattering=True, conic=True, tf_lut=64), NotImplementedError,
      "item 9"),
     (dict(tf_lut=2048), ValueError, "tf_lut"),
 ])

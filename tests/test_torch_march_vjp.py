@@ -224,7 +224,7 @@ def test_lit_and_lut_options_differentiate(scene, cfg_kw):
 
 @pytest.mark.parametrize("cfg_kw,item", [
     (dict(lighting=True, conic=True), "item 11a"),
-    (dict(scattering=True), "item 9"),
+    (dict(scattering=True, conic=True), "item 11a"),
     (dict(tf_lut=256, lighting=True, conic=True), "item 11a"),
     (dict(interp=Interp.TRILINEAR), "item 12"),
 ])

@@ -126,16 +126,17 @@ def test_fused_sphere_matches_jax_fast():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algorithm=Algorithm.TEST, scattering=True), "item 9"),
+    (dict(scattering=True, conic=True), "item 9"),
     (dict(algorithm=Algorithm.POINT), "item 15"),
     (dict(lighting=True, conic=True), "item 9"),
-    (dict(scattering=True), "item 9"),
+    (dict(scattering=True, conic=True, lighting=True), "item 9"),
     (dict(interp=Interp.TRILINEAR, tf_lut=256), "item 12"),
 ])
 def test_unported_options_raise(kw, item):
-    """Lit and LUT renders are ported (tests/test_torch_lit_render.py), and
-    smooth renders (tests/test_torch_smooth.py); scattering, conic lighting
-    and a smooth LUT render in fast mode are not."""
+    """Lit, LUT and scattered renders are ported
+    (tests/test_torch_lit_render.py, tests/test_torch_scatter.py), and
+    smooth renders (tests/test_torch_smooth.py); conic lighting, conic
+    scattering and a smooth LUT render in fast mode are not."""
     vol = psynthetic.centered_sphere(8, device="cpu")
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
     with pytest.raises(NotImplementedError, match=item):

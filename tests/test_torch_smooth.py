@@ -209,6 +209,30 @@ def test_sharpness_1000_matches_unfused_jax(scene):
     np.testing.assert_allclose(fused, want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("sharpness", [200.0, 1000.0])
+def test_conic_high_sharpness_on_jax_rays(scene, sharpness, monkeypatch):
+    """ROADMAP F2: conic smooth renders at sharpness 200 and 1000, with
+    both packages on JAX's rays (the port's correctly rounded 1/sqrt
+    swapped for ``lax.rsqrt``, as the ray-setup test above swaps the
+    other way): the port's scan and its fused march's plain version stay
+    within 1e-5 of JAX's scan evaluated op by op, so the gap F2 measured
+    is the rays' rsqrt and nothing else."""
+    from volumerenderingproject_tpu_torch.utils import transforms
+
+    monkeypatch.setattr(transforms, "rsqrt", lambda x: torch.from_numpy(
+        np.asarray(jax.lax.rsqrt(jnp.asarray(x.numpy())))))
+    jv, jtf, jc, cfg = scene
+    cfg = cfg.replace(tf_sharpness=sharpness, conic=True)
+    pv, ptf, pc = _port(jv, jtf, jc)
+    pcfg = RenderConfig.from_json(cfg.to_json())
+    with jax.disable_jit():
+        want = np.asarray(jrender_vrc(jv, jtf, jc, cfg, mode="fast"))
+    scan = P.render(pv, ptf, pc, pcfg, mode="scan", device="cpu").numpy()
+    fused = P.render(pv, ptf, pc, pcfg, device="cpu").numpy()
+    np.testing.assert_allclose(scan, want, rtol=0, atol=TOL)
+    np.testing.assert_allclose(fused, want, rtol=0, atol=TOL)
+
+
 def test_march_smooth_plain_matches_pallas_and_scan(jax_test_scene):
     """The fused march's plain version at eps 0 against the Pallas smooth
     forward in interpret mode and against the port's scan; ``render()`` in

@@ -11,8 +11,9 @@
 // containing voxel trunc(p) of a sample inside the volume, M = 1 and S = 0
 // outside (pallas_a5.py:93-98, 283, 447-455).  The a5 view direction is the
 // camera's front for every ray, so the factors are per voxel for any
-// camera.  Its segment and streamed (ms_stream, id_stream) variants are not
-// here.
+// camera; the single-scattering term rides S.  The volumes that its streamed
+// modes (ms_stream, id_stream) stage block by block stay in device memory
+// here.  Its segment variant is not here.
 //
 // One thread marches one ray:
 //   per sample: the three stage matrices -> inside [0, dims)? -> 8 corner

@@ -1,8 +1,9 @@
 // Backward of the fused a5/TEST ray march (K6) for NVIDIA Hopper (sm_90a).
 //
 // Replaces volumerenderingproject_tpu/ops/pallas_a5.py:_a5_bwd_kernel (its
-// f32-row and 4-bit id modes; the streamed variant, _a5_streamed_bwd_kernel,
-// is not here).  Given the per-ray cotangents g (of the rgb output) and g_t
+// f32-row and 4-bit id modes) and, for volumes the TPU streams, its
+// streamed variant _a5_streamed_bwd_kernel: the id grid stays in device
+// memory.  Given the per-ray cotangents g (of the rgb output) and g_t
 // (of the final transmittance T_N, which reaches the output through
 // out = C + T_N * bg), it computes dL/dcolors [K, 4] of the a5 march
 // (a5.cu) at eps 0.

@@ -11,9 +11,13 @@
 //     (config.tf_lut), <= 1024 colours (16 KB of shared memory);
 //   * baked light (`baked_light`): per-voxel Blinn-Phong factor grids M and
 //     S (f32, in HBM), rgb <- rgb * M + S at the sample's voxel; a sample
-//     off the volume takes M = 1, S = 0 (pallas_march.py:671-680).
-// LUT and baked light compose.  The in-kernel (conic) `lighting`,
-// multichannel, segment and streamed variants of that kernel are not here.
+//     off the volume takes M = 1, S = 0 (pallas_march.py:671-680).  The
+//     single-scattering term rides S (pallas_march.py:1685-1692).
+// LUT and baked light compose.  The same kernel takes the volumes that the
+// TPU kernel's streamed modes (K2: HBM->VMEM x-blocks, u8 (M, S)) stage
+// block by block: here the whole volume stays in device memory and voxel
+// indices are 64-bit.  The in-kernel (conic) `lighting`, multichannel and
+// segment variants of that kernel are not here.
 //
 // One thread marches one ray:
 //   ray setup -> clip of the sample range to the dataset box (+-1 sample)

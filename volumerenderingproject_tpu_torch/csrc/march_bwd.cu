@@ -12,7 +12,10 @@
 //     a sample's terms go to interval itv[idx] of the entry it read,
 //     pallas_march_vjp.py:289-298;
 //   * LUT + baked light: both.
-// The slab, segment and multichannel variants of that kernel are not here.
+// It also takes the volumes of _march_streamed_bwd_kernel (K5, the same
+// two passes over HBM->VMEM x-blocks with ownership extents): the volume
+// stays in device memory.  The slab, segment and multichannel variants of
+// that kernel are not here.
 // Given the per-ray cotangents g (of the rgb output) and g_t (of the final
 // transmittance T_N, which reaches the output through out = C + T_N * bg),
 // it computes dL/dcolors [K, 4] of the forward march (march.cu) at eps 0

@@ -3,13 +3,15 @@ mode, the TF interval bounds, and the light's parameters, to a target image
 by gradient descent through the renderer.
 
 Counterpart of ``volumerenderingproject_tpu/diff/fit.py`` on its fused a1
-routes (fit.py:187-194, 212-215: plain, lit and LUT colour fits, and light
-fits), its smooth-mode route (fit.py:195-211) and its unlit a5 route
-(fit.py:134-145): the loss renders through
+routes (fit.py:173-194, 212-215: plain, lit, LUT and scattered colour fits,
+and light fits), its smooth-mode route (fit.py:195-211) and its unlit a5
+route (fit.py:134-145): the loss renders through
 ``ops/march_vjp.render_vrc_diff`` (forward the march kernel K1 at eps 0,
 backward the backward march kernel K4 on the GPU, in its plain, baked-light,
 LUT or LUT + baked-light variant; with a light, K4 baked plus 11 tangent
-marches of K1 baked), with ``Interp.TRILINEAR`` through
+marches of K1 baked; with scattering, ``render_vrc_scatter_diff``: K4
+baked plus 1 + K tangent marches of K1 baked), with ``Interp.TRILINEAR``
+through
 ``ops/smooth_vjp.render_vrc_smooth_diff`` (K8 and K9, no volume gradient),
 or, with ``Algorithm.TEST``, through ``ops/a5_vjp.render_test_diff`` (K3
 and K6).  The optimizer is ``torch.optim.Adam`` with optax's defaults.
@@ -25,9 +27,10 @@ the 10 light parameters.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 item): what only the JAX package's XLA scan fits (item 11a: conic lit fits,
-light fits of a5, smooth or LUT renders or from a non-uniform light colour,
-fits of more than 16 intervals), scattering (item 9), multichannel fits
-(item 10) and sharded fits over a mesh (item 14).
+light fits of a5, smooth, LUT or scattered renders or from a non-uniform
+light colour, scattered fits of a5, smooth, conic or LUT renders; item 11d:
+fits of more than 16 intervals), multichannel fits (item 10) and sharded
+fits over a mesh (item 14).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.a5_vjp import render_test_diff
-from ..ops.march_vjp import render_vrc_diff
+from ..ops.march_vjp import render_vrc_diff, render_vrc_scatter_diff
 from ..ops.phong import Light
 from ..ops.smooth_vjp import render_vrc_smooth_diff
 from ..scene.transfer_function import TransferFunction
@@ -120,16 +123,20 @@ def _render_with_density(volume, tf: TransferFunction, camera,
                          light=None) -> torch.Tensor:
     """Scale the TF alphas by the (differentiable) density, then render
     through the differentiable march of ``config.algorithm`` and
-    ``config.interp`` (fit.py:124-153, 187-215): nearest-voxel a1 folds
+    ``config.interp`` (fit.py:124-215): nearest-voxel a1 folds
     ``config.density_scale`` in as well and takes lit and LUT configs, and
-    with ``light`` shades with it, differentiably; smooth a1 takes it only
-    at 1 (the JAX package's smooth kernels do too), with no volume
-    gradient; a5 reads none and samples its own way whatever
-    ``config.interp`` says.  A light on a config the fused marches do not
-    fit raises, naming ROADMAP.md item 11a."""
+    with ``light`` shades with it, differentiably; scattered configs take
+    the scatter route first (a1 ortho, no LUT, the light static); smooth
+    a1 takes it only at 1 (the JAX package's smooth kernels do too), with
+    no volume gradient; a5 reads none and samples its own way whatever
+    ``config.interp`` says.  A light, or scattering, on a config the fused
+    marches do not fit raises, naming ROADMAP.md item 11a."""
     colors = torch.cat([tf.colors[:, :3], tf.colors[:, 3:4] * density], dim=1)
     tf2 = TransferFunction(lower=tf.lower, upper=tf.upper, colors=colors,
                            hg_g=tf.hg_g)
+    if config.scattering:  # fit.py:173-186, before the light's route
+        return render_vrc_scatter_diff(volume, tf2, camera, config,
+                                       device=volume.data.device, light=light)
     if light is not None:  # fit.py:187-194; render_vrc_diff checks it
         return render_vrc_diff(volume, tf2, camera, config,
                                device=volume.data.device, light=light)

@@ -4,8 +4,8 @@
   fit      fit TF colours and density (``--fit-bounds``: and the interval
            bounds, in smooth mode ``--interp trilinear``; ``--fit-light``:
            and the light's 10 parameters, from the default light) to a
-           target PNG; lit (``--lighting``) and LUT (``--config``) renders
-           fit too
+           target PNG; lit (``--lighting``), LUT (``--config``) and
+           scattered (``--scattering``) renders fit too
 
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
 subcommand runs on CUDA unless ``--device cpu`` is given.
@@ -64,6 +64,10 @@ def _config(args):
         over["presmooth_sigma"] = args.presmooth
     if args.interp:
         over["interp"] = Interp(args.interp)
+    if args.scattering:
+        over["scattering"] = True
+    if args.scattering_strength is not None:
+        over["scattering_strength"] = args.scattering_strength
     return cfg.replace(**over)
 
 
@@ -183,6 +187,10 @@ def _common(sp) -> None:
     sp.add_argument("--gradient-filter", choices=["central", "sobel"])
     sp.add_argument("--presmooth", type=float,
                     help="Gaussian sigma for the pre-render gradient filter")
+    sp.add_argument("--scattering", action="store_true",
+                    help="single scattering of the default light (HG phase "
+                         "x light transmittance)")
+    sp.add_argument("--scattering-strength", type=float)
 
 
 def build_parser() -> argparse.ArgumentParser:

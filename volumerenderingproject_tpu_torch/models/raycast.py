@@ -5,8 +5,9 @@
 (pixel id = x*SCR_HEIGHT + y, kernel.cu:25,199).  Per sample: world
 position -> modelAux (+0.5, kernel.cu:1046-1063) -> octree nearest voxel ->
 / trunc(cal_max) -> transfer function (or its dense LUT, ``config.tf_lut``)
-[-> Blinn-Phong on the voxel's density gradient, ``config.lighting``] ->
-over-blend (kernel.cu:40-70, 194-225).
+[-> Blinn-Phong on the voxel's density gradient, ``config.lighting``]
+[-> + single-scattered light, ``config.scattering``] -> over-blend
+(kernel.cu:40-70, 194-225).
 
 a5 (kernel.cu:72-187): camera-grid positions through modelCam ->
 inverseView -> toVolume (kernel.cu:1177-1222), colour-space trilinear
@@ -34,6 +35,7 @@ from ..ingest.volume import Volume
 from ..ops import a5
 from ..ops import composite as comp
 from ..ops import conv3d, sampling, smooth
+from ..ops import phong
 from ..ops.march import check_supported, render_vrc_fused
 from ..ops.phong import Light, default_light, is_lit, phong_shade
 from ..scene.camera import Camera
@@ -111,16 +113,18 @@ def ray_origins(camera: Camera, config: RenderConfig) -> torch.Tensor:
 
 def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
                      tf: TransferFunction, config: RenderConfig,
-                     shading=None, lut: torch.Tensor | None = None
-                     ) -> torch.Tensor:
-    """a1 per-sample classify: modelAux(+0.5) -> octree NN -> TF [-> Phong],
-    or in smooth mode (``Interp.TRILINEAR``) modelAux -> voxel space ->
-    trilinear intensity -> smooth TF [-> Phong at the octree-NN voxel].
+                     shading=None, lut: torch.Tensor | None = None,
+                     scatter=None) -> torch.Tensor:
+    """a1 per-sample classify: modelAux(+0.5) -> octree NN -> TF [-> Phong]
+    [-> scattering], or in smooth mode (``Interp.TRILINEAR``) modelAux ->
+    voxel space -> trilinear intensity -> smooth TF [-> Phong and
+    scattering at the octree-NN voxel].
 
     ``shading``, when set, is a (grad_flat [X*Y*Z, 3], light, view_dir)
     triple: the gradient at the sample's voxel (0 off the volume) is the
     Phong normal.  ``lut``, when set, is the dense [N, 4] TF table used
-    instead of the interval scan (``config.tf_lut``)."""
+    instead of the interval scan (``config.tf_lut``).  ``scatter``, when
+    set, is :func:`_make_scatter`'s triple (raycast.py:142-222)."""
     p = positions + 0.5  # modelAux kernel.cu:1050
     flat = valid = None
     if config.interp is Interp.TRILINEAR:
@@ -153,11 +157,62 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
                              torch.zeros((), dtype=_f32, device=v.device))
         rgba = torch.cat([phong_shade(rgba[..., :3], normal, view_dir, light),
                           rgba[..., 3:4]], dim=-1)
+    if scatter is not None:
+        if flat is None:
+            flat, valid = sampling.octree_nn_index(volume.dims,
+                                                   volume.octree_depth, p)
+        v = volume.data.reshape(-1)[flat].clamp_min(0.0)
+        v = torch.where(valid, v, torch.zeros((), dtype=_f32,
+                                              device=v.device))
+        rgba = _apply_scattering(rgba, tf, config, scatter, flat, valid,
+                                 v / torch.trunc(volume.cal_max))
     if config.density_scale != 1.0:
         a = rgba[..., 3:4] * torch.tensor(config.density_scale, dtype=_f32,
                                           device=rgba.device)
         rgba = torch.cat([rgba[..., :3], a.clamp(0.0, 1.0)], dim=-1)
     return rgba
+
+
+def _apply_scattering(rgba: torch.Tensor, tf: TransferFunction,
+                      config: RenderConfig, scatter, flat: torch.Tensor,
+                      valid: torch.Tensor, v_norm: torch.Tensor
+                      ) -> torch.Tensor:
+    """Add single-scattered radiance to the sample colours
+    (raycast.py:225-251): ``rgb += strength * (HG(cos t; g) * T_light) *
+    light.color``, with g the material of ``v_norm``'s interval, T_light
+    the transmittance grid at the sample's voxel (0 off the volume) and
+    cos t = ray_dir . light_dir."""
+    tl_flat, light, ray_dirs = scatter
+    tl = torch.where(valid, tl_flat[flat],
+                     torch.zeros((), dtype=_f32, device=flat.device))
+    gk = tf.hg_g[tf.classify_index(v_norm)]
+    ldir = light.direction / phong.norm3(light.direction).clamp_min(1e-8)
+    cos_t = phong.dot3(ray_dirs, ldir)
+    ph = phong.henyey_greenstein(cos_t, gk)
+    add = (torch.tensor(config.scattering_strength, dtype=_f32,
+                        device=ph.device) * (ph * tl)[..., None]) * light.color
+    return torch.cat([rgba[..., :3] + add, rgba[..., 3:4]], dim=-1)
+
+
+def _make_scatter(volume: Volume, tf: TransferFunction,
+                  config: RenderConfig, light: Light | None,
+                  ray_dirs: torch.Tensor):
+    """The per-call scattering inputs (raycast.py:254-270): the
+    transmittance grid [X*Y*Z] of ``clip(alpha * density_scale)`` under a1
+    value semantics (trunc(cal_max)), the light (the default one unless
+    given) and the ray directions."""
+    if volume.channels != 1:
+        raise NotImplementedError(
+            "multichannel volumes are not ported yet: ROADMAP.md item 10 "
+            "(multichannel)")
+    if light is None:
+        light = default_light(volume.data.device)
+    alpha = tf.classify(volume.data.clamp_min(0.0)
+                        / torch.trunc(volume.cal_max))[..., 3]
+    alpha = phong.clip01(alpha * torch.tensor(
+        config.density_scale, dtype=_f32, device=alpha.device))
+    tgrid = phong.light_transmittance_grid(alpha, light.direction)
+    return tgrid.reshape(-1), light, ray_dirs
 
 
 def _gradient_flat(volume: Volume, config: RenderConfig) -> torch.Tensor:
@@ -188,18 +243,25 @@ def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
                   config: RenderConfig, x: torch.Tensor, y: torch.Tensor,
                   light: Light | None = None):
     """The a5 per-step sampler ``i_f32 -> [W, H, 4]``; the stage matrices
-    (and with lighting the gradient field) are built once.  A lit sample
-    takes the normal at its containing voxel clip(trunc(pos)), 0 outside
-    the volume, viewed along ``-camera.front`` (the a5 grid marches along
-    the front for every ray, kernel.cu:1190)."""
+    (and with lighting the gradient field, with scattering the
+    transmittance grid) are built once.  A lit sample takes the normal at
+    its containing voxel clip(trunc(pos)), 0 outside the volume, viewed
+    along ``-camera.front`` (the a5 grid marches along the front for every
+    ray, kernel.cu:1190); a scattered sample takes the transmittance and
+    the material of that voxel (its intensity over the float cal_max),
+    with the ray direction ``camera.front`` (raycast.py:531-586)."""
     vol_flat = volume.data.reshape(-1)
     mats = a5.stage_matrices(camera, volume.dims, config)
     lit = is_lit(config, light)
     if lit:
-        light = default_light(camera.device) if light is None else light
         grad_flat = _gradient_flat(volume, config)
         view_dir = -camera.front
+    scatter = (_make_scatter(volume, tf, config, light, camera.front)
+               if config.scattering else None)
+    if lit or scatter is not None:
+        light = default_light(camera.device) if light is None else light
         dev = camera.device
+        zero = torch.zeros((), dtype=_f32, device=dev)
         dimv = torch.tensor(volume.dims, dtype=_f32, device=dev)
         hi = torch.tensor(volume.dims, dtype=torch.int64, device=dev) - 1
         d1, d2, d3 = volume.dims
@@ -208,15 +270,20 @@ def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
         pos = a5.apply_stages(mats, x, y, i)
         rgba = sampling.trilinear_color_sample(
             vol_flat, volume.dims, pos, tf.classify, volume.cal_max)
-        if not lit:
+        if not lit and scatter is None:
             return rgba
         inside = ((pos >= 0.0) & (pos < dimv)).all(dim=-1)
         ijk = torch.minimum(torch.trunc(pos).to(torch.int64).clamp_min(0), hi)
         flat = ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3 + ijk[..., 2]
-        normal = torch.where(inside[..., None], grad_flat[flat],
-                             torch.zeros((), dtype=_f32, device=dev))
-        return torch.cat([phong_shade(rgba[..., :3], normal, view_dir, light),
-                          rgba[..., 3:4]], dim=-1)
+        if lit:
+            normal = torch.where(inside[..., None], grad_flat[flat], zero)
+            rgba = torch.cat([phong_shade(rgba[..., :3], normal, view_dir,
+                                          light), rgba[..., 3:4]], dim=-1)
+        if scatter is not None:
+            v = torch.where(inside, vol_flat[flat].clamp_min(0.0), zero)
+            rgba = _apply_scattering(rgba, tf, config, scatter, flat, inside,
+                                     v / volume.cal_max)
+        return rgba
 
     return sample_rgba
 
@@ -258,11 +325,12 @@ def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
     """a1/VRC render by the plain scan -> [W, H, 4] (alpha all 1), or the
     (C [W, H, 3], T [W, H, 1]) pair with ``mode="segment"``.
 
-    With ``config.lighting`` (or an explicit ``light``; the default light
-    otherwise) samples are Phong-shaded on the gradient field of
-    ``config.gradient_filter``/``presmooth_sigma``, viewed along each ray's
-    ``-dir`` (ortho or conic); with ``config.tf_lut`` they classify through
-    the dense LUT."""
+    With ``config.lighting`` (or an explicit ``light`` without scattering;
+    the default light otherwise) samples are Phong-shaded on the gradient
+    field of ``config.gradient_filter``/``presmooth_sigma``, viewed along
+    each ray's ``-dir`` (ortho or conic); with ``config.tf_lut`` they
+    classify through the dense LUT; with ``config.scattering`` they gain
+    the light's single-scattered radiance along each ray's ``dir``."""
     check_supported(config, volume.channels)
     origins = ray_origins(camera, config)
     dirs = primary_ray_dirs(camera, config)
@@ -274,11 +342,13 @@ def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
         light = default_light(dev) if light is None else light
         shading = (_gradient_flat(volume, config), light, -dirs)
     lut = tf.to_lut(config.tf_lut) if config.tf_lut else None
+    scatter = (_make_scatter(volume, tf, config, light, dirs)
+               if config.scattering else None)
 
     def sample_rgba(i):
         t = i * ds + clip  # kernel.cu:54,59
         return _vrc_sample_rgba(origins + t * dirs, volume, tf, config,
-                                shading, lut)
+                                shading, lut, scatter)
 
     return _march(sample_rgba, config, mode, dev)
 

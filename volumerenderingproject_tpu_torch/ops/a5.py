@@ -3,7 +3,8 @@ wrapper of its CUDA kernel (``csrc/a5.cu``).
 
 Counterpart of ``volumerenderingproject_tpu/ops/pallas_a5.py`` in its
 resident modes (the f32 rows and the 4-bit id grid, unlit or
-``baked_light``): camera-grid sample positions through the three stage
+``baked_light``, which also carries single scattering) and its streamed
+ones (the id grid stays in device memory at every size): camera-grid sample positions through the three stage
 matrices, the 8 corners of each sample with float-offset truncation and the
 reference's flat-index wrap, each corner classified through the transfer
 function, the corner colours mixed y->x->z [-> ``rgb * M + S`` at the
@@ -25,7 +26,10 @@ Prep (per call, plain PyTorch):
     with lighting the per-voxel Blinn-Phong factors (M, S) of
     ``ops/phong.bake_light_grids``, viewed along ``-camera.front``: the a5
     grid marches along the front for every ray (kernel.cu:1190), so the
-    factors are exact for any camera.
+    factors are exact for any camera.  With scattering S gains
+    ``ops/phong.bake_scatter_grid`` along ``camera.front``, its material
+    lookup over the float cal_max and its transmittance's alpha over
+    trunc(cal_max) (PARITY C4; pallas_a5.py:981-994).
 
 The kernel's only skip is early termination: it stops a ray before the
 first sample at which |T| <= eps, which changes the output by at most eps
@@ -47,8 +51,8 @@ import torch
 from ..utils import transforms as T
 from ..utils.config import RenderConfig
 from . import _build
-from .phong import (Light, bake_light_grids, check_uniform_light,
-                    default_light, is_lit)
+from .march import bake_grids
+from .phong import Light, check_uniform_light
 from .sampling import corner_flat_indices, trilinear_mix_colors
 
 _f32 = torch.float32
@@ -75,18 +79,14 @@ class A5Args(NamedTuple):
     width: int
     height: int
     spr: int
-    mgrid: Optional[torch.Tensor] = None  # [X, Y, Z] f32 baked M, lit only
-    sgrid: Optional[torch.Tensor] = None  # [X, Y, Z] f32 baked S, lit only
+    # [X, Y, Z] f32 baked M and S, lit or scattered only
+    mgrid: Optional[torch.Tensor] = None
+    sgrid: Optional[torch.Tensor] = None
 
 
 def check_supported(config: RenderConfig, channels: int) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
-    what this slice's a5 path does not render yet."""
-    if config.scattering:
-        raise NotImplementedError(
-            "scattered a5 renders are not ported yet: ROADMAP.md item 9 "
-            "(lighting, LUT and scattering: henyey_greenstein, "
-            "light_transmittance_grid, bake_scatter_grid)")
+    what the port's a5 path does not render yet."""
     if channels != 1:
         raise NotImplementedError(
             "multichannel volumes are not ported yet: ROADMAP.md item 10 "
@@ -146,7 +146,7 @@ def prepare_a5(volume, tf, camera, config: RenderConfig,
                early_eps: float, light: Light | None = None) -> A5Args:
     """Prep for one a5 march; all tensors on the volume's device.
     ``light`` defaults to :func:`ops.phong.default_light` where the render
-    is lit."""
+    is lit or scattered."""
     check_supported(config, volume.channels)
     check_uniform_light(light)
     dev = volume.data.device
@@ -159,11 +159,9 @@ def prepare_a5(volume, tf, camera, config: RenderConfig,
         id0.to(_f32).reshape(1),
         torch.tensor(list(config.background[:3]), dtype=_f32, device=dev),
     ])
-    mgrid = sgrid = None
-    if is_lit(config, light):
-        lg = default_light(dev) if light is None else light.to(dev)
-        mgrid, sgrid = bake_light_grids(volume.data, config, lg,
-                                        -camera.front)
+    cal = volume.cal_max.to(device=dev, dtype=_f32)
+    mgrid, sgrid = bake_grids(volume, tf, camera, config, light, cal,
+                              torch.trunc(cal))
     return A5Args(scal=scal, colors=tf.colors.to(_f32).contiguous(), ids=ids,
                   dims=volume.dims, width=config.width, height=config.height,
                   spr=config.samples_per_ray, mgrid=mgrid, sgrid=sgrid)

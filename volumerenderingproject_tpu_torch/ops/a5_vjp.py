@@ -52,9 +52,14 @@ def check_diff_supported(config: RenderConfig, channels: int,
                          num_intervals: int) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for what the
     differentiable a5 march of this slice does not compute (cf.
-    ``a5_diff_config_ok``): it takes unlit, one-channel renders of at most
-    16 intervals."""
+    ``a5_diff_config_ok``): it takes unlit, unscattered, one-channel renders
+    of at most 16 intervals."""
     a5.check_supported(config, channels)
+    if config.scattering:
+        raise NotImplementedError(
+            "scattered a5 fits are not ported yet: ROADMAP.md item 11a (the "
+            "scan route for fits; the JAX package's a5 diff kernels exclude "
+            "scattering, and it fits them through its XLA scan)")
     if config.lighting:
         raise NotImplementedError(
             "lit a5 fits are not ported yet: ROADMAP.md item 11a (the scan "

@@ -2,10 +2,13 @@
 wrapper of its CUDA kernel (``csrc/march.cu``).
 
 Counterpart of ``volumerenderingproject_tpu/ops/pallas_march.py`` in resident
-mode: ortho or conic rays, nearest-voxel sampling, classification by the
+mode, and in its streamed modes too (``render_vrc_pallas_streamed``, for
+volumes beyond the TPU's VMEM): the volume stays in device memory at every
+size.  Ortho or conic rays, nearest-voxel sampling, classification by the
 interval scan or a dense LUT (``config.tf_lut``), baked Blinn-Phong shading
-(``config.lighting``, ortho), ``density_scale``, front-to-back (C, T)
-compositing and early ray termination.
+(``config.lighting``, ortho) and single scattering (``config.scattering``,
+ortho), ``density_scale``, front-to-back (C, T) compositing and early ray
+termination.
 
 The a1 pipeline uses a voxel's intensity only through the transfer function
 (kernel.cu:64-67), so the march reads a per-voxel **colour-id grid** and
@@ -23,6 +26,11 @@ PyTorch):
     (pallas_march.py:1225-1270).  The view direction ``-camera.front`` is
     the same for every ortho ray, so every input of the shading is a
     per-voxel quantity; the bake is rebuilt for every frame;
+  * ``ops/phong.bake_scatter_grid``: with scattering, the per-voxel
+    single-scattered radiance, added to S (M = 1, S = 0 where unlit;
+    pallas_march.py:1685-1692): ortho rays share the direction
+    ``camera.front``, and the a1 material lookup and the transmittance's
+    alpha both normalise by trunc(cal_max);
   * :func:`scal_vector`: camera, screen, box and TF scalars for the kernel.
 
 Every skip the kernel makes is exact: a skipped sample has alpha exactly 0
@@ -46,8 +54,8 @@ import torch
 from ..utils import transforms as T
 from ..utils.config import Algorithm, Interp, RenderConfig
 from . import _build
-from .phong import (Light, bake_light_grids, check_uniform_light,
-                    default_light, is_lit)
+from .phong import (Light, bake_light_grids, bake_scatter_grid,
+                    check_uniform_light, default_light, is_lit)
 
 _f32 = torch.float32
 BRICK = 8
@@ -83,8 +91,9 @@ class MarchArgs(NamedTuple):
     spr: int
     conic: bool
     density_scale: float
-    mgrid: Optional[torch.Tensor] = None  # [X, Y, Z] f32 baked M, lit only
-    sgrid: Optional[torch.Tensor] = None  # [X, Y, Z] f32 baked S, lit only
+    # [X, Y, Z] f32 baked M and S, lit or scattered only
+    mgrid: Optional[torch.Tensor] = None
+    sgrid: Optional[torch.Tensor] = None
     # [N] uint8: the TF interval of each LUT entry (``lut_intervals``); set
     # by the differentiable march, whose ``colors`` are then the TF's [K, 4]
     itv: Optional[torch.Tensor] = None
@@ -179,7 +188,8 @@ def check_supported(config: RenderConfig, channels: int) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
     what the port's a1 path does not render yet: the plain scan computes
     single-channel a1 with nearest-voxel or smooth (``Interp.TRILINEAR``)
-    sampling, lit or not, through the interval scan or a LUT.  (a5 has its
+    sampling, lit or not, scattered or not, through the interval scan or a
+    LUT.  (a5 has its
     own check, ``ops/a5.check_supported``; the fused march adds
     :func:`check_fused_supported`, the smooth march
     ``ops/smooth.check_smooth_supported``.)"""
@@ -187,11 +197,6 @@ def check_supported(config: RenderConfig, channels: int) -> None:
         raise NotImplementedError(
             "Algorithm.POINT is not ported yet: ROADMAP.md item 15 "
             "(point_splat)")
-    if config.scattering:
-        raise NotImplementedError(
-            "scattering is not ported yet: ROADMAP.md item 9 (lighting, LUT "
-            "and scattering: henyey_greenstein, light_transmittance_grid, "
-            "bake_scatter_grid)")
     if config.interp is Interp.TRILINEAR_COLOR:
         raise NotImplementedError(
             "Interp.TRILINEAR_COLOR is not ported yet: ROADMAP.md item 8 "
@@ -203,15 +208,20 @@ def check_supported(config: RenderConfig, channels: int) -> None:
 
 
 def check_fused_supported(config: RenderConfig, light: Light | None) -> None:
-    """What the fused march adds to :func:`check_supported`: lighting only
-    through the bake, which needs ortho rays and a uniform light colour
-    (NotImplementedError, naming the ROADMAP.md item).  (A LUT of more than
-    1024 entries raises in :func:`lut_ids`.)  Smooth mode is not this
-    march's: a ValueError (``ops/smooth`` marches it)."""
+    """What the fused march adds to :func:`check_supported`: lighting and
+    scattering only through the bakes, which need ortho rays and a uniform
+    light colour (NotImplementedError, naming the ROADMAP.md item).  (A LUT
+    of more than 1024 entries raises in :func:`lut_ids`.)  Smooth mode is
+    not this march's: a ValueError (``ops/smooth`` marches it)."""
     if config.interp is Interp.TRILINEAR:
         raise ValueError("the nearest-voxel march does not sample "
                          "Interp.TRILINEAR: ops/smooth marches smooth mode")
-    if not is_lit(config, light):
+    if config.scattering and config.conic:
+        raise NotImplementedError(
+            "conic scattering in the fused march is not ported yet: "
+            "ROADMAP.md item 9 (the per-ray scattering term; the JAX package "
+            "takes its XLA scan there); mode='scan' renders it")
+    if not (is_lit(config, light) or config.scattering):
         return
     if config.conic:
         raise NotImplementedError(
@@ -224,7 +234,8 @@ def check_fused_supported(config: RenderConfig, light: Light | None) -> None:
 def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
             light: Light | None = None) -> MarchArgs:
     """Prep for one march; all tensors on the volume's device.  ``light``
-    defaults to :func:`ops.phong.default_light` where the render is lit."""
+    defaults to :func:`ops.phong.default_light` where the render is lit or
+    scattered."""
     check_supported(config, volume.channels)
     check_fused_supported(config, light)
     dev = volume.data.device
@@ -247,17 +258,42 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
         full = torch.ones_like(full)
     scal = scal_vector(camera, config, volume.dims, volume.octree_depth,
                        cal_max_trunc, early_eps, full, id0)
-    mgrid = sgrid = None
-    if is_lit(config, light):
-        lg = default_light(dev) if light is None else light.to(dev)
-        mgrid, sgrid = bake_light_grids(volume.data, config, lg,
-                                        -camera.front)
+    mgrid, sgrid = bake_grids(volume, tf, camera, config, light,
+                              cal_max_trunc, cal_max_trunc)
     return MarchArgs(
         scal=scal, colors=table.to(_f32).contiguous(), ids=ids, occ=occ,
         nbricks=nb, dims=volume.dims, depth=volume.octree_depth,
         width=config.width, height=config.height,
         spr=config.samples_per_ray, conic=bool(config.conic),
         density_scale=float(config.density_scale), mgrid=mgrid, sgrid=sgrid)
+
+
+def bake_grids(volume, tf, camera, config: RenderConfig,
+               light: Light | None, cal_for_g: torch.Tensor,
+               cal_max_trunc: torch.Tensor):
+    """The baked (M, S) grids of a lit or scattered march, each [X, Y, Z]
+    f32 (``None, None`` for neither): the Blinn-Phong factors viewed along
+    ``-camera.front`` where lit (else M = 1, S = 0), plus the scattered
+    radiance along ``camera.front`` in S where scattered
+    (pallas_march.py:1679-1692, pallas_a5.py:981-994).  ``cal_for_g``
+    normalises the material lookup of the scattering (trunc(cal_max) on a1,
+    the float cal_max on a5)."""
+    lit = is_lit(config, light)
+    if not (lit or config.scattering):
+        return None, None
+    dev = volume.data.device
+    lg = default_light(dev) if light is None else light.to(dev)
+    if lit:
+        mgrid, sgrid = bake_light_grids(volume.data, config, lg,
+                                        -camera.front)
+    else:
+        mgrid = torch.ones(volume.dims, dtype=_f32, device=dev)
+        sgrid = torch.zeros(volume.dims, dtype=_f32, device=dev)
+    if config.scattering:
+        sgrid = sgrid + bake_scatter_grid(volume.data, tf, config, lg,
+                                          camera.front, cal_for_g,
+                                          cal_max_trunc)
+    return mgrid.contiguous(), sgrid.contiguous()
 
 
 def _effective_colors(a: MarchArgs) -> torch.Tensor:

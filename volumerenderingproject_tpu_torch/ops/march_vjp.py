@@ -42,11 +42,23 @@ marches of the baked variant on the bake's tangent grids
 volume, which the march shades with the constants (1, 0).  That is 11
 forward marches per backward.
 
+Single scattering (``config.scattering``, :func:`render_vrc_scatter_diff`)
+rides the S grid too, but S depends on the TF's alpha column through the
+light's transmittance and on ``tf.hg_g`` through the phase.  At fixed
+colours the render is affine in S, so (``_make_scatter_core``,
+pallas_march_vjp.py:1199-1331) the gradient of alpha_k through S is
+<g, C(M, dS/dalpha_k)> - <g, C(M, 0)>, one march of the baked variant per
+interval plus the shared base, each tangent grid a ``torch.func.jvp`` of the
+scatter bake; ``hg_g`` takes K more where it requires grad.  The direct
+part (classify and recurrence at fixed S) is the baked backward march.
+
 The forward runs at ``early_eps = 0`` with ``density_scale`` folded into the
 alpha column (its clip included), so the march runs with density 1 and the
-chain rule through the fold reaches the raw colours.  The colours (and the
-light vector) get a gradient: ids, bricks, the baked grids of a fixed light
-and the scalars are built under ``no_grad``.
+chain rule through the fold reaches the raw colours; the scatter bake then
+runs at density 1 too, as the JAX scatter core's does, or it would apply
+the fold twice.  The colours (and the light vector) get a gradient: ids,
+bricks, the baked grids of a fixed light and the scalars are built under
+``no_grad``.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from ..utils.config import Algorithm, Interp, RenderConfig
 from ..utils.device import resolve_device
 from . import _build, conv3d, march, phong
 from .march import MAX_LUT, S_BG, SCAL_LEN, MarchArgs
+from .phong import clip01
 
 _f32 = torch.float32
 MAX_INTERVALS = 16  # the JAX kernel's limit (pallas_march_vjp.py:1538)
@@ -71,13 +84,6 @@ BLOCK = 16  # pixels per edge of the kernel's blocks; one partial per block
 # in all and by variant (``march.variant``: plain, lut, baked, lut_baked)
 launches = 0
 variant_launches = {"plain": 0, "lut": 0, "baked": 0, "lut_baked": 0}
-
-
-def clip01(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.clip(x, 0, 1)`` with its gradient: at a bound each side of the
-    tie takes half (``torch.clamp`` would pass all of it)."""
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, zero), zero + 1.0)
 
 
 def check_diff_supported(config: RenderConfig, channels: int,
@@ -129,6 +135,11 @@ def check_light_fit_supported(config: RenderConfig, channels: int,
             "a light fit through a LUT is not computed by the fused marches "
             "(the JAX package raises too, pallas_march_vjp.py:1661-1664): "
             "ROADMAP.md item 11a (the scan route for fits)")
+    if config.scattering:
+        raise NotImplementedError(
+            "light fits of scattered renders are not ported yet: ROADMAP.md "
+            "item 11a (the scan route for fits; the JAX package fits a traced "
+            "light of a scattered render through its XLA scan)")
     c = light.color.reshape(-1)
     if not bool((c == c[0]).all()):
         raise NotImplementedError(
@@ -137,11 +148,44 @@ def check_light_fit_supported(config: RenderConfig, channels: int,
             "shades with one colour)")
 
 
+def check_scatter_fit_supported(config: RenderConfig, channels: int,
+                                num_intervals: int, light=None) -> None:
+    """What a fit of a scattered render adds to :func:`check_diff_supported`
+    (cf. ``diff_pallas_scatter_eligible``, pallas_march_vjp.py:1333-1366):
+    an a1 nearest-voxel render with ortho rays, no LUT and a static light
+    of a uniform colour (the default one where ``light`` is None); the rest
+    raises NotImplementedError naming its ROADMAP.md item."""
+    if config.algorithm is not Algorithm.VRC or (
+            config.interp is Interp.TRILINEAR):
+        raise NotImplementedError(
+            "scattered fits of a5 or smooth renders are not ported yet: "
+            "ROADMAP.md item 11a (the scan route for fits; the JAX package's "
+            "a5 and smooth diff kernels exclude scattering, and it fits them "
+            "through its XLA scan)")
+    check_diff_supported(config, channels, num_intervals)
+    what = None
+    if config.conic:
+        what = "conic scattered fits"
+    elif config.tf_lut:
+        what = "scattered fits through a LUT"
+    elif light is not None and any(t.requires_grad for t in light.fields()):
+        what = "light fits of scattered renders"
+    elif light is not None and not bool(
+            (light.color.reshape(-1) == light.color.reshape(-1)[0]).all()):
+        what = "scattered fits under a non-uniform light colour"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} are not ported yet: ROADMAP.md item 11a (the scan route "
+            "for fits; the JAX package fits them through its XLA scan)")
+
+
 def diff_eligible(volume, tf: TransferFunction, config: RenderConfig) -> bool:
     """True when :func:`render_vrc_diff` computes this render
     (cf. ``diff_pallas_eligible``): a1 classify by intervals or a LUT, lit
     (ortho) or not, one channel, nearest-voxel sampling, at most 16
-    intervals."""
+    intervals; scattered renders as :func:`diff_scatter_eligible` says."""
+    if config.scattering:
+        return diff_scatter_eligible(volume, tf, config)
     try:
         check_diff_supported(config, volume.channels, tf.num_intervals)
     except NotImplementedError:
@@ -158,6 +202,20 @@ def diff_light_eligible(volume, tf: TransferFunction, config: RenderConfig,
     try:
         check_light_fit_supported(config, volume.channels, tf.num_intervals,
                                   light)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def diff_scatter_eligible(volume, tf: TransferFunction,
+                          config: RenderConfig, light=None) -> bool:
+    """True when :func:`render_vrc_scatter_diff` fits this scattered render
+    (cf. ``diff_pallas_scatter_eligible``)."""
+    if not config.scattering:
+        return False
+    try:
+        check_scatter_fit_supported(config, volume.channels,
+                                    tf.num_intervals, light)
     except NotImplementedError:
         return False
     return True
@@ -441,6 +499,112 @@ class _LitMarchFn(torch.autograd.Function):
         return dcolors, dlight, None, None, None
 
 
+def _tangents(fn, primal: torch.Tensor, units) -> torch.Tensor:
+    """``torch.func.jvp`` of ``fn`` at ``primal`` along each one-hot
+    tangent (an index of ``primal`` per entry of ``units``), all at once
+    under ``vmap`` -> [len(units), *fn's shape]."""
+    basis = torch.zeros((len(units),) + tuple(primal.shape), dtype=_f32,
+                        device=primal.device)
+    for i, u in enumerate(units):
+        basis[(i,) + tuple(u)] = 1.0
+
+    def tangent(e):
+        return torch.func.jvp(fn, (primal,), (e,))[1]
+
+    with torch.no_grad():
+        return torch.func.vmap(tangent)(basis)
+
+
+class _ScatterMarchFn(torch.autograd.Function):
+    """(colors [K, 4], hg_g [K']) -> image [W, H, 4]: the S grid of
+    ``s_of(colors, hg_g)`` (the light's S plus the scatter bake), then the
+    baked forward march at eps 0; the backward march at that S gives the
+    direct dL/dcolors, and tangent marches the alpha column's (and
+    ``hg_g``'s) part through S."""
+
+    @staticmethod
+    def forward(ctx, colors: torch.Tensor, hg: torch.Tensor, a: MarchArgs,
+                s_of) -> torch.Tensor:
+        colors = colors.detach().to(_f32).contiguous()
+        hg = hg.detach().to(_f32)
+        with torch.no_grad():
+            sgrid = s_of(colors, hg).contiguous()
+        a = a._replace(colors=colors, sgrid=sgrid)
+        ctx.args, ctx.s_of, ctx.hg = a, s_of, hg
+        return _forward(a)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, s_of, hg = ctx.args, ctx.s_of, ctx.hg
+        g_rgb, g_t = _cotangents(a, g)
+        k = a.colors.shape[0]
+        need_c, need_hg = ctx.needs_input_grad[:2]
+        scal = a.scal.clone()
+        scal[S_BG:S_BG + 3] = 0.0  # out = C
+        t = a._replace(scal=scal)
+
+        def dot(sg):
+            return (g_rgb * _forward(t._replace(sgrid=sg))[..., :3]).sum()
+
+        base = dot(torch.zeros_like(a.sgrid))  # the shared S -> 0 march
+        dcolors = dhg = None
+        if need_c:
+            dcolors = _backward(a, g_rgb, g_t)
+            ds = _tangents(lambda c: s_of(c, hg), a.colors,
+                           [(p, 3) for p in range(k)])
+            dcolors[:, 3] += torch.stack([dot(ds[p].contiguous()) - base
+                                          for p in range(k)])
+        if need_hg:
+            ds = _tangents(lambda h: s_of(a.colors, h), hg,
+                           [(p,) for p in range(k)])
+            dhg = torch.zeros_like(hg)
+            dhg[:k] = torch.stack([dot(ds[p].contiguous()) - base
+                                   for p in range(k)])
+        return dcolors, dhg, None, None
+
+
+def render_vrc_scatter_diff(volume, tf: TransferFunction, camera,
+                            config: RenderConfig, *, device=None,
+                            light: phong.Light | None = None
+                            ) -> torch.Tensor:
+    """a1/VRC render with single scattering -> [W, H, 4] (alpha 1),
+    differentiable with respect to ``tf.colors`` and ``tf.hg_g`` through
+    the baked forward march (K1) and backward march (K4) plus 1 + K
+    tangent marches of K1 baked (K more for ``hg_g``) on ``device`` (CUDA
+    unless given); CPU tensors take their plain versions
+    (cf. ``render_vrc_pallas_diff_scatter``).  ``light`` is static: the
+    default light unless given.  Equal in value to ``render(...)`` at
+    ``early_termination=0``."""
+    dev = resolve_device(device)
+    volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)
+    check_scatter_fit_supported(config, volume.channels, tf.num_intervals,
+                                light)
+    light = phong.default_light(dev) if light is None else light.to(dev)
+    args, colors = prepare_diff(volume, tf, camera,
+                                config.replace(scattering=False), bake=False)
+    with torch.no_grad():
+        if config.lighting:
+            mgrid, s_light = phong.bake_light_grids(volume.data, config, light,
+                                                    -camera.front)
+        else:
+            mgrid = torch.ones(volume.dims, dtype=_f32, device=dev)
+            s_light = torch.zeros(volume.dims, dtype=_f32, device=dev)
+        cal_trunc = torch.trunc(volume.cal_max.to(_f32))
+    # the colours carry the density fold already: the bake runs at 1
+    bake_cfg = config.replace(density_scale=1.0)
+    lower, upper = tf.lower.detach(), tf.upper.detach()
+    sweep = phong.sweep_axis(light.direction)
+
+    def s_of(c, hg):
+        tf2 = TransferFunction(lower, upper, c, hg)
+        return s_light + phong.bake_scatter_grid(
+            volume.data, tf2, bake_cfg, light, camera.front, cal_trunc,
+            cal_trunc, sweep)
+
+    return _ScatterMarchFn.apply(colors, tf.hg_g, args._replace(
+        mgrid=mgrid.contiguous()), s_of)
+
+
 def render_vrc_diff(volume, tf: TransferFunction, camera,
                     config: RenderConfig, *, device=None,
                     light: phong.Light | None = None) -> torch.Tensor:
@@ -453,7 +617,11 @@ def render_vrc_diff(volume, tf: TransferFunction, camera,
     (:func:`check_light_fit_supported`).  Equal in value to
     ``render(..., mode="scan")``; the gradient equals autograd through that
     scan except where a sample's alpha is exactly 1 (see the module
-    docstring)."""
+    docstring).  Scattered configs differentiate through
+    :func:`render_vrc_scatter_diff`, with ``light`` static."""
+    if config.scattering:
+        return render_vrc_scatter_diff(volume, tf, camera, config,
+                                       device=device, light=light)
     dev = resolve_device(device)
     volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)
     if light is None:

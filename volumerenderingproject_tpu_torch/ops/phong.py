@@ -1,12 +1,21 @@
-"""Blinn-Phong gradient shading against a directional light.
+"""Blinn-Phong gradient shading against a directional light, and single
+scattering.
 
-Counterpart of ``volumerenderingproject_tpu/ops/phong.py:30-91, 394-430``:
-the normal is the normalised density gradient (``ops/conv3d``); ambient,
+Counterpart of ``volumerenderingproject_tpu/ops/phong.py:30-430``: the
+normal is the normalised density gradient (``ops/conv3d``); ambient,
 diffuse (|n.l|) and specular (|n.h|^shininess, h the half vector) terms
 shade the classified colour; where the gradient is shorter than
 :data:`GRAD_THRESHOLD` the shading fades to the unshaded colour.  The fused
 marches take the same shading as per-voxel factor grids (M, S),
 :func:`bake_light_grids`, with ``rgb * M + S`` in the kernel.
+
+Single scattering (``config.scattering``) adds ``strength * HG(cos t; g) *
+T_light * light.color`` to a sample's colour: the Henyey-Greenstein phase
+(:func:`henyey_greenstein`) of the sample's material g and the angle
+between the ray and the light, and the transmittance toward the light
+(:func:`light_transmittance_grid`, a sheared plane sweep).  For a view
+direction shared by every ray the whole term is a per-voxel quantity, which
+:func:`bake_scatter_grid` folds into the S grid.
 
 Vector lengths and dot products over the last axis of size 3 are summed
 as ((x0 y0 + x1 y1) + x2 y2), the JAX package's order on the CPU.
@@ -15,8 +24,10 @@ as ((x0 y0 + x1 y1) + x2 y2), the JAX package's order on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..utils.config import RenderConfig
@@ -91,6 +102,13 @@ def norm3(a: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return torch.sqrt(dot3(a, a, keepdim).double()).to(_f32)
 
 
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)`` with its gradient: at a bound each side of the
+    tie takes half (``torch.clamp`` would pass all of it)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, zero), zero + 1.0)
+
+
 def safe_pow(base: torch.Tensor, exponent) -> torch.Tensor:
     """``base ** exponent`` for base >= 0, 0 where base == 0, the base
     clamped to 1e-6 inside the power (a NaN-free derivative in the
@@ -129,13 +147,15 @@ def phong_shade(rgb: torch.Tensor, normal: torch.Tensor,
 
 
 def is_lit(config: RenderConfig, light: Light | None) -> bool:
-    """Does this render shade (``config.lighting``, or an explicit light,
-    as the JAX scan decides; raycast.py:427)?"""
-    return bool(config.lighting) or light is not None
+    """Does this render shade (``config.lighting``, or an explicit light
+    that does not only light the scattering, as the JAX scan decides;
+    raycast.py:427)?"""
+    return bool(config.lighting) or (light is not None
+                                     and not config.scattering)
 
 
 def check_uniform_light(light: Light | None) -> None:
-    """The bake folds one light colour into M and S: an explicit light of
+    """The bakes fold one light colour into M and S: an explicit light of
     another colour per channel raises, naming its ROADMAP.md item."""
     if light is not None:
         c = light.color.reshape(-1)
@@ -220,3 +240,137 @@ def bake_tangents(data: torch.Tensor, config: RenderConfig,
     with torch.no_grad():
         dm, ds = torch.func.vmap(tangent)(basis)
     return dm.contiguous(), ds.contiguous()
+
+
+def random_directions(generator: torch.Generator, n: int,
+                      device=None) -> torch.Tensor:
+    """``n`` uniformly distributed unit vectors [n, 3] (phong.py:92-101):
+    normalised Gaussian samples drawn from ``generator``.  The numbers are
+    not the JAX package's, whose generator differs."""
+    dev = resolve_device(device)
+    v = torch.randn((n, 3), generator=generator, dtype=_f32,
+                    device=generator.device).to(dev)
+    return v / norm3(v, keepdim=True)
+
+
+def henyey_greenstein(cos_theta: torch.Tensor, g: torch.Tensor
+                      ) -> torch.Tensor:
+    """The Henyey-Greenstein phase p(cos t; g) = (1 - g^2) / (4 pi (1 + g^2
+    - 2 g cos t)^1.5), the denominator's base clamped at 1e-8
+    (phong.py:103-112); g = 0 is the isotropic 1 / (4 pi)."""
+    g = torch.as_tensor(g, dtype=_f32)
+    cos_theta = torch.as_tensor(cos_theta, dtype=_f32, device=g.device)
+    denom = (1.0 + g * g) - (2.0 * g) * cos_theta
+    four_pi = torch.tensor(np.float32(4.0 * math.pi), device=g.device)
+    return (1.0 - g * g) / (four_pi * denom.clamp_min(1e-8) ** 1.5)
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """``v / max(|v|, 1e-8)`` for a [3] vector."""
+    return v / norm3(v).clamp_min(1e-8)
+
+
+# the sweep's transposes: the light's dominant axis first (phong.py:384)
+_SWEEP_PERMS = ((0, 1, 2), (1, 0, 2), (2, 0, 1))
+
+
+def sweep_axis(light_dir: torch.Tensor) -> Tuple[int, float]:
+    """(axis, sign) of :func:`light_transmittance_grid`'s sweep: the light's
+    dominant axis (|u| largest, the first on a tie) and the sign of u
+    there, read on the host."""
+    un = _unit(light_dir.detach().to(_f32)).cpu().numpy()
+    axis = int(np.argmax(np.abs(un)))
+    return axis, (-1.0 if un[axis] < 0 else 1.0)
+
+
+def light_transmittance_grid(alpha: torch.Tensor, light_dir: torch.Tensor,
+                             sweep: Tuple[int, float] | None = None
+                             ) -> torch.Tensor:
+    """Per-voxel transmittance toward a directional light, [X, Y, Z] f32:
+    ``T(v) = prod (1 - alpha)^dl`` along the segment from voxel v to the
+    volume's boundary in the direction ``light_dir`` (toward the light).
+
+    The JAX package's sheared plane sweep (phong.py:296-393), with its
+    per-plane operations in its order: along the light's dominant axis
+    (|u| largest, the first on a tie) each plane's transmittance is the
+    previous plane's running product resampled bilinearly at the constant
+    shear offset u_perp / |u_axis| (1 beyond the volume), and the running
+    product takes the plane's attenuation ``max(1 - alpha, 1e-9)^dl``, dl =
+    1 / |u_axis|.  The (axis, sign) variant is chosen on the host
+    (:func:`sweep_axis`; pass it as ``sweep`` under ``torch.func``
+    transforms, which cannot read a tensor on the host); the result is
+    differentiable in ``alpha`` and ``light_dir``."""
+    dev = alpha.device
+    u = _unit(light_dir.to(_f32))
+    axis, sign = sweep_axis(light_dir) if sweep is None else sweep
+    perm = _SWEEP_PERMS[axis]
+    a = alpha.permute(perm)  # [A, B, C], swept over A
+    inv = 1.0 / u[perm[0]].abs().clamp_min(1e-6)
+    db = u[perm[1]] * inv
+    dc = u[perm[2]] * inv
+    na, nb, nc = a.shape
+    att = torch.pow(torch.maximum(
+        1.0 - a, torch.tensor(1e-9, dtype=_f32, device=dev)), inv)
+
+    def offsets(d, n):
+        x = d + torch.arange(n, dtype=_f32, device=dev)
+        i = torch.floor(x)
+        return i.detach().to(torch.int64), x - i
+
+    ib, fb = offsets(db, nb)
+    ic, fc = offsets(dc, nc)
+    # the four bilinear taps read one gather of the running product padded
+    # with ones (JAX's out-of-bounds value): |shear| <= 1 voxel, so the taps
+    # of plane row j lie in rows j-1 .. j+2 (clamped into the padding)
+    rows = torch.stack([ib, ib, ib + 1, ib + 1]).add(1).clamp(0, nb + 2)
+    cols = torch.stack([ic, ic + 1, ic, ic + 1]).add(1).clamp(0, nc + 2)
+    taps = rows[:, :, None] * (nc + 3) + cols[:, None, :]  # [4, B, C]
+    weights = torch.stack([(1 - fb)[:, None] * (1 - fc)[None, :],
+                           (1 - fb)[:, None] * fc[None, :],
+                           fb[:, None] * (1 - fc)[None, :],
+                           fb[:, None] * fc[None, :]])
+
+    def resample(g):
+        w = weights * torch.nn.functional.pad(
+            g, (1, 2, 1, 2), value=1.0).reshape(-1)[taps]
+        return ((w[0] + w[1]) + w[2]) + w[3]
+
+    g = torch.ones((nb, nc), dtype=_f32, device=dev)
+    planes = []
+    for k in range(na):
+        idx = na - 1 - k if sign > 0 else k
+        t_k = resample(g)
+        g = t_k * att[idx]
+        planes.append(t_k)
+    t = torch.stack(planes[::-1] if sign > 0 else planes)
+    return t.permute(tuple(int(i) for i in np.argsort(perm)))
+
+
+def bake_scatter_grid(data: torch.Tensor, tf, config: RenderConfig,
+                      light: Light, ray_dir: torch.Tensor,
+                      cal_for_g: torch.Tensor, cal_max_trunc: torch.Tensor,
+                      sweep: Tuple[int, float] | None = None
+                      ) -> torch.Tensor:
+    """Per-voxel single-scattering radiance [X, Y, Z] f32, ``strength *
+    HG(cos t; g_voxel) * T_light(voxel) * light.color[0]``
+    (pallas_march.py:1273-1312): with one ray direction for every ray
+    (``ray_dir``: ortho a1 and every a5 march), the whole scattering add
+    is a per-voxel quantity and folds into the S grid of ``rgb * M + S``.
+    ``cal_for_g`` normalises the voxel for its material (g) lookup,
+    trunc(cal_max) on a1 and the float cal_max on a5 (PARITY C4); the
+    transmittance's alpha always takes ``cal_max_trunc``.  Its alpha is
+    ``clip(alpha * config.density_scale, 0, 1)`` with ``jnp.clip``'s
+    tangent at the bounds, so a fit differentiates it as the JAX package
+    does.  Needs a uniform light colour.  ``sweep`` as in
+    :func:`light_transmittance_grid`."""
+    v = data.clamp_min(0.0)
+    gk = tf.hg_g[tf.classify_index(v / cal_for_g)]
+    alpha = tf.classify(v / cal_max_trunc)[..., 3]
+    alpha = clip01(alpha * torch.tensor(config.density_scale, dtype=_f32,
+                                        device=data.device))
+    tgrid = light_transmittance_grid(alpha, light.direction, sweep)
+    cos_t = dot3(_unit(ray_dir.to(_f32)), _unit(light.direction))
+    ph = henyey_greenstein(cos_t, gk)
+    strength = torch.tensor(config.scattering_strength, dtype=_f32,
+                            device=data.device)
+    return ((strength * ph) * tgrid) * light.color[0]

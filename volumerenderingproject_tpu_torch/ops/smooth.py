@@ -73,7 +73,7 @@ def check_smooth_supported(config: RenderConfig, num_intervals: int,
     """Raise NotImplementedError, naming the ROADMAP.md item, for a smooth
     render the fused march does not compute (the exclusions of
     ``smooth_pallas_eligible``, pallas_smooth.py:706-721); ``mode="scan"``
-    renders each of them.  Scattering, multichannel volumes and
+    renders each of them.  Multichannel volumes and
     ``Interp.TRILINEAR_COLOR`` raise earlier, in ``march.check_supported``;
     a config that is not smooth is a ValueError."""
     if config.interp is not Interp.TRILINEAR:
@@ -81,6 +81,8 @@ def check_smooth_supported(config: RenderConfig, num_intervals: int,
     what = None
     if is_lit(config, light):
         what = "lighting"
+    elif config.scattering:
+        what = "scattering"
     elif config.tf_lut:
         what = "tf_lut"
     elif config.density_scale != 1.0:
