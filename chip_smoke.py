@@ -186,6 +186,38 @@ seeds:
      its largest component; a central difference along the gradient within
      TOL_FD.
 
+4-D multichannel volumes (K1's and K4's channel-grid variants) and K1's
+in-kernel lighting (conic rays, any light colour), with their own seeds:
+
+  3m. K1 mc against ``march_plain``, bit-exact at eps 0, at bench.py's
+     ``multichannel_304`` shapes (304x304 pixels, 300 samples) on its
+     3-channel 91^3 volume (bench.py:244-250), a seeded 3-channel volume
+     at MNI-dims (182x218x182x3 f32) and seeded 2- and 4-channel volumes
+     at cal_max 200.9: ortho, conic and density_scale 1.7; eps 1e-3 within
+     TOL_EPS of the exact render; K1 mc's time, the plain version's, the
+     prep's, the bound and the peak memory;
+  3n. K4 mc against ``march_bwd_plain`` on the same volumes: the rgb
+     columns exactly 0, the alpha column within TOL_GRAD of max |dplain|;
+     its time, the plain version's and the bound;
+  3o. K1's in-kernel lighting (``lit``, and ``lut_lit`` with a LUT)
+     against ``march_plain``, bit-exact at eps 0: on edge inputs (dense
+     voxels on every face, a conic camera inside the volume, LUT 96, the
+     light colour (1.0, 0.8, 0.6)), then conic at 700x700x500 (central
+     filter, presmooth 0) on both volumes with the interval TF and
+     ``tf_lut=256``, and ortho under the colour (1.0, 0.8, 0.6); times,
+     bounds, peak memory;
+  4g. 8 orbit frames after a warm-up through ``render()``:
+     ``multichannel_304`` on both 3-channel volumes, conic lit a1 at
+     700x700x500 (eps 1e-3) on both volumes, interval TF and LUT 256;
+     launches by variant, ms/frame, rays/s, peak memory;
+  5i. the CLI ``render`` and ``fit`` on a 4-D .nii written with numpy, and
+     ``render --conic --lighting``, started with the other CLI chains;
+  6f. a small 4-D render and a small conic lit render against the
+     back-to-front reference scan;
+  7l. phase 7 on the 4-D alpha-column fit at ``multichannel_304`` on both
+     3-channel volumes (the start scales the alphas of intervals 1..3 by
+     MC_FIT_ALPHA_SCALE): 1 K1 mc and 1 K4 mc a step, no other variant.
+
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
 of 3 windows.
@@ -229,6 +261,12 @@ FIT_LR = 1e-2
 # 500 samples per ray (as in the JAX package); a step this small stays in
 # the region where each update is a descent step
 FIT_DESCENT_LR = 3e-6
+# the 4-D alpha-column fit trains alphas only (rgb is the data's): its
+# start scales the alphas of intervals 1..3 by this, so that the loss comes
+# from the intervals the channel mean reaches (bone on both 3-channel
+# volumes, brain on the MNI-dims one; muscle holds no voxel or 10); at 0.6
+# the loss starts ~25x lower and TF(0).alpha's overshoot outweighs it
+MC_FIT_ALPHA_SCALE = 0.2
 CONIC_PIXEL_SHARE = 0.999  # conic: share of pixels within TOL_EXACT
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): float32 outside the tensor
 # cores and HBM3 bandwidth
@@ -344,6 +382,22 @@ LARGE_ROWS = {"streamed": {}, "streamed_lit": dict(lighting=True),
 # single scattering: test_scatter_fused_hg_g's materials and strength 1.5
 SCATTER_HG = (0.0, 0.7, -0.3, 0.5)
 SCATTER_STRENGTH = 1.5
+# 4-D multichannel volumes: bench.py's multichannel_304 row (bench.py:
+# 244-257), K1 and K4 mc; a sample inside the volume reads its 1 or 3
+# channel values (4 bytes each) beside the id, no float operation more
+MC_SHAPE = dict(width=304, height=304, samples_per_ray=300)
+# conic lit a1 renders through K1's in-kernel lighting (central differences,
+# presmooth 0) at the a1 main path's shapes
+CONIC_LIT = dict(width=W, height=H, samples_per_ray=SPR, lighting=True,
+                 conic=True)
+# float operations the in-kernel shade adds to a sample inside the volume,
+# each counted once: three central differences 6, |n| 6, 1 / max 2, the unit
+# normal 3, |n.l| 6, |n.h| 7, the specular power and product 2, w 3, the
+# diffuse product 1, and per channel a c, (d c) l, + s l, w (..) + (1 - w) c
+# 9 (1 - w once: 1); it reads the six neighbours (4 bytes each, at most the
+# volume).  Per ray the half vector and 1 / max(|h|, 1e-8): 11
+FLOPS_PER_LIT_SAMPLE = 64
+FLOPS_PER_LIT_RAY = 11
 # timed windows per measurement; the median is reported
 TIMING_WINDOWS = 3
 # GPU cycles spun before a kernel's timed window (~50 ms at 1.98 GHz), so
@@ -390,9 +444,10 @@ def mni_like_volume(seed: int = 0) -> np.ndarray:
 
 
 def timed_ms(fn, reps: int, prefill: bool = False,
-             label: str | None = None) -> float:
+             label: str | None = None, windows: int = TIMING_WINDOWS
+             ) -> float:
     """ms per call of ``fn``: CUDA events around ``reps`` calls, the median
-    of TIMING_WINDOWS such windows, with the garbage collector off.  With
+    of ``windows`` such windows, with the garbage collector off.  With
     ``prefill`` (for kernels) the GPU spins first, so a host pause while the
     launches are queued does not show as device time; a plain version,
     whose time is its launches, is timed without it."""
@@ -402,10 +457,10 @@ def timed_ms(fn, reps: int, prefill: bool = False,
 
     fn()
     torch.cuda.synchronize()
-    windows = []
+    times = []
     gc.disable()
     try:
-        for _ in range(TIMING_WINDOWS):
+        for _ in range(windows):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             if prefill:
@@ -415,12 +470,12 @@ def timed_ms(fn, reps: int, prefill: bool = False,
                 fn()
             end.record()
             torch.cuda.synchronize()
-            windows.append(start.elapsed_time(end) / reps)
+            times.append(start.elapsed_time(end) / reps)
     finally:
         gc.enable()
     if label:
-        log(f"{label}: windows {[round(w, 5) for w in windows]} ms")
-    return sorted(windows)[len(windows) // 2]
+        log(f"{label}: windows {[round(w, 5) for w in times]} ms")
+    return sorted(times)[len(times) // 2]
 
 
 def orbit_cameras(P, rng, frames: int = FRAMES, radius: float = 1.5):
@@ -580,10 +635,13 @@ class FitRoute:
         return self.fwd_mod.launches, self.bwd_mod.launches
 
 
-def fit_phase(P, fit, route, vname, vol, rng, cfg, fit_bounds=False):
-    """Phase 7 (a1), 7b (a5) or 7c (the smooth bound fit, ``fit_bounds``:
-    the bounds start moved by the JAX test's offsets and are fitted too) on
-    one volume -> its numbers."""
+def fit_phase(P, fit, route, vname, vol, rng, cfg, fit_bounds=False,
+              alpha_only=False):
+    """Phase 7 (a1), 7b (a5), 7c (the smooth bound fit, ``fit_bounds``:
+    the bounds start moved by the JAX test's offsets and are fitted too) or
+    7l (a 4-D volume, ``alpha_only``: rgb is the data's, so the start
+    scales the alphas of intervals 1..3 by MC_FIT_ALPHA_SCALE instead of
+    moving their colours) on one volume -> its numbers."""
     import torch
 
     kf, kb = route.label
@@ -591,8 +649,12 @@ def fit_phase(P, fit, route, vname, vol, rng, cfg, fit_bounds=False):
     cam = orbit_cameras(P, rng, 1)[0]
     target = P.render(vol, tf, cam, cfg)
     colors = tf.colors.clone()
-    colors[1:, :3] += torch.tensor(
-        rng.uniform(-0.2, 0.2, (3, 3)).astype(np.float32), device=colors.device)
+    if alpha_only:
+        colors[1:, 3] *= MC_FIT_ALPHA_SCALE
+    else:
+        colors[1:, :3] += torch.tensor(
+            rng.uniform(-0.2, 0.2, (3, 3)).astype(np.float32),
+            device=colors.device)
     lower, upper = tf.lower, tf.upper
     if fit_bounds:
         lower, upper = bounds_moved(tf)
@@ -2706,6 +2768,391 @@ def scatter_cli_phase(tmp: str, from_text) -> None:
           "cli fit --scattering wrote a bad transfer function")
 
 
+# ---- the multichannel and in-kernel lighting slice ------------------------
+
+def mc_volumes(P) -> dict:
+    """The 3-channel volumes of bench.py's multichannel_304 row: its 91^3
+    synthetic (bench.py:244-250) and a seeded one at MNI-dims (182x218x182x3
+    f32, 87 MB: the MNI-like shells, channel 1 and 2 at 0.8 and 0.6 of them
+    plus seeded noise)."""
+    xs = np.linspace(-1, 1, 91, dtype=np.float32)
+    r2 = (xs[:, None, None] ** 2 + xs[None, :, None] ** 2
+          + xs[None, None, :] ** 2)
+    base = np.where(r2 < 0.8, 40.0 + 80.0 * (1.0 - r2), 0.0)
+    bench3 = np.stack([base, base * 0.7, base * 0.4], -1).astype(np.float32)
+    rng = np.random.default_rng(40)
+    mni = mni_like_volume(0)
+    noise = rng.normal(0.0, 4.0, mni.shape + (2,)).astype(np.float32)
+    mni3 = np.stack([mni, mni * np.float32(0.8) + noise[..., 0],
+                     mni * np.float32(0.6) + noise[..., 1]], -1)
+    return {"bench3_91": P.make_volume(bench3),
+            "mni3_182x218x182": P.make_volume(mni3)}
+
+
+def mc_seeded_volumes(P) -> dict:
+    """Seeded 2- and 4-channel volumes with negatives, at cal_max 200.9 (the
+    channels take the float cal_max, the ids the mean's intervals)."""
+    rng = np.random.default_rng(41)
+    return {f"c{c}_64x72x56": P.make_volume(
+        rng.uniform(-20, 255, (64, 72, 56, c)).astype(np.float32),
+        cal_max=200.9) for c in (2, 4)}
+
+
+def mc_kernel_phases(P, march, march_vjp, mc_vols, seeded, tf, rng,
+                     res) -> dict:
+    """Phases 3m (K1 mc against march_plain, bit-exact at eps 0, ortho,
+    conic and density_scale 1.7; eps 1e-3 within TOL_EPS of the exact
+    render) and 3n (K4 mc against march_bwd_plain: the rgb columns exactly
+    0, the alpha column within TOL_GRAD of max |dplain|) on the 3-channel
+    volumes and the seeded 2- and 4-channel ones, at 304x304x300 -> the
+    max errors; times, bounds and peak memory of the 3-channel volumes go
+    into ``res``."""
+    import torch
+
+    errs = {"k1": 0.0, "k4_abs": 0.0, "k4_rel": 0.0}
+    cfg = P.RenderConfig(**MC_SHAPE)
+    rays = cfg.width * cfg.height
+    for vname, vol in {**mc_vols, **seeded}.items():
+        cam = orbit_cameras(P, rng, 1)[0]
+        for name, c in (("ortho", cfg), ("conic", cfg.replace(conic=True)),
+                        ("density_1.7", cfg.replace(density_scale=1.7))):
+            label = f"mc {vname}/{name}"
+            a = march.prepare(vol, tf, cam, c, 0.0)
+            check(march.variant(a) == "mc", f"{label}: {march.variant(a)}")
+            _, exact, e = exact_vs_plain(march.march_kernel, march.march_plain,
+                                         f"{label} eps0", a)
+            errs["k1"] = max(errs["k1"], e)
+            got = march.march_kernel(march.prepare(vol, tf, cam, c, 1e-3))
+            e2 = float((got - exact).abs().max())
+            log(f"{label}: kernel at eps 1e-3 vs exact plain max err "
+                f"{e2:.3e} (tol {TOL_EPS:g})")
+            check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
+        # 3n: K4 mc
+        a, _ = march_vjp.prepare_diff(vol, tf, cam, cfg)
+        g = cotangents(a, rng)
+        got = march_vjp.march_bwd_kernel(a, *g)
+        want = march_vjp.march_bwd_plain(a, *g)
+        torch.cuda.synchronize()
+        check(march.variant(a) == "mc"
+              and not bool(got[:, :3].any()) and not bool(want[:, :3].any()),
+              f"mc {vname}: the rgb columns of dcolors are not 0")
+        e_abs, e_rel = bwd_vs_plain(march_vjp.march_bwd_kernel,
+                                    march_vjp.march_bwd_plain,
+                                    f"K4 mc {vname}", a, g)
+        errs["k4_abs"] = max(errs["k4_abs"], e_abs)
+        errs["k4_rel"] = max(errs["k4_rel"], e_rel)
+        if vname not in mc_vols:
+            continue
+        # times, bounds and memory at the render path's inputs (eps 1e-3)
+        main_cfg = cfg.replace(early_termination=1e-3)
+        cams = orbit_cameras(P, rng)
+        m0 = mem_reset()
+        args = [march.prepare(vol, tf, c, main_cfg, 1e-3) for c in cams[:1]]
+        march.march_kernel(args[0])
+        peak, own = peak_mb(m0)
+        args += [march.prepare(vol, tf, c, main_cfg, 1e-3) for c in cams[1:]]
+
+        def orbit_kernels():
+            for x in args:
+                march.march_kernel(x)
+
+        ms = timed_ms(orbit_kernels, 5, prefill=True,
+                      label=f"mc {vname}: K1 mc x{FRAMES}") / FRAMES
+        prep_ms = timed_ms(lambda: march.prepare(vol, tf, cams[0], main_cfg,
+                                                 1e-3), 3)
+        samples = samples_needed(march.march_plain, args)
+        plain_ms = timed_ms(lambda: march.march_plain(args[0]), 1, windows=1)
+        grids = args[0].chans
+        nbytes = bound_bytes(args[0], rays, samples) + read_bytes(
+            grids.numel() * 4, samples * grids.shape[0] * 4)
+        bound_ms, bound_by, ops_ms, bytes_ms = bound(
+            samples * FLOPS_PER_SAMPLE, nbytes)
+        # K4 mc at eps 0: every sample of every ray
+        bwd_ms = timed_ms(lambda: march_vjp.march_bwd_kernel(a, *g), 5,
+                          prefill=True, label=f"mc {vname}: K4 mc")
+        bwd_plain_ms = timed_ms(lambda: march_vjp.march_bwd_plain(a, *g), 1,
+                                windows=1)
+        k = a.colors.shape[0]
+        total = rays * cfg.samples_per_ray
+        inside = samples_needed(march.march_plain, [a])
+        bwd_bytes = (read_bytes(math.prod(vol.dims), inside)
+                     + read_bytes(grids.numel() * 4,
+                                  inside * grids.shape[0] * 4)
+                     + rays * 16 + k * 16
+                     + march_vjp.num_blocks(cfg.width, cfg.height) * k * 16)
+        bwd_ops = (inside * FLOPS_PER_BWD_SAMPLE
+                   + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                   + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
+                             + FLOPS_PER_BWD_RAY))
+        bwd_bound, bwd_by, _, _ = bound(bwd_ops, bwd_bytes)
+        res[vname] = dict(
+            ms=ms, plain_ms=plain_ms, prep_ms=prep_ms, bound_ms=bound_ms,
+            bound_by=bound_by, samples=samples, peak_mb=peak, own_mb=own,
+            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bwd_bound,
+            bwd_bound_by=bwd_by, bwd_inside=inside)
+        log(f"mc {vname}: K1 mc {ms:.4f} ms, plain {plain_ms:.2f} ms, prep "
+            f"{prep_ms:.4f} ms, needed samples per frame {samples}, bound "
+            f"{ops_ms:.4f} ms (operations) / {bytes_ms:.4f} ms (bytes); peak "
+            f"memory of prep + kernel {peak:.1f} MiB ({own:.1f} MiB above the "
+            f"start); K4 mc {bwd_ms:.4f} ms, plain {bwd_plain_ms:.2f} ms, "
+            f"bound {bwd_bound:.4f} ms ({bwd_by})")
+        del args
+        torch.cuda.empty_cache()
+    return errs
+
+
+def faces_volume(P):
+    """Dense voxels on every face of a small volume, so the in-kernel
+    normals read the zero padding there."""
+    rng = np.random.default_rng(42)
+    data = rng.uniform(0, 40, (19, 23, 17)).astype(np.float32)
+    for ax in range(3):
+        for end in (0, -1):
+            idx = [slice(None)] * 3
+            idx[ax] = end
+            data[tuple(idx)] = rng.uniform(40, 130, data[tuple(idx)].shape)
+    return P.make_volume(data, cal_max=200.9)
+
+
+def colour_light(phong):
+    """The default light with the colour (1.0, 0.8, 0.6)."""
+    import dataclasses
+
+    import torch
+
+    light = phong.default_light()
+    return dataclasses.replace(light, color=torch.tensor(
+        [1.0, 0.8, 0.6], device=light.color.device))
+
+
+def lit_inkernel_phase(P, march, phong, volumes, tf, rng, res) -> dict:
+    """Phase 3o: K1's in-kernel lighting variant (lit, and lut_lit with a
+    LUT) against march_plain, bit-exact at eps 0: on edge inputs (dense
+    voxels on every face, a conic camera inside the volume, LUT 96 with
+    cal_max 200.9, the light colour (1.0, 0.8, 0.6)), then conic at
+    700x700x500 with the central filter and presmooth 0 on both volumes,
+    with the interval TF and with tf_lut=256, and once ortho under the
+    colour (1.0, 0.8, 0.6); eps 1e-3 within TOL_EPS of the exact render ->
+    {variant: max err}; times, bounds and peak memory go into ``res``."""
+    import torch
+
+    errs = {"lit": 0.0, "lut_lit": 0.0}
+    light = colour_light(phong)
+    small = P.RenderConfig(width=61, height=37, samples_per_ray=37,
+                           lighting=True, conic=True)
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    faces = faces_volume(P)
+    edges = [
+        ("faces_conic", faces, near, small, None),
+        ("faces_ortho_colour", faces, near, small.replace(conic=False), light),
+        ("conic_inside_volume", faces,
+         P.Camera.initial(position=(0.1, 0.05, 0.2)), small, None),
+        ("faces_lut96_density", faces, near,
+         small.replace(tf_lut=96, density_scale=0.45), light),
+    ]
+    for name, vol, cam, c, lg in edges:
+        a = march.prepare(vol, tf, cam, c, 0.0, light=lg)
+        var = march.variant(a)
+        e = exact_vs_plain(march.march_kernel, march.march_plain,
+                           f"lit edge/{name} ({var})", a)[2]
+        errs[var] = max(errs[var], e)
+    cfg = P.RenderConfig(**CONIC_LIT)
+    cam = P.Camera.initial(position=(0.9, 0.5, 1.0))
+    rays = cfg.width * cfg.height
+    for vname, vol in volumes.items():
+        for name, c, lg in (("conic", cfg, None),
+                            ("conic_lut256", cfg.replace(tf_lut=256), None),
+                            ("ortho_colour", cfg.replace(conic=False),
+                             light)):
+            a = march.prepare(vol, tf, cam, c, 0.0, light=lg)
+            var = march.variant(a)
+            label = f"{vname}/{name} ({var})"
+            _, exact, e = exact_vs_plain(march.march_kernel,
+                                         march.march_plain, f"{label} eps0",
+                                         a)
+            errs[var] = max(errs[var], e)
+            got = march.march_kernel(march.prepare(vol, tf, cam, c, 1e-3,
+                                                   light=lg))
+            e2 = float((got - exact).abs().max())
+            log(f"{label}: kernel at eps 1e-3 vs exact plain max err "
+                f"{e2:.3e} (tol {TOL_EPS:g})")
+            check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
+        # times, bounds and memory at the conic orbit's inputs
+        for var, c in (("lit", cfg), ("lut_lit", cfg.replace(tf_lut=256))):
+            main_cfg = c.replace(early_termination=1e-3)
+            cams = orbit_cameras(P, rng)
+            m0 = mem_reset()
+            args = [march.prepare(vol, tf, cams[0], main_cfg, 1e-3)]
+            march.march_kernel(args[0])
+            peak, own = peak_mb(m0)
+            args += [march.prepare(vol, tf, x, main_cfg, 1e-3)
+                     for x in cams[1:]]
+
+            def orbit_kernels():
+                for x in args:
+                    march.march_kernel(x)
+
+            ms = timed_ms(orbit_kernels, 3, prefill=True,
+                          label=f"{vname}: K1 {var} x{FRAMES}") / FRAMES
+            prep_ms = timed_ms(lambda: march.prepare(
+                vol, tf, cams[0], main_cfg, 1e-3), 3)
+            samples = samples_needed(march.march_plain, args[:2])
+            plain_ms = timed_ms(lambda: march.march_plain(args[0]), 1,
+                                windows=1)
+            nbytes = bound_bytes(args[0], rays, samples) + read_bytes(
+                args[0].vol.numel() * 4, samples * 6 * 4)
+            bound_ms, bound_by, ops_ms, bytes_ms = bound(
+                samples * (FLOPS_PER_SAMPLE + FLOPS_PER_LIT_SAMPLE)
+                + rays * FLOPS_PER_LIT_RAY, nbytes)
+            res.setdefault(vname, {})[var] = dict(
+                ms=ms, plain_ms=plain_ms, prep_ms=prep_ms, bound_ms=bound_ms,
+                bound_by=bound_by, samples=samples, peak_mb=peak, own_mb=own)
+            log(f"{vname}/conic_lit_700 ({var}): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.2f} ms, prep {prep_ms:.4f} ms, needed samples "
+                f"per frame {samples}, bound {ops_ms:.4f} ms (operations) / "
+                f"{bytes_ms:.4f} ms (bytes); peak memory of prep + kernel "
+                f"{peak:.1f} MiB ({own:.1f} MiB above the start)")
+            del args
+            torch.cuda.empty_cache()
+    return errs
+
+
+def mc_lit_render_phase(P, march, mc_vols, volumes, tf, rng, res) -> dict:
+    """Phase 4g: 8 orbit frames after one warm-up through ``render()``:
+    multichannel_304 on both 3-channel volumes (K1 mc) and conic lit a1 at
+    700x700x500, eps 1e-3, on both volumes, with the interval TF (K1 lit)
+    and with tf_lut=256 (K1 lut_lit), with the launches by variant set to
+    0 just before and read just after -> {variant: launches}."""
+    import torch
+
+    rows = [("multichannel_304", vname, vol,
+             P.RenderConfig(early_termination=1e-3, **MC_SHAPE), "mc")
+            for vname, vol in mc_vols.items()]
+    for var, lut in (("lit", 0), ("lut_lit", 256)):
+        rows += [(f"conic_{var}_700", vname, vol,
+                  P.RenderConfig(early_termination=1e-3, tf_lut=lut,
+                                 **CONIC_LIT), var)
+                 for vname, vol in volumes.items()]
+    launches = {"mc": 0, "lit": 0, "lut_lit": 0}
+    for row, vname, vol, cfg, var in rows:
+        cams = orbit_cameras(P, rng)
+        reset_launches(march)
+        P.render(vol, tf, cams[-1], cfg)  # warm-up frame
+        m0 = mem_reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        imgs = [P.render(vol, tf, cam, cfg) for cam in cams]
+        end.record()
+        torch.cuda.synchronize()
+        counts = dict(march.variant_launches)
+        ms = start.elapsed_time(end) / len(imgs)
+        peak, own = peak_mb(m0)
+        label = f"{vname}/{row}"
+        for img in imgs:
+            check(tuple(img.shape) == (cfg.width, cfg.height, 4)
+                  and bool(torch.isfinite(img).all()), f"{label}: bad image")
+            fg = float(((img[..., :3] - 0.2).abs().amax(-1) > 0.05)
+                       .float().mean())
+            check(fg > 0.01, f"{label}: image is background only ({fg})")
+        frames = len(imgs) + 1  # and the warm-up frame
+        check(counts[var] == frames and sum(counts.values()) == frames,
+              f"{label}: launches {counts} for {frames} frames")
+        launches[var] += counts[var]
+        r = res[vname] if var == "mc" else res[vname][var]
+        r.update(render_ms=ms, render_peak_mb=peak, render_own_mb=own)
+        log(f"{label}: render() {ms:.4f} ms/frame, "
+            f"{cfg.width * cfg.height / ms * 1e3:.4e} rays/s, K1 {var} "
+            f"{r['ms']:.4f} ms, prep {r['prep_ms']:.4f} ms, launches {counts} "
+            f"for {frames} frames (warm-up included), peak memory {peak:.1f} MiB ({own:.1f} "
+            f"MiB above the start)")
+        del imgs
+        torch.cuda.empty_cache()
+    return launches
+
+
+def write_nifti_4d(path: str, data_xyzc: np.ndarray, cal_max: float) -> None:
+    """A NIfTI-1 float32 file of an [X, Y, Z, C] array (channel-major on
+    disk, as the 4-D reader expects)."""
+    import struct
+
+    x, y, z, c = data_xyzc.shape
+    hdr = bytearray(348)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, 4, x, y, z, c, 1, 1, 1)
+    struct.pack_into("<h", hdr, 70, 16)
+    struct.pack_into("<h", hdr, 72, 32)
+    struct.pack_into("<f", hdr, 108, 352.0)
+    struct.pack_into("<f", hdr, 124, cal_max)
+    with open(path, "wb") as f:
+        f.write(bytes(hdr))
+        f.write(b"\x00" * 4)
+        f.write(np.ascontiguousarray(np.moveaxis(data_xyzc, -1, 0),
+                                     np.float32).tobytes())
+
+
+def mc_cli_phase(tmp: str, mc_data: np.ndarray, from_text) -> None:
+    """Phase 5i: the CLI ``render`` and ``fit`` on a 4-D .nii written with
+    numpy (bench.py's 3-channel 91^3 volume, multichannel_304's shapes),
+    and ``render --conic --lighting`` at 700x700x500."""
+    import torch
+
+    path = os.path.join(tmp, "mc.nii")
+    write_nifti_4d(path, mc_data, 255.0)
+    shape = ["--width", "304", "--height", "304", "--spr", "300"]
+    out = os.path.join(tmp, "mc.png")
+    out_tf = os.path.join(tmp, "mc_fit.txt")
+    conic = os.path.join(tmp, "conic_lit.png")
+    for name, args, size in (
+            ("render 4-D", ["render", "--data", path, *shape, "--out", out],
+             304),
+            ("fit 4-D", ["fit", "--data", path, *shape, "--target", out,
+                         "--steps", "3", "--out-tf", out_tf], None),
+            ("render --conic --lighting",
+             ["render", "--data", "sphere", "--width", str(W), "--height",
+              str(H), "--spr", str(SPR), "--conic", "--lighting",
+              "--camera", "0.9,0.5,1.0", "--out", conic], W)):
+        proc = subprocess.run(
+            [sys.executable, "-m", "volumerenderingproject_tpu_torch", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        log(f"cli {name} exit {proc.returncode}: {proc.stdout.strip()} "
+            f"{proc.stderr.strip()[-2000:]}")
+        check(proc.returncode == 0, f"cli {name} failed")
+        if size:
+            check_png(args[-1], size, size)
+    with open(out_tf) as f:
+        fitted = from_text(f.read())
+    check(fitted.num_intervals == 4
+          and bool(torch.isfinite(fitted.colors).all()),
+          "cli fit of a 4-D volume wrote a bad transfer function")
+
+
+def mc_lit_small_phase(P, march, sphere, tf) -> float:
+    """Phase 6f: a small 4-D render (``rgb_sphere(64)``) and a small conic
+    lit render (``centered_sphere(100)``) at 100x100x100 through the
+    kernels against the back-to-front reference scan -> the max error."""
+    from volumerenderingproject_tpu_torch.ingest import synthetic
+
+    small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
+    worst = 0.0
+    for name, vol, c, var in (
+            ("rgb_sphere(64)", synthetic.rgb_sphere(64), small, "mc"),
+            ("sphere100 conic lit", sphere,
+             small.replace(conic=True, lighting=True), "lit")):
+        cam = P.Camera.initial(position=(0.9, 0.5, 1.0))
+        reset_launches(march)
+        got = P.render(vol, tf, cam, c)
+        check(march.variant_launches[var] == 1,
+              f"{name}: launches {march.variant_launches}")
+        ref = P.render(vol, tf, cam, c, mode="reference")
+        e = float((got - ref).abs().max())
+        log(f"{name} 100x100x100: K1 {var} vs back-to-front reference max "
+            f"err {e:.3e} (tol {TOL_EXACT:g})")
+        check(e <= TOL_EXACT, f"{name}: kernel vs reference scan {e}")
+        worst = max(worst, e)
+    return worst
+
+
 class PhaseClock:
     """Prints each phase's seconds on a line of its own."""
 
@@ -2959,6 +3406,20 @@ def main() -> int:
     sweep = sweep_phase(P, phong, large["dense_512"], tf)
     clock("3l scattered kernels vs plain, the sweep at 512^3")
 
+    # ---- 3m, 3n. 4-D volumes: K1 mc and K4 mc vs plain ---------------------
+    mc_vols = mc_volumes(P)
+    mc_res = {}
+    mc_errs = mc_kernel_phases(P, march, march_vjp, mc_vols,
+                               mc_seeded_volumes(P), tf,
+                               np.random.default_rng(43), mc_res)
+    clock("3m-3n K1 mc, K4 mc vs plain")
+
+    # ---- 3o. K1's in-kernel lighting vs plain -------------------------------
+    lit_res = {}
+    inkernel_errs = lit_inkernel_phase(P, march, phong, volumes, tf,
+                                       np.random.default_rng(44), lit_res)
+    clock("3o K1 in-kernel lighting vs plain")
+
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
     frames = 0
@@ -3019,6 +3480,12 @@ def main() -> int:
                                      np.random.default_rng(34))
     clock("4f scattered render paths")
 
+    # ---- 4g. the multichannel and conic lit render paths --------------------
+    mc_lit_launches = mc_lit_render_phase(
+        P, march, mc_vols, volumes, tf, np.random.default_rng(45),
+        {**mc_res, **lit_res})
+    clock("4g multichannel and conic lit render paths")
+
     # ---- 5-5g. the CLI: its chains of processes run together, since each
     # process spends most of its time starting up ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3027,11 +3494,14 @@ def main() -> int:
                   lambda: lit_cli_phase(tmp),  # 5e
                   lambda: smooth_cli_phase(tmp, tf, from_text),  # 5f
                   lambda: lit_fit_cli_phase(tmp, from_text),  # 5g
-                  lambda: scatter_cli_phase(tmp, from_text)]  # 5h
+                  lambda: scatter_cli_phase(tmp, from_text),  # 5h
+                  lambda: mc_cli_phase(  # 5i
+                      tmp, mc_vols["bench3_91"].data.cpu().numpy(),
+                      from_text)]
         with ThreadPoolExecutor(len(chains)) as pool:
             for job in [pool.submit(c) for c in chains]:
                 job.result()
-    clock("5-5h CLI")
+    clock("5-5i CLI")
 
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
@@ -3079,7 +3549,10 @@ def main() -> int:
     # ---- 6e. small scattered inputs against the plain scan ------------------
     scatter_small = scatter_small_phase(P, sphere, tf)
 
-    clock("6-6e small renders vs the reference scans")
+    # ---- 6f. small 4-D and conic lit inputs against the reference scan -----
+    mc_lit_small = mc_lit_small_phase(P, march, sphere, tf)
+
+    clock("6-6f small renders vs the reference scans")
 
     # ---- 7. the fit path -----------------------------------------------------
     fit_rng = np.random.default_rng(4)
@@ -3204,6 +3677,30 @@ def main() -> int:
                                           np.random.default_rng(36))
                  for vname, vol in volumes.items()}
     clock("7k scattered fit path")
+
+    # ---- 7l. the alpha-column fit of a 4-D volume ---------------------------
+    mc_route = FitRoute(("K1 mc", "K4 mc"), march, march_vjp,
+                        plain_fwd_a1(march, march_vjp),
+                        march_vjp.march_bwd_plain, "march_a1_kernel",
+                        "march_bwd_a1_kernel")
+    mc_fit = {"k1": 0, "k4": 0}
+    mc_fit_rng = np.random.default_rng(46)
+    for vname, vol in mc_vols.items():
+        reset_launches(march, march_vjp)
+        r = fit_phase(P, fit, mc_route, f"mc {vname}", vol, mc_fit_rng,
+                      P.RenderConfig(**MC_SHAPE), alpha_only=True)
+        others = [n for m in (march, march_vjp)
+                  for n, c in m.variant_launches.items() if c and n != "mc"]
+        check(not others, f"mc {vname}: the fit launched {others}")
+        mc_res[vname]["fit"] = dict(
+            step_ms=r["step_ms"], busy_ms=r["trace"]["busy_ms"] / FIT_STEPS,
+            k1_ms=r["trace"]["k1_ms"] / FIT_STEPS,
+            k4_ms=r["trace"]["k4_ms"] / FIT_STEPS,
+            idle_share=r["trace"]["idle_share"], fd_err=r["fd_err"],
+            launches_per_step=(r["k1"] / FIT_STEPS, r["k4"] / FIT_STEPS))
+        mc_fit["k1"] += r["k1"]
+        mc_fit["k4"] += r["k4"]
+    clock("7l multichannel fit path")
 
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
@@ -3363,6 +3860,52 @@ def main() -> int:
             "bound_by": big[key]["bound_by"],
             "library_ms": None,
         })
+    mc_main = mc_res["mni3_182x218x182"]
+    kernels.append({
+        "name": "march_a1_mc",
+        "route": "cuda",
+        "source": "volumerenderingproject_tpu_torch/csrc/march.cu",
+        "replaces": "volumerenderingproject_tpu/ops/pallas_march.py:659",
+        "launches": mc_lit_launches["mc"] + mc_fit["k1"],
+        "max_abs_err": mc_errs["k1"],
+        "ms": mc_main["ms"],
+        "plain_ms": mc_main["plain_ms"],
+        "bound_ms": mc_main["bound_ms"],
+        "bound_by": mc_main["bound_by"],
+        "library_ms": None,
+    })
+    lit_main = lit_res["mni_dims_182x218x182"]
+    for var in ("lit", "lut_lit"):
+        kernels.append({
+            "name": f"march_a1_{var}",
+            "route": "cuda",
+            "source": "volumerenderingproject_tpu_torch/csrc/march.cu",
+            "replaces": "volumerenderingproject_tpu/ops/pallas_march.py:503",
+            "launches": mc_lit_launches[var],
+            "max_abs_err": inkernel_errs[var],
+            "ms": lit_main[var]["ms"],
+            "plain_ms": lit_main[var]["plain_ms"],
+            "bound_ms": lit_main[var]["bound_ms"],
+            "bound_by": lit_main[var]["bound_by"],
+            "library_ms": None,
+        })
+    kernels.append({
+        "name": "march_bwd_a1_mc",
+        "route": "cuda",
+        "source": "volumerenderingproject_tpu_torch/csrc/march_bwd.cu",
+        "replaces": "volumerenderingproject_tpu/ops/pallas_march_vjp.py:315",
+        "launches": mc_fit["k4"],
+        "max_abs_err": mc_errs["k4_abs"],
+        "ms": mc_main["bwd_ms"],
+        "plain_ms": mc_main["bwd_plain_ms"],
+        "bound_ms": mc_main["bwd_bound_ms"],
+        "bound_by": mc_main["bwd_bound_by"],
+        "library_ms": None,
+    })
+    log(f"multichannel: {json.dumps(mc_res)}; K4 mc max relative err "
+        f"{mc_errs['k4_rel']:.3e}; in-kernel lighting: {json.dumps(lit_res)};"
+        f" small 4-D and conic lit renders vs the reference scan "
+        f"{mc_lit_small:.3e}")
     log(f"large volumes: kernels {json.dumps(large_k)}; render paths "
         f"{json.dumps(large_r)}; fit paths {json.dumps(large_f)}")
     log(f"scattering: kernels {json.dumps(scatter_k)}; transmittance sweep "

@@ -236,7 +236,7 @@ def test_multichannel_and_more_than_16_intervals_raise(scene):
     assert P.render(pv, tf17, pc, pcfg, device="cpu").shape == (18, 13, 4)
     mc = interop.volume_from_numpy(np.zeros((4, 4, 4, 2), np.float32), 255.0,
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 11a"):
         a5_vjp.render_test_diff(mc, tf, pc, pcfg, device="cpu")
 
 

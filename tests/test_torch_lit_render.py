@@ -166,7 +166,8 @@ def test_lit_early_termination_bound(scene):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(lighting=True, conic=True), NotImplementedError, "item 9"),
+    (dict(lighting=True, conic=True, presmooth_sigma=1.0),
+     NotImplementedError, "mode='scan'"),
     (dict(scattering=True, conic=True), NotImplementedError, "item 9"),
     (dict(scattering=True, conic=True, tf_lut=64), NotImplementedError,
      "item 9"),
@@ -183,6 +184,10 @@ def test_fast_mode_limits_raise(kw, exc, match):
 
 @pytest.mark.parametrize("alg", [Algorithm.VRC, Algorithm.TEST])
 def test_non_uniform_light_colour_raises_in_fast_mode(alg):
+    """A light colour that is not uniform: the fused a5 march (bakes only,
+    as the JAX a5 kernel) raises and names the scan; the fused a1 march
+    shades it in the kernel (K1's in-kernel lighting variant), within the
+    fused tolerance of the scan."""
     vol = synthetic.centered_sphere(8, device="cpu")
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, algorithm=alg)
     light = phong.default_light(device="cpu")
@@ -191,10 +196,14 @@ def test_non_uniform_light_colour_raises_in_fast_mode(alg):
                               light.diffuse, light.specular, light.shininess)
     args = (vol, P.default_transfer_function(device="cpu"),
             P.reset_preset(device="cpu"), cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        P.render(*args, device="cpu", light=light)
-    assert P.render(*args, mode="scan", device="cpu", light=light).shape == (
-        8, 8, 4)
+    scan = P.render(*args, mode="scan", device="cpu", light=light)
+    assert scan.shape == (8, 8, 4)
+    if alg is Algorithm.TEST:
+        with pytest.raises(NotImplementedError, match="mode='scan'"):
+            P.render(*args, device="cpu", light=light)
+        return
+    fast = P.render(*args, device="cpu", light=light)
+    assert float((fast - scan).abs().max()) <= TOL_FUSED
 
 
 @pytest.mark.parametrize("kw", [
@@ -203,11 +212,11 @@ def test_non_uniform_light_colour_raises_in_fast_mode(alg):
     dict(lighting=True, algorithm=Algorithm.TEST)])
 def test_lit_and_lut_fits_raise(kw):
     """Conic lit fits (a1, with a LUT too) and lit a5 fits are left to the
-    scan route (ROADMAP.md item 11a; their messages name item 9 as well);
-    ortho lit and LUT a1 fits are ported (tests/test_torch_lit_fit.py)."""
+    scan route (ROADMAP.md item 11a); ortho lit and LUT a1 fits are ported
+    (tests/test_torch_lit_fit.py)."""
     vol = synthetic.centered_sphere(8, device="cpu")
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11a"):
         pfit.fit_transfer_function(
             vol, P.reset_preset(device="cpu"), np.zeros((8, 8, 4), np.float32),
             P.default_transfer_function(device="cpu"), cfg, steps=1,

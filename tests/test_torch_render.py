@@ -128,15 +128,17 @@ def test_fused_sphere_matches_jax_fast():
 @pytest.mark.parametrize("kw,item", [
     (dict(scattering=True, conic=True), "item 9"),
     (dict(algorithm=Algorithm.POINT), "item 15"),
-    (dict(lighting=True, conic=True), "item 9"),
+    (dict(lighting=True, conic=True, gradient_filter="sobel"), "mode='scan'"),
     (dict(scattering=True, conic=True, lighting=True), "item 9"),
     (dict(interp=Interp.TRILINEAR, tf_lut=256), "item 12"),
 ])
 def test_unported_options_raise(kw, item):
     """Lit, LUT and scattered renders are ported
     (tests/test_torch_lit_render.py, tests/test_torch_scatter.py), and
-    smooth renders (tests/test_torch_smooth.py); conic lighting, conic
-    scattering and a smooth LUT render in fast mode are not."""
+    smooth renders (tests/test_torch_smooth.py), conic lighting with central
+    differences (tests/test_torch_kernel_lighting.py); conic scattering,
+    conic lighting with another gradient filter (the JAX kernel's rule) and
+    a smooth LUT render in fast mode are not."""
     vol = psynthetic.centered_sphere(8, device="cpu")
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
     with pytest.raises(NotImplementedError, match=item):
@@ -145,13 +147,22 @@ def test_unported_options_raise(kw, item):
 
 
 def test_multichannel_raises():
+    """4-D volumes render (tests/test_torch_multichannel.py), but not
+    scattered (the JAX package's reason), nor lit in fast mode (the fused
+    multichannel march is unlit, as the JAX kernel is)."""
     vol = interop.volume_from_numpy(np.zeros((4, 4, 4, 3), np.float32), 255.0,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.render(vol, P.default_transfer_function(device="cpu"),
-                 P.reset_preset(device="cpu"),
-                 P.RenderConfig(width=4, height=4, samples_per_ray=4),
-                 device="cpu")
+    cfg = P.RenderConfig(width=4, height=4, samples_per_ray=4)
+    args = (vol, P.default_transfer_function(device="cpu"),
+            P.reset_preset(device="cpu"))
+    assert P.render(*args, cfg, device="cpu").shape == (4, 4, 4)
+    for mode in ("fast", "scan"):
+        with pytest.raises(NotImplementedError,
+                           match="supports single-channel volumes"):
+            P.render(*args, cfg.replace(scattering=True), mode=mode,
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
+        P.render(*args, cfg.replace(lighting=True), device="cpu")
 
 
 def test_render_keeps_image_layout():

@@ -3,7 +3,7 @@
 // Replaces volumerenderingproject_tpu/ops/pallas_march.py:_march_kernel in
 // resident mode: ortho or conic rays, nearest-voxel sampling,
 // classification by colour id, density_scale, front-to-back (C, T)
-// compositing and early ray termination, in three variants, template
+// compositing and early ray termination, in these variants, template
 // parameters of the one kernel:
 //   * plain: uint8 interval ids (the packed material-id grid), <= 256
 //     colours;
@@ -13,11 +13,20 @@
 //     S (f32, in HBM), rgb <- rgb * M + S at the sample's voxel; a sample
 //     off the volume takes M = 1, S = 0 (pallas_march.py:671-680).  The
 //     single-scattering term rides S (pallas_march.py:1685-1692).
-// LUT and baked light compose.  The same kernel takes the volumes that the
-// TPU kernel's streamed modes (K2: HBM->VMEM x-blocks, u8 (M, S)) stage
-// block by block: here the whole volume stays in device memory and voxel
-// indices are 64-bit.  The in-kernel (conic) `lighting`, multichannel and
-// segment variants of that kernel are not here.
+//   * in-kernel light (`lighting`): Blinn-Phong on the central-difference
+//     normal of the raw f32 volume (0 past a face), the six neighbours read
+//     through the read-only cache, the light [10] in shared memory and the
+//     view direction -d of each ray, so conic rays and any light colour
+//     work (pallas_march.py:503-556, 594-620);
+//   * channel grids (`mc_grids`, 4-D volumes): the uint8 ids are the
+//     intervals of the channel mean and give alpha only; rgb is read from
+//     the 1 (grey) or 3 normalised channel grids at the sample's voxel, 0
+//     off the volume (pallas_march.py:659-672).
+// LUT composes with baked or in-kernel light.  The same kernel takes the
+// volumes that the TPU kernel's streamed modes (K2: HBM->VMEM x-blocks, u8
+// (M, S)) stage block by block: here the whole volume stays in device
+// memory and voxel indices are 64-bit.  The segment variants of that kernel
+// are not here.
 //
 // One thread marches one ray:
 //   ray setup -> clip of the sample range to the dataset box (+-1 sample)
@@ -45,7 +54,11 @@
 // variants are bound by bytes instead: M and S take 8 bytes per voxel (58 MB
 // at 182x218x182, more than L2 holds), read per sample inside the volume
 // beside the id; neighbouring rays read neighbouring voxels of them too.
-// The LUT variants' uint16 grid takes two bytes a voxel.
+// The LUT variants' uint16 grid takes two bytes a voxel.  The in-kernel
+// light reads the f32 volume (29 MB at 182x218x182) at six neighbours of
+// each sample inside the volume and spends some 50 float operations and a
+// powf on its shade; the channel grids take 4 bytes a voxel each, read at
+// the sample's voxel like M and S.
 //
 // Ray setup and the sample -> voxel -> id chain are in march_common.cuh,
 // shared with the backward march (march_bwd.cu).
@@ -98,22 +111,78 @@ __device__ bool chunk_occupied(int i0, int i1, const float o[3],
   return false;
 }
 
-template <typename Id, bool kBaked>
+// The zero-padded neighbour of a sample's voxel `flat` along one axis: the
+// voxel `step` away in flat order when its index `idx` on that axis lies in
+// [0, dim), else 0 (conv3d's zero padding, pallas_march.py:524-546).
+__device__ __forceinline__ float neighbour(const float* __restrict__ vol,
+                                           long long flat, long long step,
+                                           int idx, int dim, long long last) {
+  if (idx < 0 || idx >= dim) return 0.0f;
+  long long f = flat + step;
+  f = f < 0 ? 0 : (f > last ? last : f);
+  return __ldg(vol + f);
+}
+
+// Blinn-Phong of a sample inside the volume, in the TPU kernel's float
+// order (pallas_march.py:594-620): l = light[0:3] (unit), colour
+// light[3:6], ambient, diffuse, specular, shininess light[6:10]; (hx, hy,
+// hz) = l - d and hinv = 1 / max(|h|, 1e-8) are the ray's.
+__device__ __forceinline__ void shade(float4& col,
+                                      const float* __restrict__ vol,
+                                      long long flat, const int ijk[3],
+                                      const Geom& g, long long last,
+                                      const float* s_light, float hx,
+                                      float hy, float hz, float hinv) {
+  const long long sx = (long long)g.dim[1] * g.dim[2];
+  const long long sy = g.dim[2];
+  const float gx = 0.5f * (neighbour(vol, flat, sx, ijk[0] + 1, g.dim[0], last) -
+                           neighbour(vol, flat, -sx, ijk[0] - 1, g.dim[0], last));
+  const float gy = 0.5f * (neighbour(vol, flat, sy, ijk[1] + 1, g.dim[1], last) -
+                           neighbour(vol, flat, -sy, ijk[1] - 1, g.dim[1], last));
+  const float gz = 0.5f * (neighbour(vol, flat, 1, ijk[2] + 1, g.dim[2], last) -
+                           neighbour(vol, flat, -1, ijk[2] - 1, g.dim[2], last));
+  const float nn = sqrtf((gx * gx + gy * gy) + gz * gz);
+  const float ninv = 1.0f / fmaxf(nn, 1e-8f);
+  const float nx = gx * ninv, ny = gy * ninv, nz = gz * ninv;
+  const float ndotl =
+      fabsf((nx * s_light[0] + ny * s_light[1]) + nz * s_light[2]);
+  const float ndoth = fabsf(((nx * hx + ny * hy) + nz * hz) * hinv);
+  const float spec = s_light[8] * powf(ndoth, s_light[9]);
+  const float w = fminf(fmaxf(nn * 1000.0f, 0.0f), 1.0f);
+  const float dl = s_light[7] * ndotl;
+  const float amb = s_light[6];
+  col.x = w * ((amb * col.x + (dl * col.x) * s_light[3]) + spec * s_light[3]) +
+          (1.0f - w) * col.x;
+  col.y = w * ((amb * col.y + (dl * col.y) * s_light[4]) + spec * s_light[4]) +
+          (1.0f - w) * col.y;
+  col.z = w * ((amb * col.z + (dl * col.z) * s_light[5]) + spec * s_light[5]) +
+          (1.0f - w) * col.z;
+}
+
+// kMc: the number of channel grids (0: none; 1: grey; 3: rgb)
+template <typename Id, bool kBaked, bool kLit, int kMc>
 __global__ void __launch_bounds__(256)
 march_a1_kernel(const float* __restrict__ scal,
                 const float* __restrict__ colors, int num_colors,
                 const Id* __restrict__ ids, const int32_t* __restrict__ occ,
                 const float* __restrict__ mgrid,
-                const float* __restrict__ sgrid, Geom g, int conic,
+                const float* __restrict__ sgrid,
+                const float* __restrict__ vol,
+                const float* __restrict__ lvec,
+                const float* __restrict__ chans, Geom g, int conic,
                 int scale_alpha, float density_scale,
                 float* __restrict__ out) {
   __shared__ float4 s_col[sizeof(Id) == 1 ? kMaxIntervals : kMaxLut];
+  __shared__ float s_light[kLit ? 10 : 1];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int k = tid; k < num_colors; k += blockDim.x * blockDim.y) {
     float4 c = make_float4(colors[4 * k], colors[4 * k + 1],
                            colors[4 * k + 2], colors[4 * k + 3]);
     if (scale_alpha) c.w = fminf(fmaxf(c.w * density_scale, 0.0f), 1.0f);
     s_col[k] = c;
+  }
+  if constexpr (kLit) {
+    if (tid < 10) s_light[tid] = lvec[tid];
   }
   __syncthreads();
 
@@ -130,6 +199,16 @@ march_a1_kernel(const float* __restrict__ scal,
   const float eps = fmaxf(scal[S_EPS], 0.0f);
   const bool full = scal[S_FULL] > 0.0f;
   const int id0 = (int)scal[S_ID0];
+  const long long nvox = (long long)g.dim[0] * g.dim[1] * g.dim[2];
+
+  // the in-kernel light's half vector h = l - d (the view direction is -d)
+  float hx = 0.0f, hy = 0.0f, hz = 0.0f, hinv = 0.0f;
+  if constexpr (kLit) {
+    hx = s_light[0] - d[0];
+    hy = s_light[1] - d[1];
+    hz = s_light[2] - d[2];
+    hinv = 1.0f / fmaxf(sqrtf((hx * hx + hy * hy) + hz * hz), 1e-8f);
+  }
 
   // ---- sample range inside the dataset box, +-1 sample of slop -----------
   int s_lo = 0, s_hi = g.spr - 1;
@@ -172,6 +251,23 @@ march_a1_kernel(const float* __restrict__ scal,
         col.x = col.x * m + sh;
         col.y = col.y * m + sh;
         col.z = col.z * m + sh;
+      } else if constexpr (kLit) {
+        int ijk[3];
+        const long long flat = sample_voxel_ijk(i, o, d, ds, clip, g, ijk);
+        col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
+        // off the volume the normal is 0, so w = 0 and rgb stays
+        if (flat >= 0)
+          shade(col, vol, flat, ijk, g, nvox - 1, s_light, hx, hy, hz, hinv);
+      } else if constexpr (kMc > 0) {
+        const long long flat = sample_voxel(i, o, d, ds, clip, g);
+        col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
+        col.x = flat < 0 ? 0.0f : __ldg(chans + flat);
+        if constexpr (kMc == 1) {
+          col.y = col.z = col.x;
+        } else {
+          col.y = flat < 0 ? 0.0f : __ldg(chans + nvox + flat);
+          col.z = flat < 0 ? 0.0f : __ldg(chans + 2 * nvox + flat);
+        }
       } else {
         col = s_col[sample_id(i, o, d, ds, clip, g, ids, id0)];
       }
@@ -191,16 +287,23 @@ march_a1_kernel(const float* __restrict__ scal,
   reinterpret_cast<float4*>(out)[(long long)px * g.height + py] = px_out;
 }
 
-template <typename Id, bool kBaked>
-void launch(const float* scal, const float* colors, int K, const void* ids,
-            const int32_t* occ, const float* mgrid, const float* sgrid,
-            const Geom& g, int conic, float density_scale, float* out,
-            cudaStream_t stream) {
+struct Inputs {
+  const float *scal, *colors;
+  int K;
+  const void* ids;
+  const int32_t* occ;
+  const float *mgrid, *sgrid, *vol, *lvec, *chans;
+};
+
+template <typename Id, bool kBaked, bool kLit, int kMc>
+void launch(const Inputs& in, const Geom& g, int conic, float density_scale,
+            float* out, cudaStream_t stream) {
   const dim3 block(16, 16);
   const dim3 grid((g.height + 15) / 16, (g.width + 15) / 16);
-  march_a1_kernel<Id, kBaked><<<grid, block, 0, stream>>>(
-      scal, colors, K, static_cast<const Id*>(ids), occ, mgrid, sgrid, g,
-      conic, density_scale != 1.0f ? 1 : 0, density_scale, out);
+  march_a1_kernel<Id, kBaked, kLit, kMc><<<grid, block, 0, stream>>>(
+      in.scal, in.colors, in.K, static_cast<const Id*>(in.ids), in.occ,
+      in.mgrid, in.sgrid, in.vol, in.lvec, in.chans, g, conic,
+      density_scale != 1.0f ? 1 : 0, density_scale, out);
 }
 
 }  // namespace
@@ -208,35 +311,48 @@ void launch(const float* scal, const float* colors, int K, const void* ids,
 // Launches the march on `stream`; returns cudaGetLastError() (0 = launched).
 // scal: [32] f32; colors: [K, 4] f32; ids: [d1, d2, d3] (C order), uint8
 // interval ids (id_bytes 1, K <= 256) or uint16 LUT indices (id_bytes 2,
-// K <= 1024); occ: [nbx * nby * nbz] int32; mgrid, sgrid: [d1, d2, d3] f32,
-// both null for an unlit march; out: [width, height, 4] f32.
+// K <= 1024); occ: [nbx * nby * nbz] int32.  At most one of: mgrid, sgrid
+// ([d1, d2, d3] f32 each, baked light); vol ([d1, d2, d3] f32, the raw
+// volume) and lvec ([10] f32, the light), in-kernel light; chans
+// ([n_chans, d1, d2, d3] f32, n_chans 1 or 3, uint8 ids only), a 4-D
+// volume's channel grids.  out: [width, height, 4] f32.
 extern "C" int vrp_march_a1(const float* scal, const float* colors, int K,
                             const void* ids, int id_bytes,
                             const int32_t* occ, int nbx, int nby, int nbz,
                             int d1, int d2, int d3, int depth, int width,
                             int height, int spr, int conic,
                             float density_scale, const float* mgrid,
-                            const float* sgrid, float* out, void* stream) {
+                            const float* sgrid, const float* vol,
+                            const float* lvec, const float* chans,
+                            int n_chans, float* out, void* stream) {
   const int max_k = id_bytes == 1 ? kMaxIntervals : kMaxLut;
+  const bool baked = mgrid != nullptr, lit = vol != nullptr,
+             mc = chans != nullptr;
   if ((id_bytes != 1 && id_bytes != 2) || K <= 0 || K > max_k ||
       width <= 0 || height <= 0 || spr <= 0 ||
-      (mgrid == nullptr) != (sgrid == nullptr))
+      baked != (sgrid != nullptr) || lit != (lvec != nullptr) ||
+      (int)baked + (int)lit + (int)mc > 1 ||
+      (mc && (id_bytes != 1 || (n_chans != 1 && n_chans != 3))))
     return (int)cudaErrorInvalidValue;
   const Geom g =
       make_geom(d1, d2, d3, depth, width, height, spr, nbx, nby, nbz);
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool baked = mgrid != nullptr;
-  if (id_bytes == 1 && !baked)
-    launch<uint8_t, false>(scal, colors, K, ids, occ, mgrid, sgrid, g, conic,
-                           density_scale, out, s);
+  const Inputs in{scal, colors, K, ids, occ, mgrid, sgrid, vol, lvec, chans};
+  if (mc && n_chans == 1)
+    launch<uint8_t, false, false, 1>(in, g, conic, density_scale, out, s);
+  else if (mc)
+    launch<uint8_t, false, false, 3>(in, g, conic, density_scale, out, s);
+  else if (lit && id_bytes == 1)
+    launch<uint8_t, false, true, 0>(in, g, conic, density_scale, out, s);
+  else if (lit)
+    launch<uint16_t, false, true, 0>(in, g, conic, density_scale, out, s);
+  else if (id_bytes == 1 && !baked)
+    launch<uint8_t, false, false, 0>(in, g, conic, density_scale, out, s);
   else if (id_bytes == 1)
-    launch<uint8_t, true>(scal, colors, K, ids, occ, mgrid, sgrid, g, conic,
-                          density_scale, out, s);
+    launch<uint8_t, true, false, 0>(in, g, conic, density_scale, out, s);
   else if (!baked)
-    launch<uint16_t, false>(scal, colors, K, ids, occ, mgrid, sgrid, g,
-                            conic, density_scale, out, s);
+    launch<uint16_t, false, false, 0>(in, g, conic, density_scale, out, s);
   else
-    launch<uint16_t, true>(scal, colors, K, ids, occ, mgrid, sgrid, g, conic,
-                           density_scale, out, s);
+    launch<uint16_t, true, false, 0>(in, g, conic, density_scale, out, s);
   return (int)cudaGetLastError();
 }

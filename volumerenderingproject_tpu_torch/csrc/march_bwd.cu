@@ -11,11 +11,18 @@
 //     colour of interval itv[i] (TransferFunction.to_lut gathers them), so
 //     a sample's terms go to interval itv[idx] of the entry it read,
 //     pallas_march_vjp.py:289-298;
-//   * LUT + baked light: both.
+//   * LUT + baked light: both;
+//   * channel grids (`mc_grids`, 4-D volumes): the uint8 ids are the
+//     intervals of the channel mean and give alpha only; c' is read from
+//     the 1 (grey) or 3 channel grids at the sample's voxel (0 off the
+//     volume), data the colours do not reach, so the rgb columns of
+//     dL/dcolors are exactly 0 and only the alpha column's chain runs,
+//     through g . c' of the channel rgb (pallas_march_vjp.py:315-360,
+//     440-456).
 // It also takes the volumes of _march_streamed_bwd_kernel (K5, the same
 // two passes over HBM->VMEM x-blocks with ownership extents): the volume
-// stays in device memory.  The slab, segment and multichannel variants of
-// that kernel are not here.
+// stays in device memory.  The slab and segment variants of that kernel
+// are not here.
 // Given the per-ray cotangents g (of the rgb output) and g_t (of the final
 // transmittance T_N, which reaches the output through out = C + T_N * bg),
 // it computes dL/dcolors [K, 4] of the forward march (march.cu) at eps 0
@@ -55,7 +62,8 @@
 // variants add two f32 loads per sample inside the volume, at the id's
 // voxel, in each pass (M and S are 58 MB at 182x218x182, more than L2
 // holds) and 6 operations for the shade; the LUT variants read a two-byte
-// index and one shared-memory byte more.  Ray setup and the sample -> voxel
+// index and one shared-memory byte more; the channel variant reads 1 or 3
+// f32 channel values per sample inside the volume, like M and S.  Ray setup and the sample -> voxel
 // -> id chain are K1's (march_common.cuh).
 
 #include "march_common.cuh"
@@ -77,16 +85,26 @@ struct Sample {
   float a, gd, m;
 };
 
-template <int KMAX, typename Id, bool kBaked>
+// kMc: the number of channel grids (0: none; 1: grey; 3: rgb)
+template <int KMAX, typename Id, bool kBaked, int kMc>
 __device__ __forceinline__ Sample bwd_sample(
     int i, const float o[3], const float d[3], float ds, float clip,
     const Geom& g, const Id* __restrict__ ids, int id0,
     const float* __restrict__ mgrid, const float* __restrict__ sgrid,
-    const float4* s_col, const uint8_t* s_itv, float gr, float gg,
-    float gb) {
+    const float* __restrict__ chans, long long nvox, const float4* s_col,
+    const uint8_t* s_itv, float gr, float gg, float gb) {
   int idx;
   float m = 1.0f, sh = 0.0f;
-  if constexpr (kBaked) {
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  if constexpr (kMc > 0) {  // c' from the channel grids, as K1 reads it
+    const long long flat = sample_voxel(i, o, d, ds, clip, g);
+    idx = flat < 0 ? id0 : (int)__ldg(ids + flat);
+    if (flat >= 0) {
+      cr = __ldg(chans + flat);
+      cg = kMc == 1 ? cr : __ldg(chans + nvox + flat);
+      cb = kMc == 1 ? cr : __ldg(chans + 2 * nvox + flat);
+    }
+  } else if constexpr (kBaked) {
     const long long flat = sample_voxel(i, o, d, ds, clip, g);
     idx = flat < 0 ? id0 : (int)__ldg(ids + flat);
     if (flat >= 0) {
@@ -103,6 +121,10 @@ __device__ __forceinline__ Sample bwd_sample(
     col.x = col.x * m + sh;
     col.y = col.y * m + sh;
     col.z = col.z * m + sh;
+  } else if constexpr (kMc > 0) {
+    col.x = cr;
+    col.y = cg;
+    col.z = cb;
   }
   s.a = col.w;
   s.gd = (gr * col.x + gg * col.y) + gb * col.z;
@@ -110,14 +132,15 @@ __device__ __forceinline__ Sample bwd_sample(
   return s;
 }
 
-template <int KMAX, typename Id, bool kBaked>
+template <int KMAX, typename Id, bool kBaked, int kMc>
 __global__ void __launch_bounds__(kBlock * kBlock)
 march_bwd_a1_kernel(const float* __restrict__ scal,
                     const float* __restrict__ colors, int num_intervals,
                     const Id* __restrict__ ids,
                     const uint8_t* __restrict__ itv, int lut_n,
                     const float* __restrict__ mgrid,
-                    const float* __restrict__ sgrid, Geom g, int conic,
+                    const float* __restrict__ sgrid,
+                    const float* __restrict__ chans, Geom g, int conic,
                     const float* __restrict__ g_rgb,
                     const float* __restrict__ g_t,
                     float* __restrict__ partials) {
@@ -157,14 +180,15 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
     const float gr = g_rgb[3 * ray];
     const float gg = g_rgb[3 * ray + 1];
     const float gb = g_rgb[3 * ray + 2];
+    const long long nvox = (long long)g.dim[0] * g.dim[1] * g.dim[2];
 
     // ---- pass A: total of w (g . c') and the final transmittance ---------
     float t = 1.0f;
     float total = 0.0f;
     for (int i = 0; i < g.spr; ++i) {
-      const Sample s = bwd_sample<KMAX, Id, kBaked>(
-          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, s_col, s_itv, gr,
-          gg, gb);
+      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc>(
+          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
+          s_itv, gr, gg, gb);
       const float w = t * s.a;
       total = total + w * s.gd;
       t = t * (1.0f - s.a);
@@ -175,9 +199,9 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
     t = 1.0f;
     float pfx = 0.0f;
     for (int i = 0; i < g.spr; ++i) {
-      const Sample s = bwd_sample<KMAX, Id, kBaked>(
-          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, s_col, s_itv, gr,
-          gg, gb);
+      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc>(
+          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
+          s_itv, gr, gg, gb);
       const float w = t * s.a;
       pfx = pfx + w * s.gd;  // pass A's order: total - pfx is exact at the end
       const float suffix = total - pfx;
@@ -186,7 +210,10 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
       const float da = t * s.gd - (denom != 0.0f ? num / denom : 0.0f);
       t = t * denom;
       const float wm = kBaked ? w * s.m : w;  // dC/dc = w M
-      const float dr = wm * gr, dg = wm * gg, db = wm * gb;
+      // channel rgb is data: no rgb terms, the rgb columns stay 0
+      const float dr = kMc ? 0.0f : wm * gr;
+      const float dg = kMc ? 0.0f : wm * gg;
+      const float db = kMc ? 0.0f : wm * gb;
 #pragma unroll
       for (int k = 0; k < KMAX; ++k) {
         const bool sel = s.k == k;
@@ -201,27 +228,34 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
   write_block_partial<KMAX, kWarps>(acc, num_intervals, partials);
 }
 
-template <typename Id, bool kBaked>
-void launch(const float* scal, const float* colors, int K, const void* ids,
-            const uint8_t* itv, int lut_n, const float* mgrid,
-            const float* sgrid, const Geom& g, int conic, const float* g_rgb,
-            const float* g_t, float* partials, cudaStream_t s) {
+struct Inputs {
+  const float *scal, *colors;
+  int K;
+  const void* ids;
+  const uint8_t* itv;
+  int lut_n;
+  const float *mgrid, *sgrid, *chans, *g_rgb, *g_t;
+  float* partials;
+};
+
+template <typename Id, bool kBaked, int kMc>
+void launch(const Inputs& in, const Geom& g, int conic, cudaStream_t s) {
   const dim3 block(kBlock, kBlock);
   const dim3 grid((g.height + kBlock - 1) / kBlock,
                   (g.width + kBlock - 1) / kBlock);
-  const Id* id = static_cast<const Id*>(ids);
-  if (K <= 4) {
-    march_bwd_a1_kernel<4, Id, kBaked><<<grid, block, 0, s>>>(
-        scal, colors, K, id, itv, lut_n, mgrid, sgrid, g, conic, g_rgb, g_t,
-        partials);
-  } else if (K <= 8) {
-    march_bwd_a1_kernel<8, Id, kBaked><<<grid, block, 0, s>>>(
-        scal, colors, K, id, itv, lut_n, mgrid, sgrid, g, conic, g_rgb, g_t,
-        partials);
+  const Id* id = static_cast<const Id*>(in.ids);
+  if (in.K <= 4) {
+    march_bwd_a1_kernel<4, Id, kBaked, kMc><<<grid, block, 0, s>>>(
+        in.scal, in.colors, in.K, id, in.itv, in.lut_n, in.mgrid, in.sgrid,
+        in.chans, g, conic, in.g_rgb, in.g_t, in.partials);
+  } else if (in.K <= 8) {
+    march_bwd_a1_kernel<8, Id, kBaked, kMc><<<grid, block, 0, s>>>(
+        in.scal, in.colors, in.K, id, in.itv, in.lut_n, in.mgrid, in.sgrid,
+        in.chans, g, conic, in.g_rgb, in.g_t, in.partials);
   } else {
-    march_bwd_a1_kernel<16, Id, kBaked><<<grid, block, 0, s>>>(
-        scal, colors, K, id, itv, lut_n, mgrid, sgrid, g, conic, g_rgb, g_t,
-        partials);
+    march_bwd_a1_kernel<16, Id, kBaked, kMc><<<grid, block, 0, s>>>(
+        in.scal, in.colors, in.K, id, in.itv, in.lut_n, in.mgrid, in.sgrid,
+        in.chans, g, conic, in.g_rgb, in.g_t, in.partials);
   }
 }
 
@@ -232,37 +266,43 @@ void launch(const float* scal, const float* colors, int K, const void* ids,
 // K <= 16; ids: [d1, d2, d3] (C order), uint8 interval ids (id_bytes 1,
 // itv null, lut_n 0) or uint16 LUT indices (id_bytes 2) with itv: [lut_n]
 // uint8, the interval of each LUT entry, lut_n <= 1024; mgrid, sgrid:
-// [d1, d2, d3] f32, both null unlit; g_rgb: [width, height, 3] f32; g_t:
-// [width, height] f32; partials: [ceil(width/16) * ceil(height/16), K, 4]
-// f32, one [K, 4] sum per 16x16 pixel block.
+// [d1, d2, d3] f32, both null unlit; chans: [n_chans, d1, d2, d3] f32
+// (n_chans 1 or 3, uint8 ids, unlit) for a 4-D volume, else null; g_rgb:
+// [width, height, 3] f32; g_t: [width, height] f32; partials:
+// [ceil(width/16) * ceil(height/16), K, 4] f32, one [K, 4] sum per 16x16
+// pixel block.
 extern "C" int vrp_march_bwd_a1(const float* scal, const float* colors, int K,
                                 const void* ids, int id_bytes,
                                 const uint8_t* itv, int lut_n,
                                 const float* mgrid, const float* sgrid,
-                                int d1, int d2, int d3, int depth, int width,
+                                const float* chans, int n_chans, int d1,
+                                int d2, int d3, int depth, int width,
                                 int height, int spr, int conic,
                                 const float* g_rgb, const float* g_t,
                                 float* partials, void* stream) {
   const bool lut = id_bytes == 2;
+  const bool baked = mgrid != nullptr, mc = chans != nullptr;
   if ((id_bytes != 1 && id_bytes != 2) || K <= 0 || K > kMaxIntervals ||
       width <= 0 || height <= 0 || spr <= 0 ||
-      (mgrid == nullptr) != (sgrid == nullptr) ||
-      (lut && (itv == nullptr || lut_n <= 0 || lut_n > kMaxLut)))
+      baked != (sgrid != nullptr) ||
+      (lut && (itv == nullptr || lut_n <= 0 || lut_n > kMaxLut)) ||
+      (mc && (lut || baked || (n_chans != 1 && n_chans != 3))))
     return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(d1, d2, d3, depth, width, height, spr, 0, 0, 0);
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool baked = mgrid != nullptr;
-  if (!lut && !baked)
-    launch<uint8_t, false>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid, g,
-                           conic, g_rgb, g_t, partials, s);
+  const Inputs in{scal,  colors, K,     ids, itv,     lut_n,
+                  mgrid, sgrid,  chans, g_rgb, g_t, partials};
+  if (mc && n_chans == 1)
+    launch<uint8_t, false, 1>(in, g, conic, s);
+  else if (mc)
+    launch<uint8_t, false, 3>(in, g, conic, s);
+  else if (!lut && !baked)
+    launch<uint8_t, false, 0>(in, g, conic, s);
   else if (!lut)
-    launch<uint8_t, true>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid, g,
-                          conic, g_rgb, g_t, partials, s);
+    launch<uint8_t, true, 0>(in, g, conic, s);
   else if (!baked)
-    launch<uint16_t, false>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid,
-                            g, conic, g_rgb, g_t, partials, s);
+    launch<uint16_t, false, 0>(in, g, conic, s);
   else
-    launch<uint16_t, true>(scal, colors, K, ids, itv, lut_n, mgrid, sgrid, g,
-                           conic, g_rgb, g_t, partials, s);
+    launch<uint16_t, true, 0>(in, g, conic, s);
   return (int)cudaGetLastError();
 }

@@ -119,6 +119,21 @@ __device__ __forceinline__ long long sample_voxel(int i, const float o[3],
   return flat;
 }
 
+// Flat index of sample i's voxel as sample_voxel gives it, and the voxel's
+// indices as the chain computes them in `out`: the in-kernel lighting
+// variant reads the six neighbours there.
+__device__ __forceinline__ long long sample_voxel_ijk(int i, const float o[3],
+                                                      const float d[3],
+                                                      float ds, float clip,
+                                                      const Geom& g,
+                                                      int out[3]) {
+  VRP_SAMPLE_VOXEL(-1);
+  out[0] = ijk[0];
+  out[1] = ijk[1];
+  out[2] = ijk[2];
+  return flat;
+}
+
 // Colour id of sample i (an interval id, uint8, or a LUT index, uint16); a
 // sample off the volume takes id0, the id of intensity 0.
 template <typename Id>

@@ -4,15 +4,16 @@ by gradient descent through the renderer.
 
 Counterpart of ``volumerenderingproject_tpu/diff/fit.py`` on its fused a1
 routes (fit.py:173-194, 212-215: plain, lit, LUT and scattered colour fits,
-and light fits), its smooth-mode route (fit.py:195-211) and its unlit a5
-route (fit.py:134-145): the loss renders through
+and light fits), its multichannel route (fit.py:160-172: the alpha column
+of a 4-D volume's fit), its smooth-mode route (fit.py:195-211) and its
+unlit a5 route (fit.py:134-145): the loss renders through
 ``ops/march_vjp.render_vrc_diff`` (forward the march kernel K1 at eps 0,
 backward the backward march kernel K4 on the GPU, in its plain, baked-light,
-LUT or LUT + baked-light variant; with a light, K4 baked plus 11 tangent
-marches of K1 baked; with scattering, ``render_vrc_scatter_diff``: K4
-baked plus 1 + K tangent marches of K1 baked), with ``Interp.TRILINEAR``
-through
-``ops/smooth_vjp.render_vrc_smooth_diff`` (K8 and K9, no volume gradient),
+LUT, LUT + baked-light or channel variant; with a light, K4 baked plus 11
+tangent marches of K1 baked; with scattering, ``render_vrc_scatter_diff``:
+K4 baked plus 1 + K tangent marches of K1 baked), with ``Interp.TRILINEAR``
+through ``ops/smooth_vjp.render_vrc_smooth_diff`` (K8 and K9, no volume
+gradient),
 or, with ``Algorithm.TEST``, through ``ops/a5_vjp.render_test_diff`` (K3
 and K6).  The optimizer is ``torch.optim.Adam`` with optax's defaults.
 Checkpoints are ``torch.save`` files holding the parameters and the
@@ -28,9 +29,10 @@ the 10 light parameters.
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 item): what only the JAX package's XLA scan fits (item 11a: conic lit fits,
 light fits of a5, smooth, LUT or scattered renders or from a non-uniform
-light colour, scattered fits of a5, smooth, conic or LUT renders; item 11d:
-fits of more than 16 intervals), multichannel fits (item 10) and sharded
-fits over a mesh (item 14).
+light colour, scattered fits of a5, smooth, conic or LUT renders, and
+4-D fits other than the ortho, unlit, nearest-voxel a1 alpha-column fit;
+item 11d: fits of more than 16 intervals) and sharded fits over a mesh
+(item 14).
 """
 
 from __future__ import annotations
@@ -126,7 +128,9 @@ def _render_with_density(volume, tf: TransferFunction, camera,
     ``config.interp`` (fit.py:124-215): nearest-voxel a1 folds
     ``config.density_scale`` in as well and takes lit and LUT configs, and
     with ``light`` shades with it, differentiably; scattered configs take
-    the scatter route first (a1 ortho, no LUT, the light static); smooth
+    the scatter route first (a1 ortho, no LUT, the light static), except
+    that an a1 4-D volume takes the multichannel route before it, as in
+    the JAX package (fit.py:160-172); smooth
     a1 takes it only at 1 (the JAX package's smooth kernels do too), with
     no volume gradient; a5 reads none and samples its own way whatever
     ``config.interp`` says.  A light, or scattering, on a config the fused
@@ -134,6 +138,10 @@ def _render_with_density(volume, tf: TransferFunction, camera,
     colors = torch.cat([tf.colors[:, :3], tf.colors[:, 3:4] * density], dim=1)
     tf2 = TransferFunction(lower=tf.lower, upper=tf.upper, colors=colors,
                            hg_g=tf.hg_g)
+    if volume.channels > 1 and config.algorithm is Algorithm.VRC:
+        # fit.py:160-172; render_vrc_diff checks what it fits
+        return render_vrc_diff(volume, tf2, camera, config,
+                               device=volume.data.device, light=light)
     if config.scattering:  # fit.py:173-186, before the light's route
         return render_vrc_scatter_diff(volume, tf2, camera, config,
                                        device=volume.data.device, light=light)

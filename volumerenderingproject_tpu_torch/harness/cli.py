@@ -5,10 +5,13 @@
            bounds, in smooth mode ``--interp trilinear``; ``--fit-light``:
            and the light's 10 parameters, from the default light) to a
            target PNG; lit (``--lighting``), LUT (``--config``) and
-           scattered (``--scattering``) renders fit too
+           scattered (``--scattering``) renders fit too, and a 4-D volume's
+           alpha column
 
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
-subcommand runs on CUDA unless ``--device cpu`` is given.
+subcommand runs on CUDA unless ``--device cpu`` is given.  ``--data`` takes
+a 3-D or 4-D (multichannel) NIfTI file; ``--conic`` casts perspective
+rays.
 """
 
 from __future__ import annotations
@@ -62,6 +65,8 @@ def _config(args):
         over["gradient_filter"] = args.gradient_filter
     if args.presmooth:
         over["presmooth_sigma"] = args.presmooth
+    if args.conic:
+        over["conic"] = True
     if args.interp:
         over["interp"] = Interp(args.interp)
     if args.scattering:
@@ -187,6 +192,8 @@ def _common(sp) -> None:
     sp.add_argument("--gradient-filter", choices=["central", "sobel"])
     sp.add_argument("--presmooth", type=float,
                     help="Gaussian sigma for the pre-render gradient filter")
+    sp.add_argument("--conic", action="store_true",
+                    help="perspective (conic) rays from the camera position")
     sp.add_argument("--scattering", action="store_true",
                     help="single scattering of the default light (HG phase "
                          "x light transmittance)")

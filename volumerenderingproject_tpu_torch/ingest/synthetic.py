@@ -5,6 +5,8 @@
   * :func:`corner_sphere` — BinaryLoader.cu:369-398
     ``loadZEROCornerSphereToMem``: radius n about the (0,0,0) corner,
     intensity = (r/R)²·255.
+  * :func:`rgb_sphere` — the JAX package's 4-D fixture (synthetic.py:44-56):
+    a centered sphere whose three channels encode x, y, z.
 
 Both are built in numpy, in float64 then rounded to float32, and only then
 moved to the device, so every device gets the same voxels.
@@ -38,4 +40,18 @@ def corner_sphere(n: int = 100, cal_max: float = 255.0,
     inside = r2 <= float(n) ** 2
     vals = (r2 / float(n) ** 2 * 255.0).astype(np.float32)
     data = np.where(inside, vals, np.float32(0.0)).astype(np.float32)
+    return make_volume(data, cal_max=cal_max, device=device)
+
+
+def rgb_sphere(n: int = 64, cal_max: float = 255.0, device=None) -> Volume:
+    """4-D multichannel fixture [n, n, n, 3]: a sphere of radius n/2 about
+    the grid center whose channels are x/n, y/n, z/n * 255 inside it, 0
+    outside."""
+    coords = np.arange(n, dtype=np.float64)
+    x, y, z = np.meshgrid(coords, coords, coords, indexing="ij")
+    c = n / 2.0
+    inside = (x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2 <= (n / 2.0) ** 2
+    chans = np.stack([x / n * 255.0, y / n * 255.0, z / n * 255.0],
+                     axis=-1).astype(np.float32)
+    data = np.where(inside[..., None], chans, np.float32(0.0))
     return make_volume(data, cal_max=cal_max, device=device)

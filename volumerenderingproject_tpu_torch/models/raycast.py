@@ -9,6 +9,11 @@ position -> modelAux (+0.5, kernel.cu:1046-1063) -> octree nearest voxel ->
 [-> + single-scattered light, ``config.scattering``] -> over-blend
 (kernel.cu:40-70, 194-225).
 
+A 4-D volume [X, Y, Z, C] (raycast.py:272-301) samples every channel at the
+a1 voxel: rgb from channels 0-2 (channel 0 as grey for C = 2) over the float
+cal_max, alpha from the TF of the channel mean; lit, it shades on the
+gradient of channel 0, and it ignores a LUT.
+
 a5 (kernel.cu:72-187): camera-grid positions through modelCam ->
 inverseView -> toVolume (kernel.cu:1177-1222), colour-space trilinear
 sampling of the 8 classified corners [-> Blinn-Phong on the containing
@@ -36,7 +41,7 @@ from ..ops import a5
 from ..ops import composite as comp
 from ..ops import conv3d, sampling, smooth
 from ..ops import phong
-from ..ops.march import check_supported, render_vrc_fused
+from ..ops.march import channel_mean, check_supported, render_vrc_fused
 from ..ops.phong import Light, default_light, is_lit, phong_shade
 from ..scene.camera import Camera
 from ..scene.transfer_function import TransferFunction
@@ -124,10 +129,14 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
     triple: the gradient at the sample's voxel (0 off the volume) is the
     Phong normal.  ``lut``, when set, is the dense [N, 4] TF table used
     instead of the interval scan (``config.tf_lut``).  ``scatter``, when
-    set, is :func:`_make_scatter`'s triple (raycast.py:142-222)."""
+    set, is :func:`_make_scatter`'s triple (raycast.py:142-222).  A 4-D
+    volume samples its channels (:func:`_vrc_sample_rgba_multichannel`)
+    whatever ``config.interp`` says, without the LUT."""
     p = positions + 0.5  # modelAux kernel.cu:1050
     flat = valid = None
-    if config.interp is Interp.TRILINEAR:
+    if volume.channels > 1:
+        rgba, flat, valid = _vrc_sample_rgba_multichannel(p, volume, tf)
+    elif config.interp is Interp.TRILINEAR:
         # smooth mode: trilinear intensities over the float cal_max (no
         # negative clamp) through the smooth TF (raycast.py:161-167)
         v = sampling.trilinear_intensity_sample(
@@ -154,7 +163,7 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
             flat, valid = sampling.octree_nn_index(volume.dims,
                                                    volume.octree_depth, p)
         normal = torch.where(valid[..., None], grad_flat[flat],
-                             torch.zeros((), dtype=_f32, device=v.device))
+                             torch.zeros((), dtype=_f32, device=p.device))
         rgba = torch.cat([phong_shade(rgba[..., :3], normal, view_dir, light),
                           rgba[..., 3:4]], dim=-1)
     if scatter is not None:
@@ -171,6 +180,25 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
                                           device=rgba.device)
         rgba = torch.cat([rgba[..., :3], a.clamp(0.0, 1.0)], dim=-1)
     return rgba
+
+
+def _vrc_sample_rgba_multichannel(p: torch.Tensor, volume: Volume,
+                                  tf: TransferFunction):
+    """4-D sampling (raycast.py:272-301) at post-modelAux points -> (rgba
+    [..., 4], flat, valid): every channel at the a1 voxel, ``max(v, 0)``,
+    0 off the volume, over the float ``cal_max`` (not trunc); rgb from
+    channels 0-2 (channel 0 broadcast to grey for C = 2), alpha from the
+    TF of the channel mean (``density_scale`` is the caller's)."""
+    flat, valid = sampling.octree_nn_index(volume.dims, volume.octree_depth,
+                                           p)
+    v = volume.data.reshape(-1, volume.channels)[flat].clamp_min(0.0)
+    v = torch.where(valid[..., None], v,
+                    torch.zeros((), dtype=_f32, device=v.device))
+    norm = v / volume.cal_max
+    rgb = norm[..., :3] if volume.channels >= 3 else norm[..., :1].expand(
+        *norm.shape[:-1], 3)
+    alpha = tf.classify(channel_mean(norm))[..., 3:4]
+    return torch.cat([rgb, alpha], dim=-1), flat, valid
 
 
 def _apply_scattering(rgba: torch.Tensor, tf: TransferFunction,
@@ -200,11 +228,9 @@ def _make_scatter(volume: Volume, tf: TransferFunction,
     """The per-call scattering inputs (raycast.py:254-270): the
     transmittance grid [X*Y*Z] of ``clip(alpha * density_scale)`` under a1
     value semantics (trunc(cal_max)), the light (the default one unless
-    given) and the ray directions."""
-    if volume.channels != 1:
-        raise NotImplementedError(
-            "multichannel volumes are not ported yet: ROADMAP.md item 10 "
-            "(multichannel)")
+    given) and the ray directions.  One channel only, as in the JAX
+    package."""
+    phong.check_scatter_channels(volume.channels)
     if light is None:
         light = default_light(volume.data.device)
     alpha = tf.classify(volume.data.clamp_min(0.0)
@@ -216,8 +242,10 @@ def _make_scatter(volume: Volume, tf: TransferFunction,
 
 
 def _gradient_flat(volume: Volume, config: RenderConfig) -> torch.Tensor:
-    """The shading normals [X*Y*Z, 3] of ``config``'s gradient filter."""
-    return conv3d.gradient_field(volume.data, config.gradient_filter,
+    """The shading normals [X*Y*Z, 3] of ``config``'s gradient filter, on
+    channel 0 of a 4-D volume (raycast.py:432, 543)."""
+    data = volume.data if volume.channels == 1 else volume.data[..., 0]
+    return conv3d.gradient_field(data, config.gradient_filter,
                                  config.presmooth_sigma).reshape(-1, 3)
 
 
@@ -331,7 +359,7 @@ def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
     each ray's ``-dir`` (ortho or conic); with ``config.tf_lut`` they
     classify through the dense LUT; with ``config.scattering`` they gain
     the light's single-scattered radiance along each ray's ``dir``."""
-    check_supported(config, volume.channels)
+    check_supported(config)
     origins = ray_origins(camera, config)
     dirs = primary_ray_dirs(camera, config)
     dev = origins.device
@@ -358,8 +386,10 @@ def render_test(volume: Volume, tf: TransferFunction, camera: Camera,
                 light: Light | None = None) -> torch.Tensor:
     """a5/TEST render by the plain scan -> [W, H, 4] (alpha all 1), or the
     (C, T) pair with ``mode="segment"``; lit as :func:`_a5_sample_fn`
-    says."""
-    a5.check_supported(config, volume.channels)
+    says.  A 4-D volume is read as the JAX scan reads it
+    (raycast.py:536): its flat array, channels interleaved, indexed by
+    voxel (the reference's ``flat < totaldim`` guard keeps every index in
+    the first X*Y*Z values), and lit on the gradient of channel 0."""
     x, y = pixel_grid(config, camera.device)
     return _march(_a5_sample_fn(volume, tf, camera, config, x, y, light),
                   config, mode, camera.device)
@@ -381,19 +411,23 @@ def render(volume: Volume, tf: TransferFunction, camera: Camera,
     CPU.  ``mode="scan"`` runs the plain front-to-back scan (no early
     termination) and ``mode="reference"`` the back-to-front one.  A lit
     render (``config.lighting``, or an explicit ``light``) shades with the
-    default light unless ``light`` is given; the fused marches take it
-    through per-voxel (M, S) factors, so an a1 fast render needs ortho rays
-    and a uniform light colour.  A smooth render (``Interp.TRILINEAR``,
-    a1) runs the smooth march (``ops/smooth.py``) in fast mode, which takes
-    the plain smooth classify only: lit, LUT and ``density_scale != 1``
-    smooth renders raise there and render in ``mode="scan"``.
+    default light unless ``light`` is given; the fused a1 march takes it
+    through per-voxel (M, S) factors on ortho rays under a uniform light
+    colour, and in the kernel (central differences at presmooth 0 only)
+    on conic rays or under any other colour; the fused a5 march through
+    the factors.  A 4-D a1 volume renders through the march's channel
+    variant, ortho or conic, unlit and without a LUT (a lit or LUT one in
+    ``mode="scan"``, as the JAX package's scan renders it); a 4-D a5 volume
+    renders in ``mode="scan"`` only.  A smooth render
+    (``Interp.TRILINEAR``, a1) runs the smooth march (``ops/smooth.py``)
+    in fast mode, which takes the plain smooth classify of one channel
+    only: lit, LUT, ``density_scale != 1`` and 4-D smooth renders raise
+    there and render in ``mode="scan"``.
     """
     dev = resolve_device(device)
     test = config.algorithm is Algorithm.TEST
-    if test:
-        a5.check_supported(config, volume.channels)
-    else:
-        check_supported(config, volume.channels)
+    if not test:
+        check_supported(config)
     if mode not in ("fast", "scan", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
     volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)

@@ -84,15 +84,6 @@ class A5Args(NamedTuple):
     sgrid: Optional[torch.Tensor] = None
 
 
-def check_supported(config: RenderConfig, channels: int) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
-    what the port's a5 path does not render yet."""
-    if channels != 1:
-        raise NotImplementedError(
-            "multichannel volumes are not ported yet: ROADMAP.md item 10 "
-            "(multichannel)")
-
-
 def a5_ids(volume, tf) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ids uint8 [X, Y, Z], id0 int64 scalar): the TF interval index of
     every voxel under a5 value semantics (``v / cal_max`` with the float
@@ -146,8 +137,13 @@ def prepare_a5(volume, tf, camera, config: RenderConfig,
                early_eps: float, light: Light | None = None) -> A5Args:
     """Prep for one a5 march; all tensors on the volume's device.
     ``light`` defaults to :func:`ops.phong.default_light` where the render
-    is lit or scattered."""
-    check_supported(config, volume.channels)
+    is lit or scattered.  A 4-D volume raises: the JAX package's a5 kernel
+    rejects it (pallas_a5.py:914-915) and its scan renders it."""
+    if volume.channels != 1:
+        raise NotImplementedError(
+            "the fused a5 march reads one channel, as the JAX package's a5 "
+            "kernel does (pallas_a5.py:914-915); mode='scan' renders a 4-D "
+            "volume as the JAX scan reads it")
     check_uniform_light(light)
     dev = volume.data.device
     tf = tf.to(dev)

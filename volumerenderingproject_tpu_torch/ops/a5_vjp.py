@@ -54,7 +54,11 @@ def check_diff_supported(config: RenderConfig, channels: int,
     differentiable a5 march of this slice does not compute (cf.
     ``a5_diff_config_ok``): it takes unlit, unscattered, one-channel renders
     of at most 16 intervals."""
-    a5.check_supported(config, channels)
+    if channels != 1:
+        raise NotImplementedError(
+            "a5 fits of 4-D volumes are not ported yet: ROADMAP.md item 11a "
+            "(the scan route for fits; the JAX package's a5 diff kernels take "
+            "one channel, and it fits 4-D volumes through its XLA scan)")
     if config.scattering:
         raise NotImplementedError(
             "scattered a5 fits are not ported yet: ROADMAP.md item 11a (the "

@@ -5,10 +5,11 @@ Counterpart of ``volumerenderingproject_tpu/ops/pallas_march.py`` in resident
 mode, and in its streamed modes too (``render_vrc_pallas_streamed``, for
 volumes beyond the TPU's VMEM): the volume stays in device memory at every
 size.  Ortho or conic rays, nearest-voxel sampling, classification by the
-interval scan or a dense LUT (``config.tf_lut``), baked Blinn-Phong shading
-(``config.lighting``, ortho) and single scattering (``config.scattering``,
-ortho), ``density_scale``, front-to-back (C, T) compositing and early ray
-termination.
+interval scan or a dense LUT (``config.tf_lut``), Blinn-Phong shading
+(``config.lighting``) baked (ortho, a uniform light colour) or in the
+kernel (conic rays or any light colour), single scattering
+(``config.scattering``, ortho), 4-D multichannel volumes, ``density_scale``,
+front-to-back (C, T) compositing and early ray termination.
 
 The a1 pipeline uses a voxel's intensity only through the transfer function
 (kernel.cu:64-67), so the march reads a per-voxel **colour-id grid** and
@@ -21,16 +22,26 @@ PyTorch):
   * :func:`material_ids` or :func:`lut_ids`: the id grid and ``id0``, the id
     of intensity 0, which every sample off the volume takes (0 for a LUT);
   * :func:`brick_occupancy`: 1 per 8³ brick holding any voxel of alpha != 0;
-  * ``ops/phong.bake_light_grids``: with lighting, the per-voxel factors
-    (M, S) such that a sample's shaded colour is ``rgb * M + S``
-    (pallas_march.py:1225-1270).  The view direction ``-camera.front`` is
-    the same for every ortho ray, so every input of the shading is a
-    per-voxel quantity; the bake is rebuilt for every frame;
+  * ``ops/phong.bake_light_grids``: with lighting on ortho rays and a
+    uniform light colour, the per-voxel factors (M, S) such that a sample's
+    shaded colour is ``rgb * M + S`` (pallas_march.py:1225-1270).  The view
+    direction ``-camera.front`` is the same for every ortho ray, so every
+    input of the shading is a per-voxel quantity; the bake is rebuilt for
+    every frame;
+  * :func:`light_vector`: with lighting on conic rays or under a light
+    colour that is not uniform, the in-kernel variant's light [10]
+    (pallas_march.py:1652-1667) beside the raw f32 volume, whose central
+    differences (0 past a face) are the normals (pallas_march.py:503-620).
+    It takes the central filter at presmooth 0 only, as the JAX kernel does;
   * ``ops/phong.bake_scatter_grid``: with scattering, the per-voxel
     single-scattered radiance, added to S (M = 1, S = 0 where unlit;
     pallas_march.py:1685-1692): ortho rays share the direction
     ``camera.front``, and the a1 material lookup and the transmittance's
     alpha both normalise by trunc(cal_max);
+  * :func:`mc_grids`: for a 4-D volume [X, Y, Z, C], the interval ids of
+    the channel mean of ``max(v, 0) / cal_max`` (the float cal_max) for
+    alpha, and 1 (C = 2, grey) or 3 normalised channel grids for rgb
+    (pallas_march.py:1612-1641); no lighting, LUT or scattering there;
   * :func:`scal_vector`: camera, screen, box and TF scalars for the kernel.
 
 Every skip the kernel makes is exact: a skipped sample has alpha exactly 0
@@ -55,7 +66,8 @@ from ..utils import transforms as T
 from ..utils.config import Algorithm, Interp, RenderConfig
 from . import _build
 from .phong import (Light, bake_light_grids, bake_scatter_grid,
-                    check_uniform_light, default_light, is_lit)
+                    check_scatter_channels, default_light, is_lit,
+                    light_to_vec, norm3, uniform_light)
 
 _f32 = torch.float32
 BRICK = 8
@@ -73,7 +85,8 @@ SCAL_LEN = 32
 # launches of the CUDA kernel since import (or since a caller reset them),
 # in all and by variant (:func:`variant`)
 launches = 0
-variant_launches = {"plain": 0, "lut": 0, "baked": 0, "lut_baked": 0}
+variant_launches = {"plain": 0, "lut": 0, "baked": 0, "lut_baked": 0,
+                    "lit": 0, "lut_lit": 0, "mc": 0}
 
 
 class MarchArgs(NamedTuple):
@@ -97,6 +110,12 @@ class MarchArgs(NamedTuple):
     # [N] uint8: the TF interval of each LUT entry (``lut_intervals``); set
     # by the differentiable march, whose ``colors`` are then the TF's [K, 4]
     itv: Optional[torch.Tensor] = None
+    # in-kernel lighting: the raw [X, Y, Z] f32 volume and the light [10]
+    vol: Optional[torch.Tensor] = None
+    lvec: Optional[torch.Tensor] = None
+    # 4-D volumes: [G, X, Y, Z] f32 normalised channels for rgb (G = 1, grey,
+    # or 3); ``ids`` then holds the interval ids of the channel mean
+    chans: Optional[torch.Tensor] = None
 
 
 def material_ids(data: torch.Tensor, tf, cal_max_trunc: torch.Tensor
@@ -124,6 +143,42 @@ def lut_ids(data: torch.Tensor, lut_n: int,
     vn = data.clamp_min(0.0) / cal_max_trunc
     idx = torch.round(vn * np.float32(lut_n - 1)).clamp(0, lut_n - 1)
     return idx.to(torch.uint16)
+
+
+def channel_mean(norm: torch.Tensor) -> torch.Tensor:
+    """The mean over the last (channel) axis as ``jnp.mean`` computes it on
+    the CPU, ``((n0 + n1) + n2 ...) * f32(1 / C)`` (XLA multiplies by the
+    reciprocal; ``torch.mean`` divides, an ulp off at C = 3): a mean an ulp
+    apart could cross a TF bound and change a voxel's interval."""
+    total = norm[..., 0]
+    for c in range(1, norm.shape[-1]):
+        total = total + norm[..., c]
+    return total * torch.tensor(np.float32(1.0 / norm.shape[-1]),
+                                device=norm.device)
+
+
+def mc_grids(volume, tf) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(ids uint8 [X, Y, Z], id0, chans [G, X, Y, Z] f32) of a 4-D volume
+    (pallas_march.py:1612-1641): ``norm = max(v, 0) / cal_max`` with the
+    float cal_max (not trunc, as in the multichannel sampler,
+    raycast.py:272-301), the interval ids of its channel mean at
+    normalisation 1, and the rgb grids: channels 0-2, or channel 0 alone
+    (grey) for C = 2."""
+    cal = volume.cal_max.to(device=volume.data.device, dtype=_f32)
+    norm = volume.data.clamp_min(0.0) / cal
+    ids, id0 = material_ids(channel_mean(norm), tf,
+                            torch.ones((), dtype=_f32, device=cal.device))
+    g = 1 if volume.channels < 3 else 3
+    return ids, id0, norm[..., :g].permute(3, 0, 1, 2).contiguous()
+
+
+def light_vector(light: Light) -> torch.Tensor:
+    """The in-kernel lighting variant's light [10] f32
+    (pallas_march.py:1652-1667): the unit direction (its length taken in
+    float64 and rounded once, as ``phong.norm3``), the colour, ambient,
+    diffuse, specular and shininess."""
+    v = light_to_vec(light)
+    return torch.cat([v[:3] / norm3(v[:3]), v[3:]]).contiguous()
 
 
 def brick_occupancy(ids: torch.Tensor, table: torch.Tensor,
@@ -184,13 +239,12 @@ def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
     ])
 
 
-def check_supported(config: RenderConfig, channels: int) -> None:
+def check_supported(config: RenderConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
     what the port's a1 path does not render yet: the plain scan computes
-    single-channel a1 with nearest-voxel or smooth (``Interp.TRILINEAR``)
+    one-channel a1 with nearest-voxel or smooth (``Interp.TRILINEAR``)
     sampling, lit or not, scattered or not, through the interval scan or a
-    LUT.  (a5 has its
-    own check, ``ops/a5.check_supported``; the fused march adds
+    LUT, and 4-D volumes by nearest voxel.  (The fused march adds
     :func:`check_fused_supported`, the smooth march
     ``ops/smooth.check_smooth_supported``.)"""
     if config.algorithm is Algorithm.POINT:
@@ -201,34 +255,60 @@ def check_supported(config: RenderConfig, channels: int) -> None:
         raise NotImplementedError(
             "Interp.TRILINEAR_COLOR is not ported yet: ROADMAP.md item 8 "
             "(a5 sampling)")
-    if channels != 1:
-        raise NotImplementedError(
-            "multichannel volumes are not ported yet: ROADMAP.md item 10 "
-            "(multichannel)")
 
 
-def check_fused_supported(config: RenderConfig, light: Light | None) -> None:
-    """What the fused march adds to :func:`check_supported`: lighting and
-    scattering only through the bakes, which need ortho rays and a uniform
-    light colour (NotImplementedError, naming the ROADMAP.md item).  (A LUT
-    of more than 1024 entries raises in :func:`lut_ids`.)  Smooth mode is
-    not this march's: a ValueError (``ops/smooth`` marches it)."""
+def check_fused_supported(config: RenderConfig, light: Light | None,
+                          channels: int = 1) -> str:
+    """What the fused march adds to :func:`check_supported` -> the kernel's
+    route for colour: ``"none"``, ``"baked"`` (the (M, S) bakes: lighting
+    on ortho rays under a uniform light colour, and scattering), ``"lit"``
+    (in-kernel lighting: conic rays or any light colour) or ``"mc"`` (a 4-D
+    volume).  What it does not compute raises NotImplementedError, naming
+    the ROADMAP.md item or ``mode='scan'``, which renders it: in-kernel
+    lighting takes central differences at presmooth 0 only, a 4-D volume
+    no lighting or LUT (the JAX package's rules, pallas_march.py:1356-1379,
+    1463-1469).  (A LUT of more than 1024 entries raises in
+    :func:`lut_ids`.)  Smooth mode is not this march's: a ValueError
+    (``ops/smooth`` marches it)."""
     if config.interp is Interp.TRILINEAR:
         raise ValueError("the nearest-voxel march does not sample "
                          "Interp.TRILINEAR: ops/smooth marches smooth mode")
-    if config.scattering and config.conic:
+    lit = is_lit(config, light)
+    if channels > 1:
+        if config.scattering:
+            check_scatter_channels(channels)
+        if lit or config.tf_lut:
+            raise NotImplementedError(
+                "the fused multichannel march classifies the channel mean "
+                "through the interval scan, unlit, as the JAX package's "
+                "kernel does (pallas_march.py:1356-1379); mode='scan' renders "
+                "a lit 4-D volume (and ignores a LUT there, as the JAX scan "
+                "does)")
+        return "mc"
+    if config.scattering:
+        if config.conic:
+            raise NotImplementedError(
+                "conic scattering in the fused march is not ported yet: "
+                "ROADMAP.md item 9 (the per-ray scattering term; the JAX "
+                "package takes its XLA scan there); mode='scan' renders it")
+        if not uniform_light(light):
+            raise NotImplementedError(
+                "fused scattering rides the baked S grid, which folds one "
+                "light colour, as in the JAX package (pallas_march.py:"
+                "1451-1456); mode='scan' renders it")
+        return "baked"
+    if not lit:
+        return "none"
+    if not config.conic and uniform_light(light):
+        return "baked"
+    if config.gradient_filter != "central" or config.presmooth_sigma != 0.0:
         raise NotImplementedError(
-            "conic scattering in the fused march is not ported yet: "
-            "ROADMAP.md item 9 (the per-ray scattering term; the JAX package "
-            "takes its XLA scan there); mode='scan' renders it")
-    if not (is_lit(config, light) or config.scattering):
-        return
-    if config.conic:
-        raise NotImplementedError(
-            "conic lighting in the fused march is not ported yet: ROADMAP.md "
-            "item 9 (K1's in-kernel lighting variant); mode='scan' renders "
-            "it")
-    check_uniform_light(light)
+            "in-kernel lighting (conic rays, or a light colour that is not "
+            "uniform) takes central-difference normals of the raw density, "
+            "as the JAX kernel does (pallas_march.py:1463-1469); other "
+            "gradient filters and presmoothing need ortho rays and a uniform "
+            "light colour for the bake; mode='scan' renders it")
+    return "lit"
 
 
 def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
@@ -236,13 +316,17 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
     """Prep for one march; all tensors on the volume's device.  ``light``
     defaults to :func:`ops.phong.default_light` where the render is lit or
     scattered."""
-    check_supported(config, volume.channels)
-    check_fused_supported(config, light)
+    check_supported(config)
+    route = check_fused_supported(config, light, volume.channels)
     dev = volume.data.device
     tf = tf.to(dev)
     camera = camera.to(dev)
     cal_max_trunc = torch.trunc(volume.cal_max.to(_f32))
-    if config.tf_lut:
+    chans = None
+    if route == "mc":
+        table = tf.colors
+        ids, id0, chans = mc_grids(volume, tf)
+    elif config.tf_lut:
         table = tf.to_lut(config.tf_lut)
         ids = lut_ids(volume.data, config.tf_lut, cal_max_trunc)
         id0 = torch.zeros((), dtype=torch.int64, device=dev)
@@ -258,14 +342,21 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
         full = torch.ones_like(full)
     scal = scal_vector(camera, config, volume.dims, volume.octree_depth,
                        cal_max_trunc, early_eps, full, id0)
-    mgrid, sgrid = bake_grids(volume, tf, camera, config, light,
-                              cal_max_trunc, cal_max_trunc)
+    mgrid = sgrid = vol = lvec = None
+    if route == "baked":
+        mgrid, sgrid = bake_grids(volume, tf, camera, config, light,
+                                  cal_max_trunc, cal_max_trunc)
+    elif route == "lit":
+        vol = volume.data.to(_f32).contiguous()
+        lvec = light_vector(default_light(dev) if light is None
+                            else light.to(dev))
     return MarchArgs(
         scal=scal, colors=table.to(_f32).contiguous(), ids=ids, occ=occ,
         nbricks=nb, dims=volume.dims, depth=volume.octree_depth,
         width=config.width, height=config.height,
         spr=config.samples_per_ray, conic=bool(config.conic),
-        density_scale=float(config.density_scale), mgrid=mgrid, sgrid=sgrid)
+        density_scale=float(config.density_scale), mgrid=mgrid, sgrid=sgrid,
+        vol=vol, lvec=lvec, chans=chans)
 
 
 def bake_grids(volume, tf, camera, config: RenderConfig,
@@ -331,10 +422,11 @@ def _rays(a: MarchArgs) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _sample_ids(a: MarchArgs, o: torch.Tensor, d: torch.Tensor):
     """``ids_at(i) -> (id int64 [W, H], valid bool [W, H], flat int64
-    [W, H])``: the colour id of every ray's sample i by the kernel's index
-    chain (modelAux +0.5, octree nearest voxel), whether it lies in the
-    volume, and its voxel's flat index (clamped into range); samples off
-    the volume take ``id0``."""
+    [W, H], ijk int64 [W, H, 3])``: the colour id of every ray's sample i by
+    the kernel's index chain (modelAux +0.5, octree nearest voxel), whether
+    it lies in the volume, its voxel's flat index (clamped into range) and
+    the voxel's indices as the chain computes them; samples off the volume
+    take ``id0``."""
     dev = a.ids.device
     s = a.scal
     d1, d2, d3 = a.dims
@@ -359,17 +451,70 @@ def _sample_ids(a: MarchArgs, o: torch.Tensor, d: torch.Tensor):
         ijk = torch.trunc((res + halfd) - halfL).to(torch.int64)
         flat = (ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3
                 + ijk[..., 2]).clamp(0, d1 * d2 * d3 - 1)
-        return torch.where(valid, ids_flat[flat], id0), valid, flat
+        return torch.where(valid, ids_flat[flat], id0), valid, flat, ijk
 
     return ids_at
+
+
+def _lit_shade(a: MarchArgs, d: torch.Tensor):
+    """``shade(rgb, valid, flat, ijk) -> rgb``: the in-kernel lighting
+    variant's Blinn-Phong (pallas_march.py:503-556, 594-620) in its float
+    order: the normal ``0.5 (v[+1] - v[-1])`` per axis on the raw volume (0
+    past a face, 0 off the volume), ``w = clip(|n| 1e3, 0, 1)``, the half
+    vector ``l - d`` of each ray's direction ``d`` scaled by ``1 / max(|h|,
+    1e-8)``, the specular ``|n.h| ** shininess``.  Lengths are square roots
+    taken in float64 and rounded once, the correctly rounded ``sqrtf`` of
+    the kernel."""
+    dev = a.vol.device
+    vflat = a.vol.reshape(-1)
+    last = vflat.numel() - 1
+    zero = torch.zeros((), dtype=_f32, device=dev)
+    one = zero + 1.0
+    tiny = torch.tensor(1e-8, dtype=_f32, device=dev)
+    lv = a.lvec
+    lx, ly, lz = lv[0], lv[1], lv[2]
+    lc = lv[3:6]
+    amb, dif, spe, shin = lv[6], lv[7], lv[8], lv[9]
+    d1, d2, d3 = a.dims
+    strides = (d2 * d3, d3, 1)
+
+    def length(x, y, z):
+        return torch.sqrt((((x * x + y * y) + z * z)).double()).to(_f32)
+
+    hx, hy, hz = lx - d[..., 0], ly - d[..., 1], lz - d[..., 2]
+    hinv = one / torch.maximum(length(hx, hy, hz), tiny)
+
+    def shade(rgb, valid, flat, ijk):
+        grad = []
+        for c in range(3):
+            def nb(step):
+                nbr = ijk[..., c] + step
+                ok = valid & (nbr >= 0) & (nbr < a.dims[c])
+                v = vflat[(flat + step * strides[c]).clamp(0, last)]
+                return torch.where(ok, v, zero)
+            grad.append(0.5 * (nb(1) - nb(-1)))
+        gx, gy, gz = grad
+        nn = length(gx, gy, gz)
+        ninv = one / torch.maximum(nn, tiny)
+        nx, ny, nz = gx * ninv, gy * ninv, gz * ninv
+        ndotl = ((nx * lx + ny * ly) + nz * lz).abs()
+        ndoth = (((nx * hx + ny * hy) + nz * hz) * hinv).abs()
+        spec = spe * torch.pow(ndoth, shin)
+        w = (nn * np.float32(1e3)).clamp(0.0, 1.0)[..., None]
+        lit = ((amb * rgb + ((dif * ndotl)[..., None] * rgb) * lc)
+               + spec[..., None] * lc)
+        return w * lit + (1.0 - w) * rgb
+
+    return shade
 
 
 def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel -> [W, H, 4]: the same function
     with the same float order, as a loop over samples vectorised over rays,
-    in every variant (interval ids or LUT indices, baked light or not).  It
-    marches every sample (the kernel's skips are exact) and stops each ray
-    where the kernel does.
+    in every variant (interval ids or LUT indices; baked light, in-kernel
+    light or none; a 4-D volume's channel grids).  It marches every sample
+    (the kernel's skips are exact) and stops each ray where the kernel
+    does.
 
     With ``stats``, ``stats["samples"]`` is set to the number of samples
     this input needs: those inside the dataset on rays not yet terminated.
@@ -381,18 +526,21 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
     ids_at = _sample_ids(a, o, d)
     colors = _effective_colors(a)
     eps = s[S_EPS].clamp_min(0.0)
+    one = torch.ones((), dtype=_f32, device=dev)
+    zero = torch.zeros((), dtype=_f32, device=dev)
     baked = a.mgrid is not None
     if baked:
         mflat, sflat = a.mgrid.reshape(-1), a.sgrid.reshape(-1)
-        one = torch.ones((), dtype=_f32, device=dev)
-        zero = torch.zeros((), dtype=_f32, device=dev)
+    if a.chans is not None:
+        cflat = a.chans.reshape(a.chans.shape[0], -1)
+    shade = _lit_shade(a, d) if a.vol is not None else None
 
     c = torch.zeros((w, h, 3), dtype=_f32, device=dev)
     t = torch.ones((w, h, 1), dtype=_f32, device=dev)
     needed = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(a.spr):
         active = t.abs() > eps
-        mid, valid, flat = ids_at(i)
+        mid, valid, flat, ijk = ids_at(i)
         rgba = colors[mid]
         alpha = rgba[..., 3:4]
         rgb = rgba[..., :3]
@@ -400,6 +548,11 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
             m = torch.where(valid, mflat[flat], one)[..., None]
             sh = torch.where(valid, sflat[flat], zero)[..., None]
             rgb = rgb * m + sh
+        elif shade is not None:
+            rgb = shade(rgb, valid, flat, ijk)
+        elif a.chans is not None:  # rgb from the channels; 0 off the volume
+            rgb = torch.where(valid[..., None], cflat[:, flat].movedim(0, -1),
+                              zero).expand(w, h, 3)
         wgt = t * alpha
         c = torch.where(active, c + wgt * rgb, c)
         if stats is not None:
@@ -413,9 +566,13 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
 
 
 def variant(a: MarchArgs) -> str:
-    """The kernel variant that ``a`` launches: plain, lut, baked or
-    lut_baked."""
+    """The kernel variant that ``a`` launches: plain, lut, baked,
+    lut_baked, lit, lut_lit or mc."""
     lut = a.ids.dtype == torch.uint16
+    if a.chans is not None:
+        return "mc"
+    if a.vol is not None:
+        return "lut_lit" if lut else "lit"
     if a.mgrid is None:
         return "lut" if lut else "plain"
     return "lut_baked" if lut else "baked"
@@ -428,38 +585,52 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         # scal, colors, K, ids, id_bytes, occ, nbx, nby, nbz, d1, d2, d3,
         # depth, width, height, spr, conic, density_scale, mgrid, sgrid,
-        # out, stream
+        # vol, lvec, chans, n_chans, out, stream
         fn.argtypes = ([p, p, i, p, i, p] + [i] * 11
-                       + [ctypes.c_float, p, p, p, p])
+                       + [ctypes.c_float, p, p, p, p, p, i, p, p])
         fn.restype = ctypes.c_int
     return lib
 
 
 def march_kernel(a: MarchArgs) -> torch.Tensor:
     """Launch ``csrc/march.cu`` on the current stream -> [W, H, 4]; the
-    variant follows the args: uint8 interval ids or uint16 LUT indices,
-    with baked (M, S) grids or without."""
+    variant follows the args (:func:`variant`): uint8 interval ids or
+    uint16 LUT indices, with baked (M, S) grids, with the volume and light
+    of in-kernel lighting, with a 4-D volume's channel grids, or plain."""
     global launches
     dev = a.ids.device
     if dev.type != "cuda":
         raise ValueError(f"march_kernel needs CUDA tensors, got {dev}")
     if a.ids.dtype not in (torch.uint8, torch.uint16):
         raise ValueError(f"ids: need uint8 or uint16, got {a.ids.dtype}")
-    baked = a.mgrid is not None
-    if baked != (a.sgrid is not None):
-        raise ValueError("mgrid and sgrid go together")
-    checks = [("scal", a.scal, _f32), ("colors", a.colors, _f32),
-              ("ids", a.ids, a.ids.dtype), ("occ", a.occ, torch.int32)]
+    baked, lit, mc = (a.mgrid is not None, a.vol is not None,
+                      a.chans is not None)
+    if baked != (a.sgrid is not None) or lit != (a.lvec is not None):
+        raise ValueError("mgrid and sgrid go together, and vol and lvec")
+    if baked + lit + mc > 1 or (mc and a.ids.dtype != torch.uint8):
+        raise ValueError("one of baked light, in-kernel light or channel "
+                         "grids (the last with interval ids)")
+    checks = [("scal", a.scal, _f32, (SCAL_LEN,)),
+              ("colors", a.colors, _f32, None),
+              ("ids", a.ids, a.ids.dtype, a.dims),
+              ("occ", a.occ, torch.int32, None)]
     if baked:
-        checks += [("mgrid", a.mgrid, _f32), ("sgrid", a.sgrid, _f32)]
-    for name, t, dtype in checks:
+        checks += [("mgrid", a.mgrid, _f32, a.dims),
+                   ("sgrid", a.sgrid, _f32, a.dims)]
+    if lit:
+        checks += [("vol", a.vol, _f32, a.dims), ("lvec", a.lvec, _f32, (10,))]
+    if mc:
+        checks.append(("chans", a.chans, _f32,
+                       (a.chans.shape[0],) + tuple(a.dims)))
+        if a.chans.shape[0] not in (1, 3):
+            raise ValueError("chans: need 1 or 3 channel grids")
+    for name, t, dtype, shape in checks:
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: need contiguous {dtype} on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    if a.scal.numel() != SCAL_LEN or a.ids.shape != a.dims or (
-            baked and (a.mgrid.shape != a.dims or a.sgrid.shape != a.dims)):
-        raise ValueError("scal, ids or the light grids do not match the "
-                         "march geometry")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
     id_bytes = a.ids.element_size()
     max_k = MAX_INTERVALS if id_bytes == 1 else MAX_LUT
     k = a.colors.shape[0]
@@ -468,13 +639,17 @@ def march_kernel(a: MarchArgs) -> torch.Tensor:
     lib = _kernel_lib()
     out = torch.empty((a.width, a.height, 4), dtype=_f32, device=dev)
     nbx, nby, nbz = a.nbricks
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         err = lib.vrp_march_a1(
             a.scal.data_ptr(), a.colors.data_ptr(), k, a.ids.data_ptr(),
             id_bytes, a.occ.data_ptr(), nbx, nby, nbz, *a.dims, a.depth,
             a.width, a.height, a.spr, int(a.conic), a.density_scale,
-            a.mgrid.data_ptr() if baked else None,
-            a.sgrid.data_ptr() if baked else None, out.data_ptr(),
+            ptr(a.mgrid), ptr(a.sgrid), ptr(a.vol), ptr(a.lvec),
+            ptr(a.chans), a.chans.shape[0] if mc else 0, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {err}")

@@ -4,10 +4,11 @@ functions that pair it with the forward march (``ops/march.py``), and the
 differentiable renders.
 
 Counterpart of ``volumerenderingproject_tpu/ops/pallas_march_vjp.py`` on the
-a1 path: ``_march_bwd_kernel`` in its plain, ``baked_light``, ``lut_n`` and
-LUT + baked-light variants (no slab or multichannel), the ``_make_core``
-custom VJP, the light-differentiable ``_make_lit_core`` and
-``render_vrc_pallas_diff``.
+a1 path: ``_march_bwd_kernel`` in its plain, ``baked_light``, ``lut_n``,
+LUT + baked-light and ``mc_grids`` variants (no slab), the ``_make_core``
+custom VJP, the light-differentiable ``_make_lit_core``, the multichannel
+``_make_mc_core`` and ``render_vrc_pallas_diff`` with
+``render_vrc_pallas_diff_multichannel``.
 
 Backward math (front-to-back over in (C, T) form, output alpha 1):
 
@@ -15,7 +16,9 @@ Backward math (front-to-back over in (C, T) form, output alpha 1):
     output:   rgb = C + T_N * bg
 
 where c'_s is the sample's colour c_s, or with baked light the shaded
-c_s M_v + S_v at its voxel v (M = 1, S = 0 off the volume).  With the
+c_s M_v + S_v at its voxel v (M = 1, S = 0 off the volume), or on a 4-D
+volume the channel rgb at v (0 off the volume): data, so the rgb columns
+of dL/dcolors are exactly 0 there and only the alpha column trains.  With the
 per-ray cotangents g (of rgb) and g_t (of T_N, through + T_N*bg):
 
     dL/dc_s = g * w_s * M_v
@@ -83,17 +86,47 @@ BLOCK = 16  # pixels per edge of the kernel's blocks; one partial per block
 # launches of the CUDA kernel since import (or since a caller reset them),
 # in all and by variant (``march.variant``: plain, lut, baked, lut_baked)
 launches = 0
-variant_launches = {"plain": 0, "lut": 0, "baked": 0, "lut_baked": 0}
+variant_launches = {"plain": 0, "lut": 0, "baked": 0, "lut_baked": 0,
+                    "mc": 0}
+
+
+def check_mc_fit_supported(config: RenderConfig, channels: int) -> None:
+    """A fit of a 4-D volume (cf. ``diff_pallas_mc_eligible``,
+    pallas_march_vjp.py:2228-2245): an a1 nearest-voxel render with ortho
+    rays, unlit, unscattered, without a LUT; the rest raises
+    NotImplementedError, naming its ROADMAP.md item or, for scattering,
+    the JAX package's reason."""
+    if channels == 1:
+        return
+    if config.scattering:
+        phong.check_scatter_channels(channels)
+    what = None
+    if config.algorithm is not Algorithm.VRC:
+        what = "a5 fits of 4-D volumes"
+    elif config.conic:
+        what = "conic fits of 4-D volumes"
+    elif config.lighting or config.tf_lut:
+        what = "lit or LUT fits of 4-D volumes"
+    elif config.interp is not Interp.NEAREST:
+        what = "smooth fits of 4-D volumes"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} are not ported yet: ROADMAP.md item 11a (the scan route "
+            "for fits; the JAX package's multichannel diff kernels take "
+            "ortho, unlit, unscattered nearest-voxel a1 renders, and it fits "
+            "the rest through its XLA scan)")
 
 
 def check_diff_supported(config: RenderConfig, channels: int,
                          num_intervals: int) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item, for what the
-    differentiable march does not compute (cf. ``diff_pallas_eligible``):
-    it takes one-channel, nearest-voxel renders of at most 16 intervals,
-    lit through the bake (ortho) or not, through the interval scan or a
-    LUT."""
-    march.check_supported(config, channels)
+    differentiable march does not compute (cf. ``diff_pallas_eligible``
+    and ``diff_pallas_mc_eligible``): it takes nearest-voxel renders of at
+    most 16 intervals, one-channel ones lit through the bake (ortho) or
+    not, through the interval scan or a LUT, and 4-D ones as
+    :func:`check_mc_fit_supported` says."""
+    march.check_supported(config)
+    check_mc_fit_supported(config, channels)
     if config.interp is Interp.TRILINEAR:
         raise NotImplementedError(
             "the differentiable nearest-voxel march (K4) does not sample "
@@ -104,7 +137,7 @@ def check_diff_supported(config: RenderConfig, channels: int,
         raise NotImplementedError(
             "conic lit fits are not ported yet: ROADMAP.md item 11a (the "
             "scan route for fits; the JAX package fits them through its XLA "
-            "scan) and item 9.3 (K1's in-kernel lighting variant)")
+            "scan, having no backward of its in-kernel lighting)")
     if num_intervals > MAX_INTERVALS:
         raise NotImplementedError(
             f"the differentiable march takes at most {MAX_INTERVALS} TF "
@@ -119,9 +152,9 @@ def check_light_fit_supported(config: RenderConfig, channels: int,
     a1 render with ortho rays, no LUT and a uniform light colour; the rest
     raises NotImplementedError naming its ROADMAP.md item."""
     if config.algorithm is not Algorithm.VRC or (
-            config.interp is Interp.TRILINEAR):
+            config.interp is Interp.TRILINEAR) or channels > 1:
         raise NotImplementedError(
-            "light fits of a5 or smooth renders are not ported yet: "
+            "light fits of a5, smooth or 4-D renders are not ported yet: "
             "ROADMAP.md item 11a (the scan route for fits; the JAX package "
             "fits them through its XLA scan)")
     check_diff_supported(config, channels, num_intervals)
@@ -140,8 +173,7 @@ def check_light_fit_supported(config: RenderConfig, channels: int,
             "light fits of scattered renders are not ported yet: ROADMAP.md "
             "item 11a (the scan route for fits; the JAX package fits a traced "
             "light of a scattered render through its XLA scan)")
-    c = light.color.reshape(-1)
-    if not bool((c == c[0]).all()):
+    if not phong.uniform_light(light):
         raise NotImplementedError(
             "a light fit from a non-uniform light colour is not ported yet: "
             "ROADMAP.md item 11a (the scan route for fits; the baked march "
@@ -170,8 +202,7 @@ def check_scatter_fit_supported(config: RenderConfig, channels: int,
         what = "scattered fits through a LUT"
     elif light is not None and any(t.requires_grad for t in light.fields()):
         what = "light fits of scattered renders"
-    elif light is not None and not bool(
-            (light.color.reshape(-1) == light.color.reshape(-1)[0]).all()):
+    elif not phong.uniform_light(light):
         what = "scattered fits under a non-uniform light colour"
     if what is not None:
         raise NotImplementedError(
@@ -263,8 +294,8 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
     """Plain PyTorch version of the backward kernel -> dL/dcolors [K, 4]:
     the kernel's two passes with its float order, as a loop over samples
     vectorised over rays, in every variant (interval ids or LUT indices,
-    baked light or not).  Each ray sums its terms per interval in sample
-    order; the rays' sums are added last."""
+    baked light or not, a 4-D volume's channel grids).  Each ray sums its
+    terms per interval in sample order; the rays' sums are added last."""
     if a.density_scale != 1.0:
         raise ValueError("fold density_scale into the colours first "
                          "(prepare_diff)")
@@ -278,15 +309,18 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
     k = colors.shape[0]
     itv = a.itv.long() if lut else None
     baked = a.mgrid is not None
+    mc = a.chans is not None
+    one = torch.ones((), dtype=_f32, device=dev)
+    zero_f = torch.zeros((), dtype=_f32, device=dev)
     if baked:
         mflat, sflat = a.mgrid.reshape(-1), a.sgrid.reshape(-1)
-        one = torch.ones((), dtype=_f32, device=dev)
-        zero_f = torch.zeros((), dtype=_f32, device=dev)
+    if mc:
+        cflat = a.chans.reshape(a.chans.shape[0], -1)
     gr, gg, gb = g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2]
 
     def sample(i):
         """(interval, alpha, g . c', M) of every ray's sample i."""
-        sid, valid, flat = ids_at(i)
+        sid, valid, flat, _ = ids_at(i)
         mid = itv[sid] if lut else sid
         rgba = colors[mid]
         r, g, b = rgba[..., 0], rgba[..., 1], rgba[..., 2]
@@ -295,6 +329,9 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
             m = torch.where(valid, mflat[flat], one)
             sh = torch.where(valid, sflat[flat], zero_f)
             r, g, b = r * m + sh, g * m + sh, b * m + sh
+        elif mc:  # c' = the channel rgb; 0 off the volume
+            ch = torch.where(valid, cflat[:, flat], zero_f)
+            r, g, b = (ch[0],) * 3 if ch.shape[0] == 1 else ch
         gd = (gr * r + gg * g) + gb * b
         return mid, rgba[..., 3], gd, m
 
@@ -321,8 +358,11 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
         num = suffix + bg_term
         da = t * gd - torch.where(denom != 0.0, num / denom, zero)
         t = t * denom
-        wm = w * m if baked else w  # dC/dc = w M
-        terms = torch.stack([wm * gr, wm * gg, wm * gb, da], dim=-1)
+        if mc:  # channel rgb is data: the rgb columns stay exactly 0
+            terms = torch.stack([zero.expand(shape)] * 3 + [da], dim=-1)
+        else:
+            wm = w * m if baked else w  # dC/dc = w M
+            terms = torch.stack([wm * gr, wm * gg, wm * gb, da], dim=-1)
         acc.scatter_add_(1, mid.reshape(-1, 1, 1).expand(-1, 1, 4),
                          terms.reshape(-1, 1, 4))
     return acc.sum(dim=0)
@@ -338,9 +378,10 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.vrp_march_bwd_a1
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # scal, colors, K, ids, id_bytes, itv, lut_n, mgrid, sgrid, d1, d2,
-        # d3, depth, width, height, spr, conic, g_rgb, g_t, partials, stream
-        fn.argtypes = ([p, p, i, p, i, p, i, p, p] + [i] * 8
+        # scal, colors, K, ids, id_bytes, itv, lut_n, mgrid, sgrid, chans,
+        # n_chans, d1, d2, d3, depth, width, height, spr, conic, g_rgb, g_t,
+        # partials, stream
+        fn.argtypes = ([p, p, i, p, i, p, i, p, p, p] + [i] * 9
                        + [p, p, p, p])
         fn.restype = ctypes.c_int
     return lib
@@ -351,7 +392,8 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
     """Launch ``csrc/march_bwd.cu`` on the current stream and sum its
     per-block partials -> dL/dcolors [K, 4].  The variant follows the args
     (``march.variant``): uint8 interval ids or uint16 LUT indices with
-    ``itv``, with baked (M, S) grids or without."""
+    ``itv``, with baked (M, S) grids or without, or with a 4-D volume's
+    channel grids."""
     global launches
     dev = a.ids.device
     if dev.type != "cuda":
@@ -361,8 +403,12 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
                          "(prepare_diff)")
     lut = a.ids.dtype == torch.uint16
     baked = a.mgrid is not None
+    mc = a.chans is not None
     if lut != (a.itv is not None) or baked != (a.sgrid is not None):
         raise ValueError("LUT indices need itv; mgrid and sgrid go together")
+    if a.vol is not None or (mc and (lut or baked)):
+        raise ValueError("the backward march has no in-kernel light, and "
+                         "its channel grids go with interval ids, unlit")
     checks = [("scal", a.scal, _f32, (SCAL_LEN,)),
               ("colors", a.colors, _f32, None),
               ("ids", a.ids, torch.uint16 if lut else torch.uint8, a.dims),
@@ -373,6 +419,11 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
     if baked:
         checks += [("mgrid", a.mgrid, _f32, a.dims),
                    ("sgrid", a.sgrid, _f32, a.dims)]
+    if mc:
+        checks.append(("chans", a.chans, _f32,
+                       (a.chans.shape[0],) + tuple(a.dims)))
+        if a.chans.shape[0] not in (1, 3):
+            raise ValueError("chans: need 1 or 3 channel grids")
     for name, t, dtype, shape in checks:
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: need contiguous {dtype} on {dev}, got "
@@ -395,6 +446,8 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
             a.ids.element_size(), a.itv.data_ptr() if lut else None, lut_n,
             a.mgrid.data_ptr() if baked else None,
             a.sgrid.data_ptr() if baked else None,
+            a.chans.data_ptr() if mc else None,
+            a.chans.shape[0] if mc else 0,
             *a.dims, a.depth, a.width, a.height, a.spr, int(a.conic),
             g_rgb.data_ptr(), g_t.data_ptr(), partials.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -612,7 +665,9 @@ def render_vrc_diff(volume, tf: TransferFunction, camera,
     ``tf.colors`` through the forward march (K1) and the backward march
     (K4) on ``device`` (CUDA unless given); CPU tensors take their plain
     versions.  Lit configs shade with the default light's baked grids, LUT
-    configs classify through ``tf.to_lut``.  With ``light``, the render is
+    configs classify through ``tf.to_lut``; on a 4-D volume only the alpha
+    column gets a gradient (rgb is the data's; :func:`check_mc_fit_supported`
+    says which configs).  With ``light``, the render is
     shaded with it and differentiable with respect to its fields too
     (:func:`check_light_fit_supported`).  Equal in value to
     ``render(..., mode="scan")``; the gradient equals autograd through that

@@ -154,16 +154,36 @@ def is_lit(config: RenderConfig, light: Light | None) -> bool:
                                      and not config.scattering)
 
 
+def uniform_light(light: Light | None) -> bool:
+    """Is the light's colour the same in every channel (the default light's
+    is)?  The bakes fold one colour into M and S."""
+    if light is None:
+        return True
+    c = light.color.reshape(-1)
+    return bool((c == c[0]).all())
+
+
+def check_scatter_channels(channels: int) -> None:
+    """Scattering classifies a per-voxel material, which a 4-D volume does
+    not have: it raises, with the JAX package's reason, in every mode and
+    in a fit."""
+    if channels != 1:
+        raise NotImplementedError(
+            "config.scattering supports single-channel volumes (the "
+            "multichannel sampler has no per-voxel material; "
+            "raycast.py:254-262)")
+
+
 def check_uniform_light(light: Light | None) -> None:
-    """The bakes fold one light colour into M and S: an explicit light of
-    another colour per channel raises, naming its ROADMAP.md item."""
-    if light is not None:
-        c = light.color.reshape(-1)
-        if not bool((c == c[0]).all()):
-            raise NotImplementedError(
-                "a non-uniform light colour in the fused marches is not "
-                "ported yet: ROADMAP.md item 9 (K1's in-kernel lighting "
-                "variant); mode='scan' renders it")
+    """The fused a5 march shades through the bakes, which fold one light
+    colour into M and S: an explicit light of another colour per channel
+    raises, as the JAX package's a5 kernel does (pallas_a5.py:932-935)."""
+    if not uniform_light(light):
+        raise NotImplementedError(
+            "the fused a5 march shades through the (M, S) bake, which folds "
+            "one light colour, as the JAX package's a5 kernel does "
+            "(pallas_a5.py:932-935); mode='scan' renders a light colour that "
+            "is not uniform")
 
 
 def bake_light_grids(data: torch.Tensor, config: RenderConfig, light: Light,

@@ -73,8 +73,8 @@ def check_smooth_supported(config: RenderConfig, num_intervals: int,
     """Raise NotImplementedError, naming the ROADMAP.md item, for a smooth
     render the fused march does not compute (the exclusions of
     ``smooth_pallas_eligible``, pallas_smooth.py:706-721); ``mode="scan"``
-    renders each of them.  Multichannel volumes and
-    ``Interp.TRILINEAR_COLOR`` raise earlier, in ``march.check_supported``;
+    renders each of them.  ``Interp.TRILINEAR_COLOR`` raises earlier, in
+    ``march.check_supported``, and a 4-D volume in :func:`prepare_smooth`;
     a config that is not smooth is a ValueError."""
     if config.interp is not Interp.TRILINEAR:
         raise ValueError("the smooth march samples Interp.TRILINEAR only")
@@ -127,8 +127,16 @@ def prepare_smooth(volume, tf, camera, config: RenderConfig,
                    early_eps: float, light=None) -> SmoothArgs:
     """Prep for one smooth march; all tensors on the volume's device (the
     TF's tensors keep any autograd history: the differentiable march
-    detaches them itself)."""
-    march.check_supported(config, volume.channels)
+    detaches them itself).  A 4-D volume raises: the JAX package's smooth
+    kernel takes one channel (pallas_smooth.py:712) and its scan samples a
+    4-D volume by nearest voxel whatever ``config.interp`` says."""
+    march.check_supported(config)
+    if volume.channels != 1:
+        raise NotImplementedError(
+            "the smooth march samples one channel, as the JAX package's "
+            "smooth kernel does; mode='scan' renders a 4-D volume (by "
+            "nearest voxel, as the JAX scan does whatever config.interp "
+            "says)")
     check_smooth_supported(config, tf.num_intervals, light)
     dev = volume.data.device
     camera = camera.to(dev)
