@@ -218,9 +218,39 @@ in-kernel lighting (conic rays, any light colour), with their own seeds:
      3-channel volumes (the start scales the alphas of intervals 1..3 by
      MC_FIT_ALPHA_SCALE): 1 K1 mc and 1 K4 mc a step, no other variant.
 
+Sharded renders (``parallel/render_dist.py`` on ``torch.distributed``: the
+work unit of each rank is K1's segment or slab mode or K3's segment mode),
+with their own seeds:
+
+  3p. K1's work units against ``march_plain``, bit-exact at eps 0: on edge
+     inputs (13x17x20 at cal_max 200.9, 61x37 pixels, 37 samples: 23
+     columns from 17 and samples 13..31, the first, a middle and the last
+     slab, negative front.x, conic, LUT 96, a 3-channel volume,
+     TF(0).alpha -3e-5 and 0.05, eps 1e-3), then every unit of a (2, 2, 2)
+     mesh of 700x700x500 on both volumes (slabs of 91 planes on MNI-dims;
+     plain, LUT 256), of (2, 2, 1) at ``sobel_lit_700`` (baked) and conic
+     lit, of (2, 2, 2) at ``multichannel_304`` on the 3-channel MNI-dims
+     volume and one unit of dense_320 at 304x304x300; the segment and slab
+     units' times at eps 1e-3, the plain version's and the bound;
+  3q. K3's segment mode against ``march_a5_plain``, bit-exact at eps 0: the
+     a5 edge inputs at odd offsets, and the (2, 2, 1) units of ``a5_500``
+     and a5 lit 300^3 (baked) on both volumes; times and the bound;
+  4h. 4 ranks on the one card joined by gloo (``parallel/launch.spawn`` of
+     ``tests/_torch_shard_worker.py``; the gathers go through the host): a1 700x700x500 on (2, 2, 1) and
+     (1, 2, 2) on both volumes, conic a1 on (1, 2, 2), a5 ``a5_500`` on
+     (2, 2, 1), each at eps 0 (every rank within TOL_EXACT of
+     ``render()``) and at eps 1e-3 (within TOL_EPS of the exact render; 4
+     timed frames after one, ms/frame time-shared by the four processes);
+     each rank's K1 segment / slab and K3 segment launches set to 0 just
+     before and read just after; then 1 rank through NCCL, bit-exact to
+     ``render()``;
+  5j. the CLI ``render --mesh rays=2,samples=2 --backend gloo`` against the
+     whole render's PNG (at most one level apart, on under 1 % of the
+     channels), started with the other CLI chains.
+
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
-of 3 windows.
+of 3 windows; a plain version's time is one call after an untimed one.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the main paths, its error against its plain version, its
@@ -398,6 +428,14 @@ CONIC_LIT = dict(width=W, height=H, samples_per_ray=SPR, lighting=True,
 # volume).  Per ray the half vector and 1 / max(|h|, 1e-8): 11
 FLOPS_PER_LIT_SAMPLE = 64
 FLOPS_PER_LIT_RAY = 11
+# sharded renders (parallel/render_dist.py): each kernel's work units at the
+# main paths' shapes, and ranks on the one card joined by gloo
+SHARD_MESH = (2, 2, 2)  # the work units held against the plain versions
+SHARD_RUN_MESHES = ((2, 2, 1), (1, 2, 2))  # 4 ranks through gloo
+SHARD_RANKS = 4
+SHARD_FRAMES = 4  # timed frames a job at eps 1e-3, after one untimed
+TOL_PNG_LEVELS = 1  # sharded vs whole CLI PNG, levels of 8 bits
+PNG_SHARE = 0.01  # and the share of channels that may differ at all
 # timed windows per measurement; the median is reported
 TIMING_WINDOWS = 3
 # GPU cycles spun before a kernel's timed window (~50 ms at 1.98 GHz), so
@@ -476,6 +514,13 @@ def timed_ms(fn, reps: int, prefill: bool = False,
     if label:
         log(f"{label}: windows {[round(w, 5) for w in times]} ms")
     return sorted(times)[len(times) // 2]
+
+
+def time_plain(fn) -> float:
+    """ms of one call of a plain version after one untimed call: its time
+    is its host launches, seconds at the main paths' shapes, so one window
+    is enough (and keeps the script inside its time limit)."""
+    return timed_ms(fn, 1, windows=1)
 
 
 def orbit_cameras(P, rng, frames: int = FRAMES, radius: float = 1.5):
@@ -870,7 +915,7 @@ def a5_kernel_phases(P, a5, a5_vjp, volumes, tf, edge, rng, per_volume):
         prep_ms = timed_ms(lambda: a5.prepare_a5(vol, tf, cams[0], main_cfg,
                                                  1e-3), 5)
         samples = samples_needed(a5.march_a5_plain, args)
-        plain_ms = timed_ms(lambda: a5.march_a5_plain(args[0]), 1)
+        plain_ms = time_plain(lambda: a5.march_a5_plain(args[0]))
         rays = A5_W * A5_H
         bound_ms, bound_by, ops_ms, bytes_ms = bound(
             samples * FLOPS_PER_A5_SAMPLE + rays * FLOPS_PER_A5_RAY,
@@ -909,7 +954,7 @@ def a5_kernel_phases(P, a5, a5_vjp, volumes, tf, edge, rng, per_volume):
         k6_abs, k6_rel = max(k6_abs, e_abs), max(k6_rel, e_rel)
         k6_ms = timed_ms(lambda: a5_vjp.march_a5_bwd_kernel(a, *g), 5,
                          prefill=True, label=f"a5 {vname}: K6")
-        k6_plain_ms = timed_ms(lambda: a5_vjp.march_a5_bwd_plain(a, *g), 1)
+        k6_plain_ms = time_plain(lambda: a5_vjp.march_a5_bwd_plain(a, *g))
         k3_eps0_ms = timed_ms(lambda: a5.march_a5_kernel(a), 5, prefill=True)
         k = a.colors.shape[0]
         rays = A5_W * A5_H
@@ -1165,7 +1210,7 @@ def lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text, rng,
                 bake_ms = timed_ms(lambda: phong.bake_light_grids(
                     vol.data, cfg, light, -cams[0].front), 3)
             samples = samples_needed(march.march_plain, args)
-            plain_ms = timed_ms(lambda: march.march_plain(args[0]), 1)
+            plain_ms = time_plain(lambda: march.march_plain(args[0]))
             rays = cfg.width * cfg.height
             ops = samples * (FLOPS_PER_SAMPLE + (
                 FLOPS_PER_BAKED_SAMPLE if cfg.lighting else 0))
@@ -1219,7 +1264,7 @@ def lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text, rng,
         bake_ms = timed_ms(lambda: phong.bake_light_grids(
             vol.data, cfg, light, -cams[0].front), 3)
         samples = samples_needed(a5.march_a5_plain, args)
-        plain_ms = timed_ms(lambda: a5.march_a5_plain(args[0]), 1)
+        plain_ms = time_plain(lambda: a5.march_a5_plain(args[0]))
         rays = cfg.width * cfg.height
         bound_ms, bound_by, ops_ms, bytes_ms = bound(
             samples * (FLOPS_PER_A5_SAMPLE + FLOPS_PER_BAKED_SAMPLE)
@@ -1517,7 +1562,7 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             smooth.march_smooth_plain(x, stats)
             live += stats["samples"] / FRAMES
             inside += stats["inside"] / FRAMES
-        plain_ms = timed_ms(lambda: smooth.march_smooth_plain(args[0]), 1)
+        plain_ms = time_plain(lambda: smooth.march_smooth_plain(args[0]))
         k = tf.num_intervals
         rays = W * H
         ops = (inside * (FLOPS_PER_SMOOTH_SAMPLE
@@ -1569,10 +1614,10 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             splat_ms = timed_ms(
                 lambda: smooth_vjp.march_smooth_bwd_kernel(a, *g, True), 5,
                 prefill=True, label=f"smooth {vname}: K9 with the splat")
-            plain_ms = timed_ms(
-                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g), 1)
-            plain_splat_ms = timed_ms(
-                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g, True), 1)
+            plain_ms = time_plain(
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g))
+            plain_splat_ms = time_plain(
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g, True))
             fwd_ms = timed_ms(lambda: smooth.march_smooth_kernel(a), 5,
                               prefill=True)
             stats = {}
@@ -1888,7 +1933,7 @@ def k4_variant_phases(P, march, march_vjp, volumes, tf, from_text, rng,
             errs[var] = [max(errs[var][0], e_abs), max(errs[var][1], e_rel)]
             ms = timed_ms(lambda: march_vjp.march_bwd_kernel(a, *g), 5,
                           prefill=True, label=label)
-            plain_ms = timed_ms(lambda: march_vjp.march_bwd_plain(a, *g), 1)
+            plain_ms = time_plain(lambda: march_vjp.march_bwd_plain(a, *g))
             rays = cfg.width * cfg.height
             samples = rays * cfg.samples_per_ray  # every sample: no skip
             # at eps 0 no ray stops early: the samples inside the volume
@@ -2248,7 +2293,7 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
                 f"{e2:.3e} (tol {TOL_EPS:g})")
             check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
             samples = samples_needed(plain, [a])
-            plain_ms = timed_ms(lambda: plain(a), 1)
+            plain_ms = time_plain(lambda: plain(a))
             per = (FLOPS_PER_A5_SAMPLE if is_a5 else FLOPS_PER_SAMPLE) + (
                 FLOPS_PER_BAKED_SAMPLE if cfg.lighting else 0)
             b = bound(samples * per + (rays * FLOPS_PER_A5_RAY if is_a5
@@ -2281,7 +2326,7 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
             ms = timed_ms(lambda: kernel(a, *g), 5, prefill=True, label=label)
             peak, own = peak_mb(m0)
             e_abs, e_rel = bwd_vs_plain(kernel, plain, label, a, g)
-            plain_ms = timed_ms(lambda: plain(a, *g), 1)
+            plain_ms = time_plain(lambda: plain(a, *g))
             k = a.colors.shape[0]
             total = rays * cfg.samples_per_ray
             fwd_plain = a5.march_a5_plain if is_a5 else march.march_plain
@@ -2329,7 +2374,7 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
         check(e <= TOL_SMOOTH, f"{vname}/k8: max err {e}")
         stats = {}
         smooth.march_smooth_plain(a, stats)
-        plain_ms = timed_ms(lambda: smooth.march_smooth_plain(a), 1)
+        plain_ms = time_plain(lambda: smooth.march_smooth_plain(a))
         k = tf.num_intervals
         b = bound(stats["inside"] * (FLOPS_PER_SMOOTH_SAMPLE + (k - 1)
                                      * FLOPS_PER_SMOOTH_SAMPLE_PER_INTERVAL)
@@ -2350,8 +2395,8 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
                       prefill=True, label=f"{vname}/k9")
         peak, own = peak_mb(m0)
         errs = smooth_bwd_vs_plain(smooth_vjp, f"{vname}/k9", a, g)
-        plain_ms = timed_ms(lambda: smooth_vjp.march_smooth_bwd_plain(a, *g),
-                            1)
+        plain_ms = time_plain(
+            lambda: smooth_vjp.march_smooth_bwd_plain(a, *g))
         total = rays * cfg.samples_per_ray
         b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False),
                   read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
@@ -2861,7 +2906,7 @@ def mc_kernel_phases(P, march, march_vjp, mc_vols, seeded, tf, rng,
         prep_ms = timed_ms(lambda: march.prepare(vol, tf, cams[0], main_cfg,
                                                  1e-3), 3)
         samples = samples_needed(march.march_plain, args)
-        plain_ms = timed_ms(lambda: march.march_plain(args[0]), 1, windows=1)
+        plain_ms = time_plain(lambda: march.march_plain(args[0]))
         grids = args[0].chans
         nbytes = bound_bytes(args[0], rays, samples) + read_bytes(
             grids.numel() * 4, samples * grids.shape[0] * 4)
@@ -2870,8 +2915,8 @@ def mc_kernel_phases(P, march, march_vjp, mc_vols, seeded, tf, rng,
         # K4 mc at eps 0: every sample of every ray
         bwd_ms = timed_ms(lambda: march_vjp.march_bwd_kernel(a, *g), 5,
                           prefill=True, label=f"mc {vname}: K4 mc")
-        bwd_plain_ms = timed_ms(lambda: march_vjp.march_bwd_plain(a, *g), 1,
-                                windows=1)
+        bwd_plain_ms = time_plain(
+            lambda: march_vjp.march_bwd_plain(a, *g))
         k = a.colors.shape[0]
         total = rays * cfg.samples_per_ray
         inside = samples_needed(march.march_plain, [a])
@@ -2997,8 +3042,8 @@ def lit_inkernel_phase(P, march, phong, volumes, tf, rng, res) -> dict:
             prep_ms = timed_ms(lambda: march.prepare(
                 vol, tf, cams[0], main_cfg, 1e-3), 3)
             samples = samples_needed(march.march_plain, args[:2])
-            plain_ms = timed_ms(lambda: march.march_plain(args[0]), 1,
-                                windows=1)
+            plain_ms = time_plain(
+                lambda: march.march_plain(args[0]))
             nbytes = bound_bytes(args[0], rays, samples) + read_bytes(
                 args[0].vol.numel() * 4, samples * 6 * 4)
             bound_ms, bound_by, ops_ms, bytes_ms = bound(
@@ -3153,6 +3198,337 @@ def mc_lit_small_phase(P, march, sphere, tf) -> float:
     return worst
 
 
+def mesh_coords(shape):
+    """Every coordinate of a (rays, samples, volume) mesh of ``shape``."""
+    return [(r, s, v) for r in range(shape[0]) for s in range(shape[1])
+            for v in range(shape[2])]
+
+
+def unit_kwargs(vol, cfg, shape, coords) -> dict:
+    """The keywords of ``march.prepare`` / ``a5.prepare_a5`` for the work
+    unit at ``coords`` of a ``shape`` mesh, as parallel/render_dist.py
+    cuts it."""
+    from volumerenderingproject_tpu_torch.parallel import render_dist
+
+    w, s, slab = render_dist.shard_sizes(vol, cfg, shape)
+    ri, si, vi = coords
+    kw = dict(x_offset=ri * w, local_width=w, s_start=si * s, s_count=s,
+              segment=True)
+    if slab:
+        kw.update(x0=vi * slab, slab_x=slab)
+    return kw
+
+
+def seg_exact(kernel, plain, label, a) -> float:
+    """A work unit's kernel (C, T) against its plain version's: bit-exact
+    -> max abs error (0)."""
+    import torch
+
+    got = kernel(a)
+    want = plain(a)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{label}: not finite")
+    e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    log(f"{label}: kernel vs plain (C, T) max err {e:.3e} (must be 0)")
+    check(e == 0.0, f"{label}: max err {e}")
+    return e
+
+
+def unit_timing(P, kernel, plain, args, label, rays, grid_bytes,
+                flops_per_sample, flops_per_ray, id_reads=1) -> dict:
+    """ms per launch over every work unit in ``args`` (eps 1e-3), the
+    plain version's ms on the first, the mean samples a unit needs and the
+    bound of the mean unit."""
+    def units():
+        for a in args:
+            kernel(a)
+
+    ms = timed_ms(units, 5, prefill=True, label=label) / len(args)
+    plain_ms = time_plain(lambda: plain(args[0]))
+    samples = samples_needed(plain, args)
+    a = args[0]
+    size = a.ids.element_size()
+    nbytes = (read_bytes(grid_bytes, samples * id_reads * size)
+              + a.colors.numel() * 4 + rays * 16)
+    occ = getattr(a, "occ", None)
+    if occ is not None:
+        nbytes += occ.numel() * 4
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(
+        samples * flops_per_sample + rays * flops_per_ray, nbytes)
+    log(f"{label}: {ms:.4f} ms a unit, plain {plain_ms:.2f} ms, needed "
+        f"samples a unit {samples}, bound {ops_ms:.4f} ms (operations) / "
+        f"{bytes_ms:.4f} ms (bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, samples=samples, units=len(args))
+
+
+def shard_kernel_phases(P, march, a5, volumes, mc_vols, dense, tf, a5_edge,
+                        rng, res) -> dict:
+    """Phases 3p (K1's segment and slab modes against ``march_plain``) and
+    3q (K3's segment mode against ``march_a5_plain``), each bit-exact at eps
+    0 -> max abs errors; the units' times and bounds go into ``res``."""
+    import torch
+
+    errs = {"segment": 0.0, "slab": 0.0, "a5_segment": 0.0}
+
+    def k1(label, a):
+        key = "slab" if a.slab_x else "segment"
+        errs[key] = max(errs[key], seg_exact(
+            march.march_kernel, march.march_plain, label, a))
+
+    def k3(label, a):
+        errs["a5_segment"] = max(errs["a5_segment"], seg_exact(
+            a5.march_a5_kernel, a5.march_a5_plain, label, a))
+
+    # ---- 3p. edge inputs: odd widths and sample starts, the first, a
+    # middle and the last slab, negative front.x, TF(0).alpha -3e-5 / 0.05
+    edge_rng = np.random.default_rng(50)
+    odd = P.make_volume(edge_rng.uniform(-30, 255, (13, 17, 20))
+                        .astype(np.float32), cal_max=200.9)
+    odd4 = P.make_volume(edge_rng.uniform(-20, 255, (13, 17, 20, 3))
+                         .astype(np.float32), cal_max=200.9)
+    small = P.RenderConfig(width=61, height=37, samples_per_ray=37)
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    neg_x = P.Camera.initial(position=(0.6, 0.2, 0.7))
+    check(float(neg_x.front[0]) < 0.0, "front.x of the mirrored camera")
+    segs = [dict(x_offset=17, local_width=23, s_start=13, s_count=19),
+            dict(x_offset=0, local_width=61, s_start=29, s_count=8)]
+    slabs = [dict(x0=0, slab_x=5), dict(x0=5, slab_x=3),
+             dict(x0=8, slab_x=5)]
+    for tname, tfx in (("tf", tf),
+                       ("alpha0_-3e-5", tf_with_alpha(P, tf, 0, -3e-5)),
+                       ("alpha0_0.05", tf_with_alpha(P, tf, 0, 0.05))):
+        for cname, cam, c in (("ortho", near, small),
+                              ("negative_front_x", neg_x, small),
+                              ("conic", near, small.replace(conic=True)),
+                              ("lut96", near, small.replace(tf_lut=96))):
+            for u in segs + [dict(segs[0], **s) for s in slabs]:
+                k1(f"3p edge/{tname}/{cname}/{u}",
+                   march.prepare(odd, tfx, cam, c, 0.0, segment=True, **u))
+        for s in slabs:
+            k1(f"3p edge/{tname}/mc/{s}",
+               march.prepare(odd4, tfx, near, small, 0.0, segment=True,
+                             **segs[0], **s))
+        k1(f"3p edge/{tname}/eps1e-3",
+           march.prepare(odd, tfx, near, small, 1e-3, segment=True,
+                         **segs[0], **slabs[1]))
+
+    # ---- 3p. the units of a (2, 2, 2) mesh at the main paths' shapes: the
+    # MNI-dims volume splits into slabs of 91 planes
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR)
+    orbit_cam = orbit_cameras(P, rng, 1)[0]
+    conic_cam = P.Camera.initial(position=(0.9, 0.5, 1.0))
+    cases = [("plain", cfg, orbit_cam, SHARD_MESH),
+             ("lut256", cfg.replace(tf_lut=256), orbit_cam, SHARD_MESH),
+             ("baked_sobel_lit_700",
+              P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"]), orbit_cam,
+              (2, 2, 1)),
+             ("conic_lit", P.RenderConfig(**CONIC_LIT), conic_cam, (2, 2, 1))]
+    for vname, vol in volumes.items():
+        for name, c, cam, shape in cases:
+            for coords in mesh_coords(shape):
+                k1(f"3p {vname}/{name}/{coords}", march.prepare(
+                    vol, tf, cam, c, 0.0, **unit_kwargs(vol, c, shape,
+                                                        coords)))
+    mc_cfg = P.RenderConfig(**MC_SHAPE)
+    mni3 = mc_vols["mni3_182x218x182"]
+    for coords in mesh_coords(SHARD_MESH):
+        k1(f"3p mni3/mc/{coords}", march.prepare(
+            mni3, tf, orbit_cam, mc_cfg, 0.0,
+            **unit_kwargs(mni3, mc_cfg, SHARD_MESH, coords)))
+    lcfg = P.RenderConfig(**LARGE_SHAPE)
+    k1("3p dense_320/(1, 1, 1)", march.prepare(
+        dense, tf, orbit_cam, lcfg, 0.0,
+        **unit_kwargs(dense, lcfg, SHARD_MESH, (1, 1, 1))))
+
+    # times and bounds of the units at the render path's inputs (eps 1e-3)
+    vol = volumes["mni_dims_182x218x182"]
+    main_cfg = cfg.replace(early_termination=1e-3)
+    for key, shape in (("segment", (2, 2, 1)), ("slab", SHARD_MESH)):
+        args = [march.prepare(vol, tf, orbit_cam, main_cfg, 1e-3,
+                              **unit_kwargs(vol, main_cfg, shape, xyz))
+                for xyz in mesh_coords(shape)]
+        grid = args[0].ids.numel()
+        res[key] = unit_timing(
+            P, march.march_kernel, march.march_plain, args,
+            f"3p K1 {key} units of {shape}, MNI-dims 700x700x500",
+            args[0].width * H, grid, FLOPS_PER_SAMPLE, 0)
+        del args
+    torch.cuda.empty_cache()
+
+    # ---- 3q. K3's segment mode: the a5 edge inputs at odd offsets, then
+    # the (2, 2, 1) units of a5_500 (unlit) and a5 lit 300^3 (baked)
+    for name, evol, tfx, cam, c, eps in a5_edge:
+        w = c.width
+        for u in (dict(x_offset=w // 3, local_width=w - w // 3 - 1,
+                       s_start=c.samples_per_ray // 3 + 1,
+                       s_count=c.samples_per_ray // 2),
+                  dict(x_offset=w - 1, local_width=1, s_start=0,
+                       s_count=c.samples_per_ray)):
+            k3(f"3q a5 edge/{name}/{u}",
+               a5.prepare_a5(evol, tfx, cam, c, eps, segment=True, **u))
+    a5_cfg = P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                            algorithm=P.Algorithm.TEST)
+    a5_lit = P.RenderConfig(**A5_LIT, algorithm=P.Algorithm.TEST)
+    for vname, vol in volumes.items():
+        for name, c in (("a5_500", a5_cfg), ("a5_lit_300", a5_lit)):
+            for coords in mesh_coords((2, 2, 1)):
+                kw = unit_kwargs(vol, c, (2, 2, 1), coords)
+                k3(f"3q {vname}/{name}/{coords}",
+                   a5.prepare_a5(vol, tf, orbit_cam, c, 0.0, **kw))
+    vol = volumes["mni_dims_182x218x182"]
+    main_a5 = a5_cfg.replace(early_termination=1e-3)
+    args = [a5.prepare_a5(vol, tf, orbit_cam, main_a5, 1e-3,
+                          **unit_kwargs(vol, main_a5, (2, 2, 1), xyz))
+            for xyz in mesh_coords((2, 2, 1))]
+    res["a5_segment"] = unit_timing(
+        P, a5.march_a5_kernel, a5.march_a5_plain, args,
+        "3q K3 segment units of (2, 2, 1), MNI-dims a5_500",
+        args[0].width * A5_H, args[0].ids.numel(), FLOPS_PER_A5_SAMPLE,
+        FLOPS_PER_A5_RAY, 8)
+    del args
+    torch.cuda.empty_cache()
+    return errs
+
+
+def shard_render_phase(P, launch, shard_worker, volumes, tf, rng, res
+                       ) -> dict:
+    """Phase 4h: sharded renders with 4 ranks on the one card, joined by
+    gloo (the gathers go through the host), each rank on its own process:
+    a1 700x700x500 on (2, 2, 1) and (1, 2, 2) on both volumes, conic a1 on
+    (1, 2, 2), a5 500x500x500 on (2, 2, 1); at eps 0 every rank's image
+    within TOL_EXACT of ``render()``, at eps 1e-3 within TOL_EPS of the
+    exact render; each rank's K1 segment / slab and K3 segment launches
+    counted (set to 0 on every rank just before its frames).  Then 1 rank
+    through NCCL, bit-exact to ``render()``.  -> launches by kernel mode,
+    summed over ranks and jobs."""
+    import torch
+
+    orbit_cam = orbit_cameras(P, rng, 1)[0]
+    conic_cam = P.Camera.initial(position=(0.9, 0.5, 1.0))
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR)
+    a5_cfg = P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                            algorithm=P.Algorithm.TEST)
+    cpu_tf = tf.to("cpu")
+    cpu_vols = {name: vol.to("cpu") for name, vol in volumes.items()}
+    specs = []
+    for vname, vol in volumes.items():
+        for shape in SHARD_RUN_MESHES:
+            specs.append((vname, vol, shape, orbit_cam, cfg))
+        specs.append((vname, vol, (1, 2, 2), conic_cam,
+                      cfg.replace(conic=True)))
+    vol = volumes["mni_dims_182x218x182"]
+    specs.append(("mni_dims_182x218x182", vol, (2, 2, 1), orbit_cam, a5_cfg))
+    jobs, refs = [], {}
+    for vname, vol, shape, cam, c in specs:
+        exact = P.render(vol, tf, cam, c)  # eps 0: the exact render
+        for eps in (0.0, 1e-3):
+            name = (f"{vname}_{c.algorithm.name}{'_conic' if c.conic else ''}"
+                    f"_{shape[0]}{shape[1]}{shape[2]}_eps{eps:g}")
+            refs[name] = (exact, eps, shape, c)
+            jobs.append(dict(name=name, mesh=shape, volume=cpu_vols[vname],
+                             tf=cpu_tf, camera=cam.to("cpu"),
+                             config=c.replace(early_termination=eps),
+                             frames=SHARD_FRAMES if eps else 1))
+    totals = {"segment": 0, "slab": 0, "a5_segment": 0}
+    frame_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launch.spawn(shard_worker.render_jobs, SHARD_RANKS, "gloo", jobs,
+                     tmp, "gloo", "cuda")
+        log(f"4h: {SHARD_RANKS} ranks (gloo) ran {len(jobs)} jobs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for job in jobs:
+            exact, eps, shape, c = refs[job["name"]]
+            tol = TOL_EXACT if eps == 0.0 else TOL_EPS
+            a5_job = c.algorithm is P.Algorithm.TEST
+            for r in range(SHARD_RANKS):
+                base = os.path.join(tmp, f"{job['name']}.rank{r}")
+                img = torch.from_numpy(np.load(base + ".npy")).to(
+                    exact.device)
+                with open(base + ".json") as f:
+                    meta = json.load(f)
+                check(tuple(img.shape) == tuple(exact.shape)
+                      and bool(torch.isfinite(img).all()),
+                      f"4h {job['name']} rank {r}: shape or not finite")
+                e = float((img - exact).abs().max())
+                check(e <= tol, f"4h {job['name']} rank {r}: max err {e}")
+                frames = meta["frames"]
+                if a5_job:
+                    got = {"a5_segment": meta["k3_segment"]}
+                    want = {"a5_segment": frames}
+                else:
+                    slab = shape[2] > 1
+                    got = meta["k1_shard"]
+                    want = {"segment": 0 if slab else frames,
+                            "slab": frames if slab else 0}
+                check(all(got[k] == v for k, v in want.items()),
+                      f"4h {job['name']} rank {r}: launches {got}, want "
+                      f"{want}")
+                for k, v in got.items():
+                    totals[k] += v
+                if r == 0:
+                    log(f"4h {job['name']}: rank 0 max err {e:.3e} (tol "
+                        f"{tol:g}), {meta['ms_per_frame']:.3f} ms/frame "
+                        f"over {frames} frames on {meta['device']}, "
+                        f"launches {got}")
+                    if eps:
+                        frame_ms[job["name"]] = meta["ms_per_frame"]
+    res["frame_ms"] = frame_ms
+    res["launches"] = dict(totals)
+
+    # one rank through NCCL: the mesh (1, 1, 1) is the whole render
+    exact = P.render(vol, tf, orbit_cam, cfg)
+    job = dict(name="nccl_111", mesh=(1, 1, 1),
+               volume=cpu_vols["mni_dims_182x218x182"],
+               tf=cpu_tf, camera=orbit_cam.to("cpu"), config=cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.spawn(shard_worker.render_jobs, 1, "nccl", [job], tmp,
+                     "nccl", "cuda")
+        img = torch.from_numpy(np.load(os.path.join(
+            tmp, "nccl_111.rank0.npy"))).to(exact.device)
+        with open(os.path.join(tmp, "nccl_111.rank0.json")) as f:
+            meta = json.load(f)
+    e = float((img - exact).abs().max())
+    log(f"4h nccl (1, 1, 1): max err vs render() {e:.3e} (must be 0), "
+        f"launches {meta['k1_shard']}")
+    check(e == 0.0, f"4h nccl: max err {e}")
+    check(meta["k1_shard"]["segment"] == 1, "4h nccl: K1 segment not run")
+    totals["segment"] += 1
+    res["launches"] = dict(totals)
+    return totals
+
+
+def shard_cli_phase(tmp: str) -> None:
+    """Phase 5j: the CLI ``render --mesh rays=2,samples=2 --backend gloo``
+    (4 ranks on the one card) against the whole render's PNG."""
+    from volumerenderingproject_tpu_torch.utils import imageio
+
+    outs = {}
+    for name, extra in (("whole", []),
+                        ("sharded", ["--mesh", "rays=2,samples=2",
+                                     "--backend", "gloo"])):
+        outs[name] = os.path.join(tmp, f"mesh_{name}.png")
+        proc = subprocess.run(
+            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
+             "render", "--data", "sphere", "--width", str(W), "--height",
+             str(H), "--spr", str(SPR), "--out", outs[name], *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        log(f"cli render {name} exit {proc.returncode}: "
+            f"{proc.stdout.strip()} {proc.stderr.strip()[-2000:]}")
+        check(proc.returncode == 0, f"cli render {name} failed")
+        check_png(outs[name], W, H)
+    a, b = (np.round(imageio.load_png(outs[k]) * 255.0).astype(np.int32)
+            for k in ("whole", "sharded"))
+    worst = int(np.abs(a - b).max())
+    share = float((a != b).mean())
+    log(f"5j: sharded CLI PNG vs whole: {worst} levels at most, "
+        f"{share:.2e} of the channels differ")
+    check(worst <= TOL_PNG_LEVELS and share < PNG_SHARE,
+          f"5j: sharded PNG differs ({worst} levels, share {share})")
+
+
 class PhaseClock:
     """Prints each phase's seconds on a line of its own."""
 
@@ -3173,11 +3549,14 @@ def main() -> int:
             "CUDA GPU")
         return 2
     sys.path.insert(0, ROOT)
+    sys.path.insert(1, os.path.join(ROOT, "tests"))
     import volumerenderingproject_tpu_torch as P
     from volumerenderingproject_tpu_torch.ingest import synthetic
     from volumerenderingproject_tpu_torch.diff import fit
     from volumerenderingproject_tpu_torch.ops import (
         _build, a5, a5_vjp, march, march_vjp, phong, smooth, smooth_vjp)
+    from volumerenderingproject_tpu_torch.parallel import launch
+    import _torch_shard_worker as shard_worker
     from volumerenderingproject_tpu_torch.scene.transfer_function import (
         from_text)
 
@@ -3287,7 +3666,7 @@ def main() -> int:
         prep_ms = timed_ms(lambda: march.prepare(
             vol, tf, cams[0], cfg.replace(early_termination=eps), eps), 5)
         samples = samples_needed(march.march_plain, args)
-        plain_ms = timed_ms(lambda: march.march_plain(args[0]), 2)
+        plain_ms = time_plain(lambda: march.march_plain(args[0]))
         voxels = math.prod(vol.dims)
         nbytes = (read_bytes(voxels, samples) + args[0].occ.numel() * 4
                   + args[0].colors.numel() * 4 + W * H * 16)
@@ -3333,8 +3712,8 @@ def main() -> int:
             bwd_ms = timed_ms(lambda: march_vjp.march_bwd_kernel(a, *g), 5,
                               prefill=True,
                               label=f"{vname}: backward kernel")
-            bwd_plain_ms = timed_ms(lambda: march_vjp.march_bwd_plain(a, *g),
-                                    1)
+            bwd_plain_ms = time_plain(
+                lambda: march_vjp.march_bwd_plain(a, *g))
             fwd_eps0_ms = timed_ms(lambda: march.march_kernel(a), 5,
                                    prefill=True)
             k = a.colors.shape[0]
@@ -3420,6 +3799,13 @@ def main() -> int:
                                        np.random.default_rng(44), lit_res)
     clock("3o K1 in-kernel lighting vs plain")
 
+    # ---- 3p, 3q. the work units of sharded renders vs plain ----------------
+    shard_res = {}
+    shard_errs = shard_kernel_phases(
+        P, march, a5, volumes, mc_vols, large["dense_320"], tf, a5_edge,
+        np.random.default_rng(51), shard_res)
+    clock("3p-3q K1 segment and slab, K3 segment vs plain")
+
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
     frames = 0
@@ -3443,9 +3829,9 @@ def main() -> int:
             fg = float(((img[..., :3] - 0.2).abs().amax(-1) > 0.05)
                        .float().mean())
             check(fg > 0.01, f"{vname}: image is background only ({fg})")
-        plain_frame_ms = timed_ms(
+        plain_frame_ms = time_plain(
             lambda: march.march_plain(march.prepare(
-                vol, tf, cams[0], main_cfg, 1e-3)), 1)
+                vol, tf, cams[0], main_cfg, 1e-3)))
         per_volume[vname]["render_ms"] = ms
         log(f"{vname}: render() {ms:.4f} ms/frame, {W * H / ms * 1e3:.4e} "
             f"rays/s; plain march {plain_frame_ms:.2f} ms/frame")
@@ -3486,6 +3872,11 @@ def main() -> int:
         {**mc_res, **lit_res})
     clock("4g multichannel and conic lit render paths")
 
+    # ---- 4h. sharded renders: 4 ranks on the card (gloo), 1 through NCCL ---
+    shard_launches = shard_render_phase(P, launch, shard_worker, volumes, tf,
+                                        np.random.default_rng(52), shard_res)
+    clock("4h sharded render path")
+
     # ---- 5-5g. the CLI: its chains of processes run together, since each
     # process spends most of its time starting up ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3497,11 +3888,12 @@ def main() -> int:
                   lambda: scatter_cli_phase(tmp, from_text),  # 5h
                   lambda: mc_cli_phase(  # 5i
                       tmp, mc_vols["bench3_91"].data.cpu().numpy(),
-                      from_text)]
+                      from_text),
+                  lambda: shard_cli_phase(tmp)]  # 5j
         with ThreadPoolExecutor(len(chains)) as pool:
             for job in [pool.submit(c) for c in chains]:
                 job.result()
-    clock("5-5i CLI")
+    clock("5-5j CLI")
 
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
@@ -3902,6 +4294,28 @@ def main() -> int:
         "bound_by": mc_main["bwd_bound_by"],
         "library_ms": None,
     })
+    # the work units of sharded renders: K1's segment and slab modes, K3's
+    # segment mode (launches: every rank of 4h)
+    for name, key, src, line in (
+            ("march_a1_segment", "segment", "march.cu",
+             "pallas_march.py:1837"),
+            ("march_a1_slab", "slab", "march.cu", "pallas_march.py:1837"),
+            ("march_a5_segment", "a5_segment", "a5.cu", "pallas_a5.py:851")):
+        r = shard_res[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"volumerenderingproject_tpu_torch/csrc/{src}",
+            "replaces": f"volumerenderingproject_tpu/ops/{line}",
+            "launches": shard_launches[key],
+            "max_abs_err": shard_errs[key],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
+    log(f"sharded renders: units {json.dumps(shard_res)}")
     log(f"multichannel: {json.dumps(mc_res)}; K4 mc max relative err "
         f"{mc_errs['k4_rel']:.3e}; in-kernel lighting: {json.dumps(lit_res)};"
         f" small 4-D and conic lit renders vs the reference scan "

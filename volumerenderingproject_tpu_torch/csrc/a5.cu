@@ -13,7 +13,16 @@
 // camera's front for every ray, so the factors are per voxel for any
 // camera; the single-scattering term rides S.  The volumes that its streamed
 // modes (ms_stream, id_stream) stage block by block stay in device memory
-// here.  Its segment variant is not here.
+// here.
+//
+// A sharded render (parallel/render_dist.py) launches it once per rank on
+// that rank's work unit on the rays and samples axes (`segment=True`,
+// pallas_a5.py:851, 1118-1123): columns [x_offset, x_offset + width) and
+// samples [s_start, s_start + spr).  The camera grid is indexed by the
+// global column (pallas_a5.py:172-178) and the stage matrices by the global
+// sample index (:212), so the unit's samples sit where the whole render
+// puts them; early termination acts on the unit's own T, which starts at 1;
+// with `segment` set the output is (C, T), no background.
 //
 // One thread marches one ray:
 //   per sample: the three stage matrices -> inside [0, dims)? -> 8 corner
@@ -56,8 +65,8 @@ march_a5_kernel(const float* __restrict__ scal,
                 const float* __restrict__ colors, int num_intervals,
                 const uint8_t* __restrict__ ids,
                 const float* __restrict__ mgrid,
-                const float* __restrict__ sgrid, A5Geom g,
-                float* __restrict__ out) {
+                const float* __restrict__ sgrid, A5Geom g, int x_offset,
+                int s_start, int segment, float* __restrict__ out) {
   __shared__ float4 s_col[kMaxIntervals];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int k = tid; k < num_intervals; k += blockDim.x * blockDim.y)
@@ -71,13 +80,13 @@ march_a5_kernel(const float* __restrict__ scal,
   if (px >= g.width || py >= g.height) return;
 
   A5Ray r;
-  a5_ray_setup(scal, px, py, r);
+  a5_ray_setup(scal, px + x_offset, py, r);
   const float eps = fmaxf(scal[S_EPS], 0.0f);
   const int id0 = (int)scal[S_ID0];
   const float4 c0 = s_col[id0];
 
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, t = 1.0f;
-  for (int i = 0; i < g.spr; ++i) {
+  for (int i = s_start; i < s_start + g.spr; ++i) {
     if (!(fabsf(t) > eps)) break;
     int id8[8];
     float f[3];
@@ -121,10 +130,14 @@ march_a5_kernel(const float* __restrict__ scal,
   }
 
   float4 px_out;
-  px_out.x = cr + t * scal[S_BG];
-  px_out.y = cg + t * scal[S_BG + 1];
-  px_out.z = cb + t * scal[S_BG + 2];
-  px_out.w = 1.0f;
+  if (segment) {  // the unit's raw (C, T)
+    px_out = make_float4(cr, cg, cb, t);
+  } else {
+    px_out.x = cr + t * scal[S_BG];
+    px_out.y = cg + t * scal[S_BG + 1];
+    px_out.z = cb + t * scal[S_BG + 2];
+    px_out.w = 1.0f;
+  }
   reinterpret_cast<float4*>(out)[(long long)px * g.height + py] = px_out;
 }
 
@@ -133,24 +146,30 @@ march_a5_kernel(const float* __restrict__ scal,
 // Launches the a5 march on `stream`; returns cudaGetLastError() (0 =
 // launched).  scal: [41] f32 (ops/a5.py layout); colors: [K, 4] f32,
 // K <= 256; ids: [d1, d2, d3] uint8 (C order); mgrid, sgrid: [d1, d2, d3]
-// f32, both null for an unlit march; out: [width, height, 4] f32.
+// f32, both null for an unlit march; the work unit: columns [x_offset,
+// x_offset + width), samples [s_start, s_start + spr); out: [width, height,
+// 4] f32, (C + T bg, 1), or with segment set (C, T).
 extern "C" int vrp_march_a5(const float* scal, const float* colors, int K,
                             const uint8_t* ids, int d1, int d2, int d3,
                             int width, int height, int spr,
                             const float* mgrid, const float* sgrid,
+                            int x_offset, int s_start, int segment,
                             float* out, void* stream) {
   if (K <= 0 || K > kMaxIntervals || width <= 0 || height <= 0 || spr <= 0 ||
-      (mgrid == nullptr) != (sgrid == nullptr))
+      (mgrid == nullptr) != (sgrid == nullptr) || x_offset < 0 ||
+      s_start < 0)
     return (int)cudaErrorInvalidValue;
   const A5Geom g = make_a5_geom(d1, d2, d3, width, height, spr);
   const dim3 block(16, 16);
   const dim3 grid((height + 15) / 16, (width + 15) / 16);
   const cudaStream_t s = (cudaStream_t)stream;
   if (mgrid != nullptr)
-    march_a5_kernel<true><<<grid, block, 0, s>>>(scal, colors, K, ids, mgrid,
-                                                 sgrid, g, out);
+    march_a5_kernel<true><<<grid, block, 0, s>>>(
+        scal, colors, K, ids, mgrid, sgrid, g, x_offset, s_start, segment,
+        out);
   else
-    march_a5_kernel<false><<<grid, block, 0, s>>>(scal, colors, K, ids,
-                                                  mgrid, sgrid, g, out);
+    march_a5_kernel<false><<<grid, block, 0, s>>>(
+        scal, colors, K, ids, mgrid, sgrid, g, x_offset, s_start, segment,
+        out);
   return (int)cudaGetLastError();
 }

@@ -25,8 +25,24 @@
 // LUT composes with baked or in-kernel light.  The same kernel takes the
 // volumes that the TPU kernel's streamed modes (K2: HBM->VMEM x-blocks, u8
 // (M, S)) stage block by block: here the whole volume stays in device
-// memory and voxel indices are 64-bit.  The segment variants of that kernel
-// are not here.
+// memory and voxel indices are 64-bit.
+//
+// A sharded render (parallel/render_dist.py) launches it once per rank on
+// that rank's work unit (`render_vrc_pallas_segment`, pallas_march.py:1837):
+//   * segment: columns [x_offset, x_offset + width) of a full_width-wide
+//     image and samples [s_start, s_start + spr) of each ray.  Rays keep
+//     their global column in the ray setup, samples their global index in
+//     t = i * ds + clip and in the brick test; the box clip's range is
+//     intersected with the segment's, so a ray whose clip range misses it
+//     returns (0, 1).  Early termination acts on the unit's own T, which
+//     starts at 1.  With `segment` set the output is (C, T), no background.
+//   * slab (`kSlab`, with the plain, LUT and channel-grid variants): the
+//     id grid, the brick map and the channel grids hold x-planes
+//     [x0, x0 + slab_x) only.  A sample belongs to the slab that holds its
+//     x-clamped voxel index, off the volume too (sample_voxel_slab), so
+//     each sample is composited by one slab; the bricks lie on the slab's
+//     own x grid (pallas_march.py:419-422, 466-474).  The host tightens the
+//     box clip's x extent to the slab (ops/march.py _box).
 //
 // One thread marches one ray:
 //   ray setup -> clip of the sample range to the dataset box (+-1 sample)
@@ -82,6 +98,9 @@ __device__ __forceinline__ int to_int_clamped(float v) {
 // monotone, so pushing the end points (widened by 1e-5) through the index
 // chain bounds the voxels of every sample between them
 // (pallas_march.py:387-445, for one ray instead of a tile).
+// On an x-slab (kSlab) the bricks lie on the slab's own x grid: the x range
+// is shifted by x0 and a range that misses the slab is transparent.
+template <bool kSlab>
 __device__ bool chunk_occupied(int i0, int i1, const float o[3],
                                const float d[3], float ds, float clip,
                                const Geom& g, const int32_t* __restrict__ occ) {
@@ -99,10 +118,17 @@ __device__ bool chunk_occupied(int i0, int i1, const float o[3],
     const float rlo = fmaxf((floorf(alo * g.n) / g.n) * g.L, g.hg[c]);
     const float rhi = fminf((floorf(ahi * g.n) / g.n) * g.L, g.hg_hi[c]);
     if (!(rlo < g.hg_hi[c]) || !(rhi >= g.hg[c])) return false;
-    const int ilo = (int)truncf((rlo + g.halfd[c]) - g.halfL);
-    const int ihi = (int)truncf((rhi + g.halfd[c]) - g.halfL);
-    blo[c] = min(max(ilo, 0), g.dim[c] - 1) / kBrick;
-    bhi[c] = min(max(ihi, 0), g.dim[c] - 1) / kBrick;
+    int ilo = (int)truncf((rlo + g.halfd[c]) - g.halfL);
+    int ihi = (int)truncf((rhi + g.halfd[c]) - g.halfL);
+    int ext = g.dim[c];
+    if (kSlab && c == 0) {
+      ilo -= g.x0;
+      ihi -= g.x0;
+      if (ihi < 0 || ilo >= g.nx) return false;
+      ext = g.nx;
+    }
+    blo[c] = min(max(ilo, 0), ext - 1) / kBrick;
+    bhi[c] = min(max(ihi, 0), ext - 1) / kBrick;
   }
   for (int bx = blo[0]; bx <= bhi[0]; ++bx)
     for (int by = blo[1]; by <= bhi[1]; ++by)
@@ -159,8 +185,9 @@ __device__ __forceinline__ void shade(float4& col,
           (1.0f - w) * col.z;
 }
 
-// kMc: the number of channel grids (0: none; 1: grey; 3: rgb)
-template <typename Id, bool kBaked, bool kLit, int kMc>
+// kMc: the number of channel grids (0: none; 1: grey; 3: rgb); kSlab: the
+// grids hold an x-slab (unlit only)
+template <typename Id, bool kBaked, bool kLit, int kMc, bool kSlab>
 __global__ void __launch_bounds__(256)
 march_a1_kernel(const float* __restrict__ scal,
                 const float* __restrict__ colors, int num_colors,
@@ -170,8 +197,9 @@ march_a1_kernel(const float* __restrict__ scal,
                 const float* __restrict__ vol,
                 const float* __restrict__ lvec,
                 const float* __restrict__ chans, Geom g, int conic,
-                int scale_alpha, float density_scale,
+                int scale_alpha, float density_scale, int segment,
                 float* __restrict__ out) {
+  static_assert(!kSlab || (!kBaked && !kLit), "a slab marches unlit");
   __shared__ float4 s_col[sizeof(Id) == 1 ? kMaxIntervals : kMaxLut];
   __shared__ float s_light[kLit ? 10 : 1];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -210,8 +238,8 @@ march_a1_kernel(const float* __restrict__ scal,
     hinv = 1.0f / fmaxf(sqrtf((hx * hx + hy * hy) + hz * hz), 1e-8f);
   }
 
-  // ---- sample range inside the dataset box, +-1 sample of slop -----------
-  int s_lo = 0, s_hi = g.spr - 1;
+  // ---- the unit's samples, inside the dataset box, +-1 sample of slop ----
+  int s_lo = g.s_start, s_hi = g.s_start + g.spr - 1;
   if (!full) {
     float t_lo = -INFINITY, t_hi = INFINITY;
 #pragma unroll
@@ -239,11 +267,26 @@ march_a1_kernel(const float* __restrict__ scal,
   float cr = 0.0f, cg = 0.0f, cb = 0.0f, t = 1.0f;
   for (int s0 = s_lo; s0 <= s_hi && fabsf(t) > eps; s0 += kChunk) {
     const int s1 = min(s0 + kChunk - 1, s_hi);
-    if (!full && !chunk_occupied(s0, s1, o, d, ds, clip, g, occ)) continue;
+    if (!full && !chunk_occupied<kSlab>(s0, s1, o, d, ds, clip, g, occ))
+      continue;
     for (int i = s0; i <= s1; ++i) {
       if (!(fabsf(t) > eps)) break;
       float4 col;
-      if constexpr (kBaked) {
+      if constexpr (kSlab) {
+        const long long flat = sample_voxel_slab(i, o, d, ds, clip, g);
+        if (flat == -2) continue;  // another slab's sample
+        col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
+        if constexpr (kMc > 0) {
+          const long long nslab = (long long)g.nx * g.dim[1] * g.dim[2];
+          col.x = flat < 0 ? 0.0f : __ldg(chans + flat);
+          if constexpr (kMc == 1) {
+            col.y = col.z = col.x;
+          } else {
+            col.y = flat < 0 ? 0.0f : __ldg(chans + nslab + flat);
+            col.z = flat < 0 ? 0.0f : __ldg(chans + 2 * nslab + flat);
+          }
+        }
+      } else if constexpr (kBaked) {
         const long long flat = sample_voxel(i, o, d, ds, clip, g);
         col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
         const float m = flat < 0 ? 1.0f : __ldg(mgrid + flat);
@@ -280,10 +323,14 @@ march_a1_kernel(const float* __restrict__ scal,
   }
 
   float4 px_out;
-  px_out.x = cr + t * scal[S_BG];
-  px_out.y = cg + t * scal[S_BG + 1];
-  px_out.z = cb + t * scal[S_BG + 2];
-  px_out.w = 1.0f;
+  if (segment) {  // the unit's raw (C, T)
+    px_out = make_float4(cr, cg, cb, t);
+  } else {
+    px_out.x = cr + t * scal[S_BG];
+    px_out.y = cg + t * scal[S_BG + 1];
+    px_out.z = cb + t * scal[S_BG + 2];
+    px_out.w = 1.0f;
+  }
   reinterpret_cast<float4*>(out)[(long long)px * g.height + py] = px_out;
 }
 
@@ -295,27 +342,31 @@ struct Inputs {
   const float *mgrid, *sgrid, *vol, *lvec, *chans;
 };
 
-template <typename Id, bool kBaked, bool kLit, int kMc>
+template <typename Id, bool kBaked, bool kLit, int kMc, bool kSlab = false>
 void launch(const Inputs& in, const Geom& g, int conic, float density_scale,
-            float* out, cudaStream_t stream) {
+            int segment, float* out, cudaStream_t stream) {
   const dim3 block(16, 16);
   const dim3 grid((g.height + 15) / 16, (g.width + 15) / 16);
-  march_a1_kernel<Id, kBaked, kLit, kMc><<<grid, block, 0, stream>>>(
+  march_a1_kernel<Id, kBaked, kLit, kMc, kSlab><<<grid, block, 0, stream>>>(
       in.scal, in.colors, in.K, static_cast<const Id*>(in.ids), in.occ,
       in.mgrid, in.sgrid, in.vol, in.lvec, in.chans, g, conic,
-      density_scale != 1.0f ? 1 : 0, density_scale, out);
+      density_scale != 1.0f ? 1 : 0, density_scale, segment, out);
 }
 
 }  // namespace
 
 // Launches the march on `stream`; returns cudaGetLastError() (0 = launched).
-// scal: [32] f32; colors: [K, 4] f32; ids: [d1, d2, d3] (C order), uint8
-// interval ids (id_bytes 1, K <= 256) or uint16 LUT indices (id_bytes 2,
-// K <= 1024); occ: [nbx * nby * nbz] int32.  At most one of: mgrid, sgrid
-// ([d1, d2, d3] f32 each, baked light); vol ([d1, d2, d3] f32, the raw
-// volume) and lvec ([10] f32, the light), in-kernel light; chans
-// ([n_chans, d1, d2, d3] f32, n_chans 1 or 3, uint8 ids only), a 4-D
-// volume's channel grids.  out: [width, height, 4] f32.
+// scal: [32] f32; colors: [K, 4] f32; ids: [nx, d2, d3] (C order; nx =
+// slab_x on a slab, else d1), uint8 interval ids (id_bytes 1, K <= 256) or
+// uint16 LUT indices (id_bytes 2, K <= 1024); occ: [nbx * nby * nbz] int32
+// on the same grid.  At most one of: mgrid, sgrid ([d1, d2, d3] f32 each,
+// baked light); vol ([d1, d2, d3] f32, the raw volume) and lvec ([10] f32,
+// the light), in-kernel light; chans ([n_chans, nx, d2, d3] f32, n_chans 1
+// or 3, uint8 ids only), a 4-D volume's channel grids.  The work unit:
+// columns [x_offset, x_offset + width) of a full_width-wide image, samples
+// [s_start, s_start + spr) of the d1-deep geometry's rays, and with slab_x
+// > 0 (unlit only) the grids' x-planes [x0, x0 + slab_x).  out: [width,
+// height, 4] f32, (C + T bg, 1), or with segment set (C, T).
 extern "C" int vrp_march_a1(const float* scal, const float* colors, int K,
                             const void* ids, int id_bytes,
                             const int32_t* occ, int nbx, int nby, int nbz,
@@ -324,35 +375,65 @@ extern "C" int vrp_march_a1(const float* scal, const float* colors, int K,
                             float density_scale, const float* mgrid,
                             const float* sgrid, const float* vol,
                             const float* lvec, const float* chans,
-                            int n_chans, float* out, void* stream) {
+                            int n_chans, int x_offset, int full_width,
+                            int s_start, int x0, int slab_x, int segment,
+                            float* out, void* stream) {
   const int max_k = id_bytes == 1 ? kMaxIntervals : kMaxLut;
   const bool baked = mgrid != nullptr, lit = vol != nullptr,
-             mc = chans != nullptr;
+             mc = chans != nullptr, slab = slab_x > 0;
   if ((id_bytes != 1 && id_bytes != 2) || K <= 0 || K > max_k ||
       width <= 0 || height <= 0 || spr <= 0 ||
       baked != (sgrid != nullptr) || lit != (lvec != nullptr) ||
       (int)baked + (int)lit + (int)mc > 1 ||
-      (mc && (id_bytes != 1 || (n_chans != 1 && n_chans != 3))))
+      (mc && (id_bytes != 1 || (n_chans != 1 && n_chans != 3))) ||
+      x_offset < 0 || x_offset + width > full_width || s_start < 0 ||
+      slab_x < 0 || (slab && (baked || lit || x0 < 0 || x0 + slab_x > d1)))
     return (int)cudaErrorInvalidValue;
-  const Geom g =
-      make_geom(d1, d2, d3, depth, width, height, spr, nbx, nby, nbz);
+  Geom g = make_geom(d1, d2, d3, depth, width, height, spr, nbx, nby, nbz);
+  g.x_off = x_offset;
+  g.gwidth = full_width;
+  g.s_start = s_start;
+  if (slab) {
+    g.x0 = x0;
+    g.nx = slab_x;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   const Inputs in{scal, colors, K, ids, occ, mgrid, sgrid, vol, lvec, chans};
-  if (mc && n_chans == 1)
-    launch<uint8_t, false, false, 1>(in, g, conic, density_scale, out, s);
+  if (slab && mc && n_chans == 1)
+    launch<uint8_t, false, false, 1, true>(in, g, conic, density_scale,
+                                           segment, out, s);
+  else if (slab && mc)
+    launch<uint8_t, false, false, 3, true>(in, g, conic, density_scale,
+                                           segment, out, s);
+  else if (slab && id_bytes == 1)
+    launch<uint8_t, false, false, 0, true>(in, g, conic, density_scale,
+                                           segment, out, s);
+  else if (slab)
+    launch<uint16_t, false, false, 0, true>(in, g, conic, density_scale,
+                                            segment, out, s);
+  else if (mc && n_chans == 1)
+    launch<uint8_t, false, false, 1>(in, g, conic, density_scale, segment,
+                                     out, s);
   else if (mc)
-    launch<uint8_t, false, false, 3>(in, g, conic, density_scale, out, s);
+    launch<uint8_t, false, false, 3>(in, g, conic, density_scale, segment,
+                                     out, s);
   else if (lit && id_bytes == 1)
-    launch<uint8_t, false, true, 0>(in, g, conic, density_scale, out, s);
+    launch<uint8_t, false, true, 0>(in, g, conic, density_scale, segment,
+                                    out, s);
   else if (lit)
-    launch<uint16_t, false, true, 0>(in, g, conic, density_scale, out, s);
+    launch<uint16_t, false, true, 0>(in, g, conic, density_scale, segment,
+                                     out, s);
   else if (id_bytes == 1 && !baked)
-    launch<uint8_t, false, false, 0>(in, g, conic, density_scale, out, s);
+    launch<uint8_t, false, false, 0>(in, g, conic, density_scale, segment,
+                                     out, s);
   else if (id_bytes == 1)
-    launch<uint8_t, true, false, 0>(in, g, conic, density_scale, out, s);
+    launch<uint8_t, true, false, 0>(in, g, conic, density_scale, segment,
+                                    out, s);
   else if (!baked)
-    launch<uint16_t, false, false, 0>(in, g, conic, density_scale, out, s);
+    launch<uint16_t, false, false, 0>(in, g, conic, density_scale, segment,
+                                      out, s);
   else
-    launch<uint16_t, true, false, 0>(in, g, conic, density_scale, out, s);
+    launch<uint16_t, true, false, 0>(in, g, conic, density_scale, segment,
+                                     out, s);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,11 @@
 // Shared by the a1 march kernels (march.cu, K1; march_bwd.cu, K4): the
 // scalar-vector layout, the geometry, the ray setup and the chain from a
 // sample index to its voxel and colour id, written once so that the forward
-// and the backward march put every sample in the same voxel.
+// and the backward march put every sample in the same voxel.  The geometry
+// also carries a sharded render's work unit (parallel/render_dist.py):
+// columns [x_off, x_off + width) of a gwidth-wide image, samples
+// [s_start, s_start + spr), and the x-slab [x0, x0 + nx) that the grids
+// hold (x0 = 0, nx = dim[0] for the whole volume).
 //
 // Float order mirrors the JAX reference (models/raycast.py, ops/sampling.py)
 // expression by expression.  Build with -fmad=false: a contracted o + t*d
@@ -26,6 +30,7 @@ struct Geom {
   int width, height, spr;
   float n, L, halfL;
   float hg[3], hg_hi[3], halfd[3];
+  int x_off, gwidth, s_start, x0, nx;
 };
 
 Geom make_geom(int d1, int d2, int d3, int depth, int width, int height,
@@ -49,15 +54,21 @@ Geom make_geom(int d1, int d2, int d3, int depth, int width, int height,
     g.hg[c] = g.halfL - g.halfd[c];
     g.hg_hi[c] = g.hg[c] + (float)g.dim[c];
   }
+  g.x_off = 0;
+  g.gwidth = width;
+  g.s_start = 0;
+  g.x0 = 0;
+  g.nx = d1;
   return g;
 }
 
 // Origin and direction of pixel (px, py)'s ray (rayDirectionKernel
-// kernel.cu:20-38 float order).
+// kernel.cu:20-38 float order); px is the unit's column, the ray is that of
+// the global column px + x_off of the gwidth-wide image.
 __device__ __forceinline__ void ray_setup(const float* __restrict__ scal,
                                           const Geom& g, int px, int py,
                                           int conic, float o[3], float d[3]) {
-  const float xs = ((float)px * scal[S_RSW]) / (float)g.width;
+  const float xs = ((float)(px + g.x_off) * scal[S_RSW]) / (float)g.gwidth;
   const float ys = ((float)py * scal[S_RSH]) / (float)g.height;
   if (conic) {
     float rd[3];
@@ -147,5 +158,35 @@ __device__ __forceinline__ int sample_id(int i, const float o[3],
 }
 
 #undef VRP_SAMPLE_VOXEL
+
+// The chain of VRP_SAMPLE_VOXEL on an x-slab [g.x0, g.x0 + g.nx): the
+// sample belongs to the slab that holds its x-clamped voxel index, which is
+// computed off the volume too (sampling.py:105-140), so that each sample
+// is composited by one slab.  Returns the slab-local flat index of an owned
+// sample inside the volume, -1 for an owned sample off it (it takes id0),
+// -2 for a sample that another slab owns (it leaves (C, T) as it is).
+__device__ __forceinline__ long long sample_voxel_slab(int i, const float o[3],
+                                                       const float d[3],
+                                                       float ds, float clip,
+                                                       const Geom& g) {
+  const float ti = (float)i * ds + clip;  // kernel.cu:54,59
+  bool valid = true;
+  int ijk[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float p = (o[c] + ti * d[c]) + 0.5f;  // modelAux kernel.cu:1050
+    const float res = (floorf(p * g.n) / g.n) * g.L;
+    valid = valid && (p >= 0.0f) && (p < 1.0f) && (res >= g.hg[c]) &&
+            (res < g.hg_hi[c]);
+    ijk[c] = (int)truncf((res + g.halfd[c]) - g.halfL);
+  }
+  const int gx = min(max(ijk[0], 0), g.dim[0] - 1);
+  if (gx < g.x0 || gx >= g.x0 + g.nx) return -2;
+  if (!valid) return -1;
+  long long flat =
+      ((long long)(ijk[0] - g.x0) * g.dim[1] + ijk[1]) * g.dim[2] + ijk[2];
+  const long long last = (long long)g.nx * g.dim[1] * g.dim[2] - 1;
+  return flat < 0 ? 0 : (flat > last ? last : flat);
+}
 
 }  // namespace

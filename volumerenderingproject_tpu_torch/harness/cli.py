@@ -11,7 +11,11 @@
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
 subcommand runs on CUDA unless ``--device cpu`` is given.  ``--data`` takes
 a 3-D or 4-D (multichannel) NIfTI file; ``--conic`` casts perspective
-rays.
+rays.  ``render --mesh rays=2,samples=2`` renders sharded over a (rays,
+samples, volume) mesh of that many processes on this host
+(``parallel/launch.py``), joined by ``--backend`` nccl (one GPU a rank, the
+default) or gloo (ranks may share a GPU, or run on the CPU); rank 0 writes
+the PNG.
 """
 
 from __future__ import annotations
@@ -85,6 +89,61 @@ def _tf(args, device):
     return default_transfer_function(device)
 
 
+def parse_mesh(spec: str, backend: str) -> dict:
+    """``rays=2,samples=2`` -> the sizes of ``parallel.mesh.make_mesh``;
+    ``rays`` defaults to the GPUs left under nccl, else to 1."""
+    sizes = {"samples": 1, "volume": 1}
+    for kv in spec.split(","):
+        k, _, v = kv.partition("=")
+        if k not in ("rays", "samples", "volume") or not v.isdigit():
+            raise ValueError(f"--mesh {spec!r}: want e.g. rays=2,samples=2")
+        sizes[k] = int(v)
+    if "rays" not in sizes:
+        import torch
+
+        rest = sizes["samples"] * sizes["volume"]
+        gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        sizes["rays"] = max(gpus // rest, 1) if backend == "nccl" else 1
+    return sizes
+
+
+def render_rank(rank: int, args) -> None:
+    """One rank of ``render --mesh`` (``parallel/launch.cli_render_worker``):
+    the scene on this rank's device, the sharded frame; rank 0 writes the
+    PNG."""
+    import torch
+
+    from ..parallel.launch import rank_device
+    from ..parallel.mesh import make_mesh
+    from ..parallel.render_dist import render_vrc_sharded
+    from ..utils import imageio
+
+    device = rank_device(rank, args.backend, args.device)
+    cfg = _config(args)
+    volume = _load_volume(args, device)
+    tf = _tf(args, device)
+    cam = _camera(args, cfg, device)
+    mesh = make_mesh(**parse_mesh(args.mesh, args.backend))
+    t0 = time.time()
+    img = render_vrc_sharded(volume, tf, cam, cfg, mesh)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    if rank == 0:
+        out = _out_name(args, cfg)
+        imageio.save_png(out, img, cfg.algorithm)
+        print(f"rendered {cfg.width}x{cfg.height} spr={cfg.samples_per_ray} "
+              f"alg={cfg.algorithm.name} on mesh {mesh.shape} "
+              f"({args.backend}, rank 0 on {device}) in {dt:.2f}s -> {out}")
+
+
+def _out_name(args, cfg) -> str:
+    return args.out or (
+        f"image_{cfg.width}x{cfg.height}_a{cfg.algorithm.value}"
+        f"_spr{cfg.samples_per_ray}.png"
+    )  # reference naming, myApp.cu:1209-1210
+
+
 def cmd_render(args) -> int:
     import torch
 
@@ -92,6 +151,14 @@ def cmd_render(args) -> int:
     from ..utils import imageio
     from ..utils.device import resolve_device
 
+    if args.mesh:
+        from ..parallel import launch
+
+        sizes = parse_mesh(args.mesh, args.backend)
+        world = sizes["rays"] * sizes["samples"] * sizes["volume"]
+        launch.check_devices(world, args.backend, args.device)
+        launch.spawn(launch.cli_render_worker, world, args.backend, args)
+        return 0
     device = resolve_device(args.device)
     cfg = _config(args)
     volume = _load_volume(args, device)
@@ -102,10 +169,7 @@ def cmd_render(args) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
-    out = args.out or (
-        f"image_{cfg.width}x{cfg.height}_a{cfg.algorithm.value}"
-        f"_spr{cfg.samples_per_ray}.png"
-    )  # reference naming, myApp.cu:1209-1210
+    out = _out_name(args, cfg)
     imageio.save_png(out, img, cfg.algorithm)
     print(f"rendered {cfg.width}x{cfg.height} spr={cfg.samples_per_ray} "
           f"alg={cfg.algorithm.name} on {device} in {dt:.2f}s -> {out}")
@@ -207,6 +271,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("render", help="render one frame to PNG")
     _common(sp)
     sp.add_argument("--out")
+    sp.add_argument("--mesh", help="render sharded over a (rays, samples, "
+                    "volume) mesh of processes, e.g. rays=2,samples=2")
+    sp.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                    help="the process group of --mesh: nccl (one GPU a "
+                         "rank) or gloo (ranks may share a GPU or run on "
+                         "the CPU)")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("fit", help="optimize TF colors to a target image")

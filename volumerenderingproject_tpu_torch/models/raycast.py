@@ -57,11 +57,17 @@ _f32 = torch.float32
 # ---------------------------------------------------------------------------
 
 
-def pixel_grid(config: RenderConfig, device=None
+def pixel_grid(config: RenderConfig, device=None, x_offset: int = 0,
+               local_width: int | None = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pixel index grids X, Y of shape [W, H] (float32)."""
-    w, h = config.width, config.height
-    x = torch.arange(w, dtype=_f32, device=device)[:, None].expand(w, h)
+    """Pixel index grids X, Y of shape [w_local, H] (float32).  A ray shard
+    owning columns [x_offset, x_offset + local_width) builds its grid with
+    the global pixel indices, so its sample positions are unchanged
+    (raycast.py:55-70)."""
+    w = config.width if local_width is None else local_width
+    h = config.height
+    x = (torch.arange(w, dtype=_f32, device=device)
+         + float(x_offset))[:, None].expand(w, h)
     y = torch.arange(h, dtype=_f32, device=device)[None, :].expand(w, h)
     return x, y
 
@@ -73,15 +79,18 @@ def _screen_size(config: RenderConfig, device) -> torch.Tensor:
                         device=device)
 
 
-def primary_ray_dirs(camera: Camera, config: RenderConfig) -> torch.Tensor:
-    """Per-pixel ray directions [W, H, 3] (rayDirectionKernel
-    kernel.cu:20-38).  Ortho: cameraFront.  Conic: normalize(top_left
-    + x*(w/W)*right + y*(h/H)*(-up) - cameraPos), with the corrected conic
-    corner when ``config.conic_corrected``."""
+def primary_ray_dirs(camera: Camera, config: RenderConfig, x_offset: int = 0,
+                     local_width: int | None = None) -> torch.Tensor:
+    """Per-pixel ray directions [w_local, H, 3] (rayDirectionKernel
+    kernel.cu:20-38) of columns [x_offset, x_offset + local_width).  Ortho:
+    cameraFront.  Conic: normalize(top_left + x*(w/W)*right + y*(h/H)*(-up)
+    - cameraPos), x the global column and W the global width, with the
+    corrected conic corner when ``config.conic_corrected``."""
     dev = camera.device
+    w_local = config.width if local_width is None else local_width
     if not config.conic:
-        return camera.front.expand(config.width, config.height, 3)
-    x, y = pixel_grid(config, dev)
+        return camera.front.expand(w_local, config.height, 3)
+    x, y = pixel_grid(config, dev, x_offset, w_local)
     w = torch.tensor(config.real_screen_width, dtype=_f32, device=dev)
     h = torch.tensor(config.real_screen_height, dtype=_f32, device=dev)
     size = _screen_size(config, dev)
@@ -95,14 +104,17 @@ def primary_ray_dirs(camera: Camera, config: RenderConfig) -> torch.Tensor:
     return T.normalize(top_left + xt + yt - camera.position)
 
 
-def ray_origins(camera: Camera, config: RenderConfig) -> torch.Tensor:
-    """Per-pixel ray origins [W, H, 3].  Ortho: the pixel's point on the
-    screen plane, ``(top_left + xterm) + yterm`` (kernel.cu:56-58).  Conic:
-    cameraPos (kernel.cu:54)."""
+def ray_origins(camera: Camera, config: RenderConfig, x_offset: int = 0,
+                local_width: int | None = None) -> torch.Tensor:
+    """Per-pixel ray origins [w_local, H, 3] of columns [x_offset, x_offset
+    + local_width).  Ortho: the pixel's point on the screen plane,
+    ``(top_left + xterm) + yterm`` (kernel.cu:56-58).  Conic: cameraPos
+    (kernel.cu:54)."""
     dev = camera.device
+    w_local = config.width if local_width is None else local_width
     if config.conic:
-        return camera.position.expand(config.width, config.height, 3)
-    x, y = pixel_grid(config, dev)
+        return camera.position.expand(w_local, config.height, 3)
+    x, y = pixel_grid(config, dev, x_offset, w_local)
     w = torch.tensor(config.real_screen_width, dtype=_f32, device=dev)
     h = torch.tensor(config.real_screen_height, dtype=_f32, device=dev)
     size = _screen_size(config, dev)
@@ -316,14 +328,19 @@ def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
     return sample_rgba
 
 
-def _march(sample_rgba_fn, config: RenderConfig, mode: str, device):
-    """Loop over the sample axis; ``sample_rgba_fn(i_f32) -> [W, H, 4]``.
+def _march(sample_rgba_fn, config: RenderConfig, mode: str, device,
+           shape: Tuple[int, int] | None = None, s_start: int = 0,
+           s_count: int | None = None):
+    """Loop over samples [s_start, s_start + s_count) (all of them by
+    default); ``sample_rgba_fn(i_f32) -> [*shape, 4]``, ``shape`` [W, H]
+    unless given.
 
     ``mode="segment"`` marches front to back and returns the raw (C, T)
     pair, the associative unit of sample-axis composition.
     """
-    shape = (config.width, config.height)
-    spr = config.samples_per_ray
+    shape = shape or (config.width, config.height)
+    spr = config.samples_per_ray if s_count is None else s_count
+    steps = range(s_start, s_start + spr)
     bg = torch.tensor(config.background, dtype=_f32, device=device)
 
     def step_value(i):
@@ -331,14 +348,14 @@ def _march(sample_rgba_fn, config: RenderConfig, mode: str, device):
 
     if mode == "reference":
         acc = bg[:3].expand(*shape, 3)
-        for i in reversed(range(spr)):
+        for i in reversed(steps):
             acc = comp.over_step_btf(acc, sample_rgba_fn(step_value(i)))
         alpha = torch.ones(shape + (1,), dtype=_f32, device=device)
         return torch.cat([acc, alpha], dim=-1)
 
     if mode in ("fast", "segment"):
         seg = comp.segment_identity(shape, device)
-        for i in range(spr):
+        for i in steps:
             seg = comp.segment_update(seg, sample_rgba_fn(step_value(i)))
         if mode == "segment":
             return seg
@@ -347,21 +364,15 @@ def _march(sample_rgba_fn, config: RenderConfig, mode: str, device):
     raise ValueError(f"unknown mode {mode!r}")
 
 
-def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
-               config: RenderConfig, *, mode: str = "fast",
-               light: Light | None = None) -> torch.Tensor:
-    """a1/VRC render by the plain scan -> [W, H, 4] (alpha all 1), or the
-    (C [W, H, 3], T [W, H, 1]) pair with ``mode="segment"``.
-
-    With ``config.lighting`` (or an explicit ``light`` without scattering;
-    the default light otherwise) samples are Phong-shaded on the gradient
-    field of ``config.gradient_filter``/``presmooth_sigma``, viewed along
-    each ray's ``-dir`` (ortho or conic); with ``config.tf_lut`` they
-    classify through the dense LUT; with ``config.scattering`` they gain
-    the light's single-scattered radiance along each ray's ``dir``."""
+def _vrc_sampler(volume: Volume, tf: TransferFunction, camera: Camera,
+                 config: RenderConfig, light: Light | None, x_offset: int,
+                 local_width: int | None):
+    """The a1 per-step sampler ``i_f32 -> [w_local, H, 4]`` of columns
+    [x_offset, x_offset + local_width); the gradient field, LUT and
+    transmittance grid are built once."""
     check_supported(config)
-    origins = ray_origins(camera, config)
-    dirs = primary_ray_dirs(camera, config)
+    origins = ray_origins(camera, config, x_offset, local_width)
+    dirs = primary_ray_dirs(camera, config, x_offset, local_width)
     dev = origins.device
     ds = torch.tensor(config.sample_distance, dtype=_f32, device=dev)
     clip = torch.tensor(config.front_clip, dtype=_f32, device=dev)
@@ -378,7 +389,39 @@ def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
         return _vrc_sample_rgba(origins + t * dirs, volume, tf, config,
                                 shading, lut, scatter)
 
-    return _march(sample_rgba, config, mode, dev)
+    return sample_rgba
+
+
+def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
+               config: RenderConfig, *, mode: str = "fast",
+               light: Light | None = None) -> torch.Tensor:
+    """a1/VRC render by the plain scan -> [W, H, 4] (alpha all 1), or the
+    (C [W, H, 3], T [W, H, 1]) pair with ``mode="segment"``.
+
+    With ``config.lighting`` (or an explicit ``light`` without scattering;
+    the default light otherwise) samples are Phong-shaded on the gradient
+    field of ``config.gradient_filter``/``presmooth_sigma``, viewed along
+    each ray's ``-dir`` (ortho or conic); with ``config.tf_lut`` they
+    classify through the dense LUT; with ``config.scattering`` they gain
+    the light's single-scattered radiance along each ray's ``dir``."""
+    return _march(_vrc_sampler(volume, tf, camera, config, light, 0, None),
+                  config, mode, camera.device)
+
+
+def render_vrc_segment(volume: Volume, tf: TransferFunction, camera: Camera,
+                       config: RenderConfig, *, x_offset: int = 0,
+                       local_width: int | None = None, s_start: int = 0,
+                       s_count: int | None = None,
+                       light: Light | None = None):
+    """The sharded a1 work unit by the plain scan (raycast.py:451): columns
+    [x_offset, x_offset + local_width) x samples [s_start, s_start +
+    s_count) -> the front-to-back (C [w, H, 3], T [w, H, 1]) pair, which
+    ``ops/composite.segment_compose`` composes across shards."""
+    w_local = config.width if local_width is None else local_width
+    return _march(
+        _vrc_sampler(volume, tf, camera, config, light, x_offset, w_local),
+        config, "segment", camera.device, (w_local, config.height), s_start,
+        s_count)
 
 
 def render_test(volume: Volume, tf: TransferFunction, camera: Camera,
@@ -393,6 +436,21 @@ def render_test(volume: Volume, tf: TransferFunction, camera: Camera,
     x, y = pixel_grid(config, camera.device)
     return _march(_a5_sample_fn(volume, tf, camera, config, x, y, light),
                   config, mode, camera.device)
+
+
+def render_test_segment(volume: Volume, tf: TransferFunction,
+                        camera: Camera, config: RenderConfig, *,
+                        x_offset: int = 0, local_width: int | None = None,
+                        s_start: int = 0, s_count: int | None = None,
+                        light: Light | None = None):
+    """The sharded a5 work unit by the plain scan (raycast.py:590): as
+    :func:`render_vrc_segment`; the a5 camera grid is indexed by global
+    pixel coordinates, so the local grid carries the column offset."""
+    w_local = config.width if local_width is None else local_width
+    x, y = pixel_grid(config, camera.device, x_offset, w_local)
+    return _march(_a5_sample_fn(volume, tf, camera, config, x, y, light),
+                  config, "segment", camera.device, (w_local, config.height),
+                  s_start, s_count)
 
 
 # ---------------------------------------------------------------------------

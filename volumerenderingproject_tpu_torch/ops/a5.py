@@ -35,6 +35,15 @@ The kernel's only skip is early termination: it stops a ray before the
 first sample at which |T| <= eps, which changes the output by at most eps
 times the largest colour (a sample of alpha above 1 makes T negative, and
 the ray goes on); :func:`march_a5_plain` stops at the same sample.
+A sharded render (``parallel/render_dist.py``) marches one work unit per
+rank on the rays and samples axes (pallas_a5.py:851 with ``segment=True``):
+columns [x_offset, x_offset + local_width) and samples [s_start, s_start +
+s_count), returning the raw (C, T) pair without the background.  The camera
+grid is indexed by the global column (pallas_a5.py:172-178) and the stage
+matrices by the global sample index (:212), so a unit's samples sit where
+the whole render puts them.  a5 on the volume axis is no kernel path in the
+JAX package either (render_dist.py:95).
+
 ``config`` fields the a5 path does not read (kernel.cu:72-187): ``conic``,
 ``interp``, ``density_scale``, ``tf_lut``, ``front_clip`` and
 ``empty_space_skipping``; its rays start on the screen plane and step by
@@ -67,6 +76,8 @@ SCAL_LEN = 41
 # in all and by variant
 launches = 0
 variant_launches = {"unlit": 0, "baked": 0}
+# and the launches that marched a sharded render's work unit
+segment_launches = 0
 
 
 class A5Args(NamedTuple):
@@ -82,6 +93,12 @@ class A5Args(NamedTuple):
     # [X, Y, Z] f32 baked M and S, lit or scattered only
     mgrid: Optional[torch.Tensor] = None
     sgrid: Optional[torch.Tensor] = None
+    # a sharded render's work unit: columns [x_offset, x_offset + width),
+    # samples [s_start, s_start + spr); ``segment`` returns (C, T) without
+    # the background
+    x_offset: int = 0
+    s_start: int = 0
+    segment: bool = False
 
 
 def a5_ids(volume, tf) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,17 +151,31 @@ def apply_stages(mats, x: torch.Tensor, y: torch.Tensor, i: torch.Tensor
 
 
 def prepare_a5(volume, tf, camera, config: RenderConfig,
-               early_eps: float, light: Light | None = None) -> A5Args:
+               early_eps: float, light: Light | None = None, *,
+               x_offset: int = 0, local_width: int | None = None,
+               s_start: int = 0, s_count: int | None = None,
+               segment: bool = False) -> A5Args:
     """Prep for one a5 march; all tensors on the volume's device.
     ``light`` defaults to :func:`ops.phong.default_light` where the render
     is lit or scattered.  A 4-D volume raises: the JAX package's a5 kernel
-    rejects it (pallas_a5.py:914-915) and its scan renders it."""
+    rejects it (pallas_a5.py:914-915) and its scan renders it.  The
+    keywords select a sharded render's work unit (this module's
+    docstring); ``segment`` marches to (C, T)."""
     if volume.channels != 1:
         raise NotImplementedError(
             "the fused a5 march reads one channel, as the JAX package's a5 "
             "kernel does (pallas_a5.py:914-915); mode='scan' renders a 4-D "
             "volume as the JAX scan reads it")
     check_uniform_light(light)
+    w_local = config.width if local_width is None else local_width
+    s_count = config.samples_per_ray if s_count is None else s_count
+    if not (0 <= x_offset and 0 < w_local and x_offset + w_local <= config.width
+            and 0 <= s_start and 0 < s_count
+            and s_start + s_count <= config.samples_per_ray):
+        raise ValueError(
+            f"columns [{x_offset}, {x_offset + w_local}) or samples "
+            f"[{s_start}, {s_start + s_count}) outside the image's "
+            f"{config.width} and {config.samples_per_ray}")
     dev = volume.data.device
     tf = tf.to(dev)
     camera = camera.to(dev)
@@ -159,8 +190,9 @@ def prepare_a5(volume, tf, camera, config: RenderConfig,
     mgrid, sgrid = bake_grids(volume, tf, camera, config, light, cal,
                               torch.trunc(cal))
     return A5Args(scal=scal, colors=tf.colors.to(_f32).contiguous(), ids=ids,
-                  dims=volume.dims, width=config.width, height=config.height,
-                  spr=config.samples_per_ray, mgrid=mgrid, sgrid=sgrid)
+                  dims=volume.dims, width=w_local, height=config.height,
+                  spr=s_count, mgrid=mgrid, sgrid=sgrid, x_offset=x_offset,
+                  s_start=s_start, segment=segment)
 
 
 def _stage_rows(a: A5Args):
@@ -172,10 +204,12 @@ def _corners(a: A5Args):
     [W, H], flat0 int64 [W, H])``: every ray's sample i through the stage
     matrices, its 8 corner ids in fetch order (a corner at ``flat >=
     total`` takes ``id0``), its trilinear fractions, and the flat index of
-    its containing voxel (the first corner; in range where inside)."""
+    its containing voxel (the first corner; in range where inside).  The
+    rays are those of the global columns [x_offset, x_offset + width)."""
     dev = a.ids.device
     w, h = a.width, a.height
-    x = torch.arange(w, dtype=_f32, device=dev)[:, None].expand(w, h)
+    x = (torch.arange(w, dtype=_f32, device=dev)
+         + float(a.x_offset))[:, None].expand(w, h)
     y = torch.arange(h, dtype=_f32, device=dev)[None, :].expand(w, h)
     mats = _stage_rows(a)
     total = a.ids.numel()
@@ -196,10 +230,12 @@ def _corners(a: A5Args):
     return corners
 
 
-def march_a5_plain(a: A5Args, stats: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel -> [W, H, 4]: the same function
-    with the same float order, unlit or baked, as a loop over samples
-    vectorised over rays, stopping each ray where the kernel does.
+def march_a5_plain(a: A5Args, stats: dict | None = None):
+    """Plain PyTorch version of the kernel -> [W, H, 4], or with
+    ``a.segment`` the (C [W, H, 3], T [W, H, 1]) pair: the same function
+    with the same float order, unlit or baked, over a work unit's columns
+    and samples, as a loop over samples vectorised over rays, stopping each
+    ray where the kernel does.
 
     With ``stats``, ``stats["samples"]`` is set to the number of samples
     this input needs: those inside the volume on rays not yet terminated.
@@ -219,7 +255,7 @@ def march_a5_plain(a: A5Args, stats: dict | None = None) -> torch.Tensor:
     c = torch.zeros((w, h, 3), dtype=_f32, device=dev)
     t = torch.ones((w, h, 1), dtype=_f32, device=dev)
     needed = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(a.spr):
+    for i in range(a.s_start, a.s_start + a.spr):
         active = t.abs() > eps
         mid, frac, inside, flat0 = corners(i)
         rgba = torch.where(inside[..., None],
@@ -238,6 +274,8 @@ def march_a5_plain(a: A5Args, stats: dict | None = None) -> torch.Tensor:
         t = torch.where(active, t * (1.0 - alpha), t)
     if stats is not None:
         stats["samples"] = int(needed)
+    if a.segment:
+        return c, t
     rgb = c + t * s[S_BG:S_BG + 3]
     return torch.cat([rgb, torch.ones((w, h, 1), dtype=_f32, device=dev)],
                      dim=-1)
@@ -249,8 +287,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         # scal, colors, K, ids, d1, d2, d3, width, height, spr, mgrid,
-        # sgrid, out, stream
-        fn.argtypes = [p, p, i, p] + [i] * 6 + [p, p, p, p]
+        # sgrid, x_offset, s_start, segment, out, stream
+        fn.argtypes = [p, p, i, p] + [i] * 6 + [p, p, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -277,10 +315,11 @@ def check_kernel_args(a: A5Args, max_intervals: int, extra=()) -> None:
         raise ValueError(f"colors must be [K <= {max_intervals}, 4]")
 
 
-def march_a5_kernel(a: A5Args) -> torch.Tensor:
-    """Launch ``csrc/a5.cu`` on the current stream -> [W, H, 4]; the baked
-    variant when the args carry (M, S) grids."""
-    global launches
+def march_a5_kernel(a: A5Args):
+    """Launch ``csrc/a5.cu`` on the current stream -> [W, H, 4], or with
+    ``a.segment`` the (C [W, H, 3], T [W, H, 1]) pair of a work unit; the
+    baked variant when the args carry (M, S) grids."""
+    global launches, segment_launches
     baked = a.mgrid is not None
     if baked != (a.sgrid is not None):
         raise ValueError("mgrid and sgrid go together")
@@ -295,25 +334,32 @@ def march_a5_kernel(a: A5Args) -> torch.Tensor:
             a.scal.data_ptr(), a.colors.data_ptr(), a.colors.shape[0],
             a.ids.data_ptr(), *a.dims, a.width, a.height, a.spr,
             a.mgrid.data_ptr() if baked else None,
-            a.sgrid.data_ptr() if baked else None, out.data_ptr(),
+            a.sgrid.data_ptr() if baked else None, a.x_offset, a.s_start,
+            int(a.segment), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"a5 march kernel launch failed: CUDA error {err}")
     launches += 1
     variant_launches["baked" if baked else "unlit"] += 1
+    if a.segment:
+        segment_launches += 1
+        return out[..., :3], out[..., 3:]
     return out
 
 
 def render_test_fused(volume, tf, camera, config: RenderConfig,
                       early_eps: float | None = None,
-                      light: Light | None = None) -> torch.Tensor:
-    """a5/TEST render through the fused march -> [W, H, 4] (alpha 1).
+                      light: Light | None = None, **unit):
+    """a5/TEST render through the fused march -> [W, H, 4] (alpha 1), or a
+    sharded render's work unit (pallas_a5.py:851, ``segment=True``) with
+    ``unit``, the keywords of :func:`prepare_a5`: with ``segment=True`` the
+    (C [w, H, 3], T [w, H, 1]) pair of its columns and samples.
 
     CUDA tensors launch the kernel; CPU tensors run :func:`march_a5_plain`.
     ``early_eps`` defaults to ``config.early_termination``.
     """
     eps = config.early_termination if early_eps is None else early_eps
-    a = prepare_a5(volume, tf, camera, config, eps, light)
+    a = prepare_a5(volume, tf, camera, config, eps, light, **unit)
     if a.ids.is_cuda:
         return march_a5_kernel(a)
     return march_a5_plain(a)

@@ -122,12 +122,23 @@ def _coef_samples(a: A5Args):
     return sample
 
 
+def check_whole_render(a: A5Args) -> None:
+    """Raise NotImplementedError for a sharded render's work unit: the a5
+    backward march takes whole renders; its segment offsets
+    (pallas_a5.py:2056) are ROADMAP.md item 14b."""
+    if a.segment or a.x_offset or a.s_start:
+        raise NotImplementedError(
+            "the a5 backward march of a sharded work unit is not ported "
+            "yet: ROADMAP.md item 14b")
+
+
 def march_a5_bwd_plain(a: A5Args, g_rgb: torch.Tensor,
                        g_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel -> dL/dcolors [K, 4]:
     the kernel's two passes with its float order, as a loop over samples
     vectorised over rays.  Each ray sums its terms per interval in sample
     order; the rays' sums are added last."""
+    check_whole_render(a)
     dev = a.ids.device
     sample = _coef_samples(a)
     gr, gg, gb = g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2]
@@ -179,6 +190,7 @@ def march_a5_bwd_kernel(a: A5Args, g_rgb: torch.Tensor,
     """Launch ``csrc/a5_bwd.cu`` on the current stream and sum its
     per-block partials -> dL/dcolors [K, 4]."""
     global launches
+    check_whole_render(a)
     a5.check_kernel_args(a, MAX_INTERVALS, extra=(
         ("g_rgb", g_rgb, _f32, (a.width, a.height, 3)),
         ("g_t", g_t, _f32, (a.width, a.height))))

@@ -44,6 +44,32 @@ def segment_update(carry, rgba: torch.Tensor):
     return (c + t * a * rgba[..., :3], t * (1.0 - a))
 
 
+def segment_compose(front, back):
+    """Compose two (C, T) segments, ``front`` closer to the camera
+    (composite.py:93): (C_f + T_f C_b, T_f T_b)."""
+    cf, tf_ = front
+    cb, tb = back
+    return (cf + tf_ * cb, tf_ * tb)
+
+
+def fold_segments(segs_c, segs_t, reverse=False):
+    """Fold K gathered segments front to back with :func:`segment_compose`,
+    from the identity, in index order, or in reverse where ``reverse`` holds
+    (render_dist.py:48-62).  ``reverse`` is a Python bool, or a per-ray
+    bool mask [..., 1]: then both orders are folded and each ray takes its
+    own (conic rays on the volume axis, render_dist.py:623-650)."""
+    if isinstance(reverse, torch.Tensor):
+        asc = fold_segments(segs_c, segs_t, False)
+        desc = fold_segments(segs_c, segs_t, True)
+        return (torch.where(reverse, desc[0], asc[0]),
+                torch.where(reverse, desc[1], asc[1]))
+    k = len(segs_c)
+    seg = segment_identity(segs_c[0].shape[:-1], segs_c[0].device)
+    for i in (range(k - 1, -1, -1) if reverse else range(k)):
+        seg = segment_compose(seg, (segs_c[i], segs_t[i]))
+    return seg
+
+
 def segment_finalize(seg, background) -> torch.Tensor:
     """Resolve a (C, T) segment against the background; alpha forced to 1."""
     c, t = seg

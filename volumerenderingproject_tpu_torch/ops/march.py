@@ -44,6 +44,19 @@ PyTorch):
     (pallas_march.py:1612-1641); no lighting, LUT or scattering there;
   * :func:`scal_vector`: camera, screen, box and TF scalars for the kernel.
 
+A sharded render (``parallel/render_dist.py``) marches one work unit per
+rank (pallas_march.py:1837 ``render_vrc_pallas_segment``): columns
+[x_offset, x_offset + local_width) of the image, samples [s_start, s_start
++ s_count) of each ray, and on the mesh's volume axis the x-slab [x0, x0 +
+slab_x) of the voxel grid, returning the raw front-to-back (C, T) pair
+without the background.  Rays keep their global column and samples their
+global index.  A slab's id grid, brick map and channel grids hold its own
+planes only (trunc(cal_max) stays the whole volume's), and every sample
+belongs to the slab that holds its x-clamped voxel index, off the volume
+too (sampling.py:105-140), so that each sample is composited by one slab;
+the others leave (C, T) as it is.  The box clip's x extent shrinks to the
+slab (pallas_march.py:1717-1724).
+
 Every skip the kernel makes is exact: a skipped sample has alpha exactly 0
 and leaves (C, T) unchanged.  A negative alpha (a fit can drive one below
 0) changes T, so it counts as occupied.  When TF(0).alpha != 0 (samples off
@@ -57,6 +70,7 @@ makes T negative, and the ray goes on); :func:`march_plain` stops at the same sa
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -87,6 +101,9 @@ SCAL_LEN = 32
 launches = 0
 variant_launches = {"plain": 0, "lut": 0, "baked": 0, "lut_baked": 0,
                     "lit": 0, "lut_lit": 0, "mc": 0}
+# and the launches that marched a sharded render's work unit: a segment
+# over the whole volume, or one on an x-slab of it
+shard_launches = {"segment": 0, "slab": 0}
 
 
 class MarchArgs(NamedTuple):
@@ -116,6 +133,16 @@ class MarchArgs(NamedTuple):
     # 4-D volumes: [G, X, Y, Z] f32 normalised channels for rgb (G = 1, grey,
     # or 3); ``ids`` then holds the interval ids of the channel mean
     chans: Optional[torch.Tensor] = None
+    # a sharded render's work unit: columns [x_offset, x_offset + width) of
+    # a full_width-wide image (0: width), samples [s_start, s_start + spr);
+    # with slab_x > 0 the grids hold x-planes [x0, x0 + slab_x) of the dims
+    # volume; ``segment`` returns (C, T) without the background
+    x_offset: int = 0
+    full_width: int = 0
+    s_start: int = 0
+    x0: int = 0
+    slab_x: int = 0
+    segment: bool = False
 
 
 def material_ids(data: torch.Tensor, tf, cal_max_trunc: torch.Tensor
@@ -200,28 +227,38 @@ def brick_occupancy(ids: torch.Tensor, table: torch.Tensor,
     return occ.reshape(-1).to(torch.int32), nb
 
 
-def _box(dims, depth):
+def _box(dims, depth, x0: int = 0, slab_x: int = 0):
     """Dataset box in ray space (p = pos + 0.5 in [hg/L, (hg+dim)/L + 1/n]),
     intersected with the root cube, conservative by half a voxel
-    (pallas_march.py:1709-1716)."""
+    (pallas_march.py:1709-1716); with ``slab_x``, its x extent tightened to
+    planes [x0, x0 + slab_x) in the JAX package's float32 order
+    (pallas_march.py:1717-1724)."""
     L = float(max(dims))
     n = float(2**depth)
     lo = [max(0.0, (L / 2 - d / 2) / L) - 0.5 for d in dims]
     hi = [min(1.0, (L / 2 + d / 2) / L + 1.0 / n) - 0.5 for d in dims]
+    if slab_x:
+        f = np.float32
+        hx = (f(L / 2) - f(dims[0] / 2)) + f(x0)
+        lo[0] = float(max(f(lo[0]), hx / f(L) - f(0.5)))
+        hi[0] = float(min(f(hi[0]), ((hx + f(slab_x)) / f(L) + f(1.0 / n))
+                          - f(0.5)))
     return lo, hi
 
 
 def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
                 early_eps: float, full_march: torch.Tensor,
-                id0: torch.Tensor) -> torch.Tensor:
+                id0: torch.Tensor, x0: int = 0, slab_x: int = 0
+                ) -> torch.Tensor:
     """The kernel's [32] f32 scalar vector (slots ``S_*`` above), built on
-    the camera's device without a round trip to the host."""
+    the camera's device without a round trip to the host; the box clip of
+    an x-slab [x0, x0 + slab_x) with ``slab_x``."""
     dev = camera.device
     top_left = camera.top_left
     if config.conic and config.conic_corrected:
         top_left = top_left + torch.tensor(
             config.viewplane_distance, dtype=_f32, device=dev) * camera.front
-    box_lo, box_hi = _box(dims, depth)
+    box_lo, box_hi = _box(dims, depth, x0, slab_x)
 
     def host(vals):
         return torch.tensor(vals, dtype=_f32, device=dev)
@@ -311,28 +348,64 @@ def check_fused_supported(config: RenderConfig, light: Light | None,
     return "lit"
 
 
+def check_slab_supported(config: RenderConfig, light: Light | None) -> None:
+    """Raise NotImplementedError, naming ROADMAP.md item 14b, for what the
+    x-slab march does not compute: lighting and scattering, whose gradients
+    and transmittance cross the slab's faces (the JAX package takes its
+    slab scan with halos there, render_dist.py:563-580)."""
+    if is_lit(config, light) or config.scattering:
+        raise NotImplementedError(
+            "lighting and scattering on the volume axis need the slab scan "
+            "with x-halos: ROADMAP.md item 14b")
+
+
 def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
-            light: Light | None = None) -> MarchArgs:
+            light: Light | None = None, *, x_offset: int = 0,
+            local_width: int | None = None, s_start: int = 0,
+            s_count: int | None = None, x0: int = 0,
+            slab_x: int | None = None, segment: bool = False) -> MarchArgs:
     """Prep for one march; all tensors on the volume's device.  ``light``
     defaults to :func:`ops.phong.default_light` where the render is lit or
-    scattered."""
+    scattered.  The keywords select a sharded render's work unit (this
+    module's docstring): ``volume`` is the whole volume, of which a slab
+    keeps planes [x0, x0 + slab_x); ``segment`` marches to (C, T)."""
     check_supported(config)
     route = check_fused_supported(config, light, volume.channels)
     dev = volume.data.device
     tf = tf.to(dev)
     camera = camera.to(dev)
     cal_max_trunc = torch.trunc(volume.cal_max.to(_f32))
+    d1 = volume.dims[0]
+    slab_x = slab_x or 0
+    if slab_x:
+        check_slab_supported(config, light)
+        if not (0 <= x0 and 0 < slab_x and x0 + slab_x <= d1):
+            raise ValueError(f"slab [{x0}, {x0 + slab_x}) outside x extent "
+                             f"{d1}")
+    w_local = config.width if local_width is None else local_width
+    s_count = config.samples_per_ray if s_count is None else s_count
+    if not (0 <= x_offset and 0 < w_local and x_offset + w_local <= config.width
+            and 0 <= s_start and 0 < s_count
+            and s_start + s_count <= config.samples_per_ray):
+        raise ValueError(
+            f"columns [{x_offset}, {x_offset + w_local}) or samples "
+            f"[{s_start}, {s_start + s_count}) outside the image's "
+            f"{config.width} and {config.samples_per_ray}")
+    # the grids hold the slab's planes only
+    grid_vol = volume if not slab_x else dataclasses.replace(
+        volume, data=volume.data[x0:x0 + slab_x],
+        dims=(slab_x,) + tuple(volume.dims[1:]))
     chans = None
     if route == "mc":
         table = tf.colors
-        ids, id0, chans = mc_grids(volume, tf)
+        ids, id0, chans = mc_grids(grid_vol, tf)
     elif config.tf_lut:
         table = tf.to_lut(config.tf_lut)
-        ids = lut_ids(volume.data, config.tf_lut, cal_max_trunc)
+        ids = lut_ids(grid_vol.data, config.tf_lut, cal_max_trunc)
         id0 = torch.zeros((), dtype=torch.int64, device=dev)
     else:
         table = tf.colors
-        ids, id0 = material_ids(volume.data, tf, cal_max_trunc)
+        ids, id0 = material_ids(grid_vol.data, tf, cal_max_trunc)
     occ, nb = brick_occupancy(ids, table)
     alpha0 = table[id0, 3]
     if config.density_scale != 1.0:
@@ -341,7 +414,7 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
     if not config.empty_space_skipping:
         full = torch.ones_like(full)
     scal = scal_vector(camera, config, volume.dims, volume.octree_depth,
-                       cal_max_trunc, early_eps, full, id0)
+                       cal_max_trunc, early_eps, full, id0, x0, slab_x)
     mgrid = sgrid = vol = lvec = None
     if route == "baked":
         mgrid, sgrid = bake_grids(volume, tf, camera, config, light,
@@ -353,10 +426,12 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
     return MarchArgs(
         scal=scal, colors=table.to(_f32).contiguous(), ids=ids, occ=occ,
         nbricks=nb, dims=volume.dims, depth=volume.octree_depth,
-        width=config.width, height=config.height,
-        spr=config.samples_per_ray, conic=bool(config.conic),
+        width=w_local, height=config.height, spr=s_count,
+        conic=bool(config.conic),
         density_scale=float(config.density_scale), mgrid=mgrid, sgrid=sgrid,
-        vol=vol, lvec=lvec, chans=chans)
+        vol=vol, lvec=lvec, chans=chans, x_offset=x_offset,
+        full_width=config.width, s_start=s_start, x0=x0 if slab_x else 0,
+        slab_x=slab_x, segment=segment)
 
 
 def bake_grids(volume, tf, camera, config: RenderConfig,
@@ -395,20 +470,23 @@ def _effective_colors(a: MarchArgs) -> torch.Tensor:
     return colors
 
 
-def _rays(a: MarchArgs) -> Tuple[torch.Tensor, torch.Tensor]:
+def _rays(a: MarchArgs, x_offset: int = 0, full_width: int = 0
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Origins and directions [W, H, 3] of the kernel's rays (its ray
     setup, expression by expression; ``ray_setup`` in
     ``csrc/march_common.cuh``, which the smooth marches share too).  ``a``
     needs ``scal`` (this module's slots), ``width``, ``height`` and
-    ``conic``."""
+    ``conic``; a shard's columns are [x_offset, x_offset + width) of a
+    ``full_width``-wide image (0: ``width``)."""
     dev = a.scal.device
     s = a.scal
     w, h = a.width, a.height
-    x = torch.arange(w, dtype=_f32, device=dev)[:, None].expand(w, h)
+    x = (torch.arange(w, dtype=_f32, device=dev)
+         + float(x_offset))[:, None].expand(w, h)
     y = torch.arange(h, dtype=_f32, device=dev)[None, :].expand(w, h)
     # divide by device tensors: CUDA divides by a host scalar as a product
     # with its reciprocal, which is not the IEEE quotient the kernel takes
-    size = torch.tensor([w, h], dtype=_f32, device=dev)
+    size = torch.tensor([full_width or w, h], dtype=_f32, device=dev)
     xs = ((x * s[S_RSW]) / size[0])[..., None]
     ys = ((y * s[S_RSH]) / size[1])[..., None]
     xt = xs * s[S_RIGHT:S_RIGHT + 3]
@@ -420,13 +498,22 @@ def _rays(a: MarchArgs) -> Tuple[torch.Tensor, torch.Tensor]:
     return (s[S_TL:S_TL + 3] + xt) + yt, s[S_FRONT:S_FRONT + 3].expand(w, h, 3)
 
 
+def owned_by(a: MarchArgs, ijk: torch.Tensor) -> torch.Tensor:
+    """bool [W, H]: whether ``a``'s x-slab holds the x-clamped voxel index
+    of each sample (``slab_owner_x``, sampling.py:143-147)."""
+    gx = ijk[..., 0].clamp(0, a.dims[0] - 1)
+    return (gx >= a.x0) & (gx < a.x0 + a.slab_x)
+
+
 def _sample_ids(a: MarchArgs, o: torch.Tensor, d: torch.Tensor):
     """``ids_at(i) -> (id int64 [W, H], valid bool [W, H], flat int64
     [W, H], ijk int64 [W, H, 3])``: the colour id of every ray's sample i by
     the kernel's index chain (modelAux +0.5, octree nearest voxel), whether
-    it lies in the volume, its voxel's flat index (clamped into range) and
-    the voxel's indices as the chain computes them; samples off the volume
-    take ``id0``."""
+    it lies in the volume, its voxel's flat index in the grids (clamped
+    into range) and the voxel's global indices as the chain computes them,
+    off the volume too; samples off the volume take ``id0``.  On an x-slab
+    a sample is valid only where the slab holds its voxel, and ``flat``
+    counts from the slab's first plane."""
     dev = a.ids.device
     s = a.scal
     d1, d2, d3 = a.dims
@@ -441,6 +528,7 @@ def _sample_ids(a: MarchArgs, o: torch.Tensor, d: torch.Tensor):
     # int64 once: uint16 tensors take copies, not every indexing op
     ids_flat = a.ids.reshape(-1).to(torch.int64)
     id0 = s[S_ID0].to(torch.int64)
+    x0, nx = (a.x0, a.slab_x) if a.slab_x else (0, d1)
 
     def ids_at(i: int):
         ti = torch.tensor(float(i), dtype=_f32, device=dev) * s[S_DS] + s[S_CLIP]
@@ -449,8 +537,10 @@ def _sample_ids(a: MarchArgs, o: torch.Tensor, d: torch.Tensor):
         valid = (((p >= 0.0) & (p < 1.0) & (res >= hg) & (res < hg_hi))
                  .all(dim=-1))
         ijk = torch.trunc((res + halfd) - halfL).to(torch.int64)
-        flat = (ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3
-                + ijk[..., 2]).clamp(0, d1 * d2 * d3 - 1)
+        if a.slab_x:
+            valid = valid & owned_by(a, ijk)
+        flat = ((ijk[..., 0] - x0) * (d2 * d3) + ijk[..., 1] * d3
+                + ijk[..., 2]).clamp(0, nx * d2 * d3 - 1)
         return torch.where(valid, ids_flat[flat], id0), valid, flat, ijk
 
     return ids_at
@@ -508,13 +598,15 @@ def _lit_shade(a: MarchArgs, d: torch.Tensor):
     return shade
 
 
-def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel -> [W, H, 4]: the same function
+def march_plain(a: MarchArgs, stats: dict | None = None):
+    """Plain PyTorch version of the kernel -> [W, H, 4], or with
+    ``a.segment`` the (C [W, H, 3], T [W, H, 1]) pair: the same function
     with the same float order, as a loop over samples vectorised over rays,
     in every variant (interval ids or LUT indices; baked light, in-kernel
-    light or none; a 4-D volume's channel grids).  It marches every sample
-    (the kernel's skips are exact) and stops each ray where the kernel
-    does.
+    light or none; a 4-D volume's channel grids; a work unit's columns,
+    samples and x-slab).  It marches every sample (the kernel's skips are
+    exact) and stops each ray where the kernel does; on a slab a sample
+    that another slab owns leaves (C, T) as it is.
 
     With ``stats``, ``stats["samples"]`` is set to the number of samples
     this input needs: those inside the dataset on rays not yet terminated.
@@ -522,7 +614,7 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
     dev = a.ids.device
     s = a.scal
     w, h = a.width, a.height
-    o, d = _rays(a)
+    o, d = _rays(a, a.x_offset, a.full_width)
     ids_at = _sample_ids(a, o, d)
     colors = _effective_colors(a)
     eps = s[S_EPS].clamp_min(0.0)
@@ -538,9 +630,11 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
     c = torch.zeros((w, h, 3), dtype=_f32, device=dev)
     t = torch.ones((w, h, 1), dtype=_f32, device=dev)
     needed = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(a.spr):
+    for i in range(a.s_start, a.s_start + a.spr):
         active = t.abs() > eps
         mid, valid, flat, ijk = ids_at(i)
+        if a.slab_x:
+            active = active & owned_by(a, ijk)[..., None]
         rgba = colors[mid]
         alpha = rgba[..., 3:4]
         rgb = rgba[..., :3]
@@ -560,6 +654,8 @@ def march_plain(a: MarchArgs, stats: dict | None = None) -> torch.Tensor:
         t = torch.where(active, t * (1.0 - alpha), t)
     if stats is not None:
         stats["samples"] = int(needed)
+    if a.segment:
+        return c, t
     rgb = c + t * s[S_BG:S_BG + 3]
     return torch.cat([rgb, torch.ones((w, h, 1), dtype=_f32, device=dev)],
                      dim=-1)
@@ -585,18 +681,22 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         # scal, colors, K, ids, id_bytes, occ, nbx, nby, nbz, d1, d2, d3,
         # depth, width, height, spr, conic, density_scale, mgrid, sgrid,
-        # vol, lvec, chans, n_chans, out, stream
+        # vol, lvec, chans, n_chans, x_offset, full_width, s_start, x0,
+        # slab_x, segment, out, stream
         fn.argtypes = ([p, p, i, p, i, p] + [i] * 11
-                       + [ctypes.c_float, p, p, p, p, p, i, p, p])
+                       + [ctypes.c_float, p, p, p, p, p] + [i] * 7
+                       + [p, p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def march_kernel(a: MarchArgs) -> torch.Tensor:
-    """Launch ``csrc/march.cu`` on the current stream -> [W, H, 4]; the
-    variant follows the args (:func:`variant`): uint8 interval ids or
-    uint16 LUT indices, with baked (M, S) grids, with the volume and light
-    of in-kernel lighting, with a 4-D volume's channel grids, or plain."""
+def march_kernel(a: MarchArgs):
+    """Launch ``csrc/march.cu`` on the current stream -> [W, H, 4], or with
+    ``a.segment`` the (C [W, H, 3], T [W, H, 1]) pair; the variant follows
+    the args (:func:`variant`): uint8 interval ids or uint16 LUT indices,
+    with baked (M, S) grids, with the volume and light of in-kernel
+    lighting, with a 4-D volume's channel grids, or plain; over a work
+    unit's columns, samples and x-slab."""
     global launches
     dev = a.ids.device
     if dev.type != "cuda":
@@ -610,9 +710,12 @@ def march_kernel(a: MarchArgs) -> torch.Tensor:
     if baked + lit + mc > 1 or (mc and a.ids.dtype != torch.uint8):
         raise ValueError("one of baked light, in-kernel light or channel "
                          "grids (the last with interval ids)")
+    if a.slab_x and (baked or lit):
+        raise ValueError("an x-slab marches unlit: ROADMAP.md item 14b")
+    grid = (a.slab_x or a.dims[0],) + tuple(a.dims[1:])
     checks = [("scal", a.scal, _f32, (SCAL_LEN,)),
               ("colors", a.colors, _f32, None),
-              ("ids", a.ids, a.ids.dtype, a.dims),
+              ("ids", a.ids, a.ids.dtype, grid),
               ("occ", a.occ, torch.int32, None)]
     if baked:
         checks += [("mgrid", a.mgrid, _f32, a.dims),
@@ -620,8 +723,7 @@ def march_kernel(a: MarchArgs) -> torch.Tensor:
     if lit:
         checks += [("vol", a.vol, _f32, a.dims), ("lvec", a.lvec, _f32, (10,))]
     if mc:
-        checks.append(("chans", a.chans, _f32,
-                       (a.chans.shape[0],) + tuple(a.dims)))
+        checks.append(("chans", a.chans, _f32, (a.chans.shape[0],) + grid))
         if a.chans.shape[0] not in (1, 3):
             raise ValueError("chans: need 1 or 3 channel grids")
     for name, t, dtype, shape in checks:
@@ -649,25 +751,34 @@ def march_kernel(a: MarchArgs) -> torch.Tensor:
             id_bytes, a.occ.data_ptr(), nbx, nby, nbz, *a.dims, a.depth,
             a.width, a.height, a.spr, int(a.conic), a.density_scale,
             ptr(a.mgrid), ptr(a.sgrid), ptr(a.vol), ptr(a.lvec),
-            ptr(a.chans), a.chans.shape[0] if mc else 0, out.data_ptr(),
+            ptr(a.chans), a.chans.shape[0] if mc else 0, a.x_offset,
+            a.full_width or a.width, a.s_start, a.x0, a.slab_x,
+            int(a.segment), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"march kernel launch failed: CUDA error {err}")
     launches += 1
     variant_launches[variant(a)] += 1
+    if a.segment:
+        shard_launches["slab" if a.slab_x else "segment"] += 1
+        return out[..., :3], out[..., 3:]
     return out
 
 
 def render_vrc_fused(volume, tf, camera, config: RenderConfig,
                      early_eps: float | None = None,
-                     light: Light | None = None) -> torch.Tensor:
-    """a1/VRC render through the fused march -> [W, H, 4] (alpha 1).
+                     light: Light | None = None, **unit):
+    """a1/VRC render through the fused march -> [W, H, 4] (alpha 1), or a
+    sharded render's work unit (pallas_march.py:1837) with ``unit``, the
+    keywords of :func:`prepare`: with ``segment=True`` the (C [w, H, 3],
+    T [w, H, 1]) pair of its columns, samples and x-slab, whose early
+    termination acts on the unit's own T, which starts at 1.
 
     CUDA tensors launch the kernel; CPU tensors run :func:`march_plain`.
     ``early_eps`` defaults to ``config.early_termination``.
     """
     eps = config.early_termination if early_eps is None else early_eps
-    a = prepare(volume, tf, camera, config, eps, light)
+    a = prepare(volume, tf, camera, config, eps, light, **unit)
     if a.ids.is_cuda:
         return march_kernel(a)
     return march_plain(a)

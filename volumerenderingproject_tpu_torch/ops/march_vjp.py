@@ -289,6 +289,17 @@ def _fwd_args(a: MarchArgs) -> MarchArgs:
     return a._replace(colors=a.colors[a.itv.long()].contiguous(), itv=None)
 
 
+def check_whole_render(a: MarchArgs) -> None:
+    """Raise NotImplementedError for a sharded render's work unit: the
+    backward march takes whole renders; its segment and slab offsets
+    (pallas_march_vjp.py:1854) are ROADMAP.md item 14b."""
+    if (a.segment or a.slab_x or a.x_offset or a.s_start
+            or a.full_width not in (0, a.width)):
+        raise NotImplementedError(
+            "the backward march of a sharded work unit (segment or slab) is "
+            "not ported yet: ROADMAP.md item 14b")
+
+
 def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
                     g_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel -> dL/dcolors [K, 4]:
@@ -299,6 +310,7 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
     if a.density_scale != 1.0:
         raise ValueError("fold density_scale into the colours first "
                          "(prepare_diff)")
+    check_whole_render(a)
     lut = a.ids.dtype == torch.uint16
     if lut != (a.itv is not None):
         raise ValueError("LUT indices need itv, interval ids none")
@@ -401,6 +413,7 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
     if a.density_scale != 1.0:
         raise ValueError("fold density_scale into the colours first "
                          "(prepare_diff)")
+    check_whole_render(a)
     lut = a.ids.dtype == torch.uint16
     baked = a.mgrid is not None
     mc = a.chans is not None
