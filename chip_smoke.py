@@ -180,7 +180,7 @@ seeds:
      torch.profiler, peak memory;
   7k. 5 scattered fit steps at ``sobel_lit_700`` on both volumes: K1 baked
      launched 1 + K + 1 times a step (the render, one tangent march per
-     interval, the S -> 0 base) and K4 baked once; the same under
+     interval, the S -> 0 base) and K4 baked once; one step under
      torch.profiler; 5 steps at lr 3e-6 that must descend; the alpha
      gradient through T_light, kernels against plain, within TOL_LIGHT of
      its largest component; a central difference along the gradient within
@@ -248,9 +248,37 @@ with their own seeds:
      whole render's PNG (at most one level apart, on under 1 % of the
      channels), started with the other CLI chains.
 
+Sharded fits (``render_vrc_sharded(differentiable=True)``: each rank's work
+unit runs K1 forward and K4 backward at its offsets, or K3 and K6), with
+their own seeds:
+
+  3r. on both volumes at eps 0: K1's baked slab (the forward of a lit
+     slab's unit, ``sobel_lit_700`` on (1, 2, 2)) bit-exact to
+     ``march_plain``; K4's segment units of (2, 2, 1) and slab units of
+     (1, 2, 2), plain (700x700x500) and baked (``sobel_lit_700``), and K6's
+     segment units of (2, 2, 1) (``a5_500``) within TOL_GRAD of max
+     |dplain| under seeded cotangents (a unit that owns no sample with a
+     gradient: the kernel's dcolors exactly 0); the units' dcolors, summed
+     over a (2, 2, 1) and a (1, 2, 2) mesh (a5: (2, 2, 1) and (1, 4, 1))
+     through the fold's cotangents of a seeded image cotangent, within
+     TOL_SHARD_SUM of the whole render's K4 / K6 dcolors; each variant's
+     ms per launch over a mesh's units, the plain version's and the bound;
+  7m. 4 ranks on the one card joined by gloo (``parallel/launch.spawn`` of
+     ``tests/_torch_shard_worker.fit_jobs``), one spawn, on the MNI-dims
+     volume: a1 colour fits (700x700x500) on (2, 2, 1) and (1, 2, 2), a lit
+     colour and light fit (``sobel_lit_700``) on (2, 2, 1), a lit colour
+     fit on (1, 2, 2), an a5 colour fit (``a5_500``) on (2, 2, 1); each
+     takes 2 ``fit_transfer_function`` steps, after which every rank's
+     parameters must be bit-equal, then one step whose gradients, summed
+     over the mesh, must lie within TOL_SHARD_SUM of the single-device
+     kernel fit's (of the largest component), then 5 timed steps with each
+     rank's K1/K3 and K4/K6 launches by work unit set to 0 just before and
+     read just after (rank 0's ms/step); then 1 rank through NCCL.
+
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
-of 3 windows; a plain version's time is one call after an untimed one.
+of 3 windows; a plain version's time is one call after an untimed one, or
+after the check that has just run it on the same inputs.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the main paths, its error against its plain version, its
@@ -434,6 +462,16 @@ SHARD_MESH = (2, 2, 2)  # the work units held against the plain versions
 SHARD_RUN_MESHES = ((2, 2, 1), (1, 2, 2))  # 4 ranks through gloo
 SHARD_RANKS = 4
 SHARD_FRAMES = 4  # timed frames a job at eps 1e-3, after one untimed
+# sharded fits (render_dist differentiable=True): the backward work units
+# held against the plain versions on these meshes, and the units' summed
+# dcolors against the whole render's, relative to its largest component
+SHARD_FIT_MESHES = ((2, 2, 1), (1, 2, 2))
+TOL_SHARD_SUM = 1e-4
+# 4 ranks through gloo: fit_transfer_function steps checked across ranks,
+# then one step whose gradients are held against the single-device fit's
+# (of the largest component) and timed steps
+SHARD_FIT_STEPS = 2
+SHARD_FIT_TIMED = 5
 TOL_PNG_LEVELS = 1  # sharded vs whole CLI PNG, levels of 8 bits
 PNG_SHARE = 0.01  # and the share of channels that may differ at all
 # timed windows per measurement; the median is reported
@@ -482,18 +520,20 @@ def mni_like_volume(seed: int = 0) -> np.ndarray:
 
 
 def timed_ms(fn, reps: int, prefill: bool = False,
-             label: str | None = None, windows: int = TIMING_WINDOWS
-             ) -> float:
+             label: str | None = None, windows: int = TIMING_WINDOWS,
+             warm_up: bool = True) -> float:
     """ms per call of ``fn``: CUDA events around ``reps`` calls, the median
-    of ``windows`` such windows, with the garbage collector off.  With
-    ``prefill`` (for kernels) the GPU spins first, so a host pause while the
-    launches are queued does not show as device time; a plain version,
-    whose time is its launches, is timed without it."""
+    of ``windows`` such windows, with the garbage collector off, after one
+    untimed call (unless ``warm_up`` is off).  With ``prefill`` (for
+    kernels) the GPU spins first, so a host pause while the launches are
+    queued does not show as device time; a plain version, whose time is its
+    launches, is timed without it."""
     import gc
 
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     times = []
     gc.disable()
@@ -516,11 +556,12 @@ def timed_ms(fn, reps: int, prefill: bool = False,
     return sorted(times)[len(times) // 2]
 
 
-def time_plain(fn) -> float:
-    """ms of one call of a plain version after one untimed call: its time
-    is its host launches, seconds at the main paths' shapes, so one window
-    is enough (and keeps the script inside its time limit)."""
-    return timed_ms(fn, 1, windows=1)
+def time_plain(fn, warm: bool = False) -> float:
+    """ms of one call of a plain version after one untimed call (none with
+    ``warm``: the caller has just run it on the same inputs): its time is
+    its host launches, seconds at the main paths' shapes, so one window is
+    enough (and keeps the script inside its time limit)."""
+    return timed_ms(fn, 1, windows=1, warm_up=not warm)
 
 
 def orbit_cameras(P, rng, frames: int = FRAMES, radius: float = 1.5):
@@ -1562,7 +1603,8 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             smooth.march_smooth_plain(x, stats)
             live += stats["samples"] / FRAMES
             inside += stats["inside"] / FRAMES
-        plain_ms = time_plain(lambda: smooth.march_smooth_plain(args[0]))
+        plain_ms = time_plain(lambda: smooth.march_smooth_plain(args[0]),
+                              warm=True)  # the stats loop ran it
         k = tf.num_intervals
         rays = W * H
         ops = (inside * (FLOPS_PER_SMOOTH_SAMPLE
@@ -1614,10 +1656,13 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             splat_ms = timed_ms(
                 lambda: smooth_vjp.march_smooth_bwd_kernel(a, *g, True), 5,
                 prefill=True, label=f"smooth {vname}: K9 with the splat")
+            # the check above ran the plain backward with the splat, whose
+            # operations without it are a part
             plain_ms = time_plain(
-                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g))
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g), warm=True)
             plain_splat_ms = time_plain(
-                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g, True))
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g, True),
+                warm=True)
             fwd_ms = timed_ms(lambda: smooth.march_smooth_kernel(a), 5,
                               prefill=True)
             stats = {}
@@ -2684,7 +2729,9 @@ def scatter_fit_phase(P, fit, march, march_vjp, phong, vname, vol, rng
                       ) -> dict:
     """Phase 7k at ``sobel_lit_700`` with scattering on one volume: 5 fit
     steps after a warm-up (ms/step; K1 baked launched 1 + K + 1 times a
-    step, K4 baked once), the same under torch.profiler, 5 steps at lr
+    step, K4 baked once), one step under torch.profiler (its tens of
+    thousands of device operations make the trace's processing the
+    phase's largest cost), 5 steps at lr
     3e-6 that must descend, the colour gradient (its alpha column through
     T_light) through the kernels against the plain versions (TOL_LIGHT of
     its largest component) and a central difference along it (TOL_FD)."""
@@ -2720,12 +2767,11 @@ def scatter_fit_phase(P, fit, march, march_vjp, phong, vname, vol, rng
           and k4["baked"] == FIT_STEPS == sum(k4.values()),
           f"{label}: launches K1 {k1} K4 {k4}")
     check(all(math.isfinite(v) for v in losses), f"{label}: loss not finite")
-    trace = profile_fit(lambda: run(FIT_STEPS),
+    trace = profile_fit(lambda: run(1),
                         ("march_a1_kernel", "march_bwd_a1_kernel"))
-    log(f"{label}: under torch.profiler {trace['wall_ms'] / FIT_STEPS:.4f} "
-        f"ms/step, device busy {trace['busy_ms'] / FIT_STEPS:.4f} ms/step (K1 "
-        f"{trace['k1_ms'] / FIT_STEPS:.4f}, K4 "
-        f"{trace['k4_ms'] / FIT_STEPS:.4f}), idle {trace['idle_share']:.4f}, "
+    log(f"{label}: one step under torch.profiler {trace['wall_ms']:.4f} ms, "
+        f"device busy {trace['busy_ms']:.4f} ms (K1 {trace['k1_ms']:.4f}, K4 "
+        f"{trace['k4_ms']:.4f}), idle {trace['idle_share']:.4f}, "
         f"{trace['kernels']} device operations")
     reset_launches(march, march_vjp)
     _, descent = run(FIT_STEPS, FIT_DESCENT_LR)
@@ -2768,7 +2814,7 @@ def scatter_fit_phase(P, fit, march, march_vjp, phong, vname, vol, rng
         f"{TOL_FD:g})")
     check(fd_err <= TOL_FD and l_down < l_up, f"{label}: gradient check")
     return dict(step_ms=step_ms, k1=k1["baked"], k4=k4["baked"],
-                busy_ms=trace["busy_ms"] / FIT_STEPS,
+                busy_ms=trace["busy_ms"],
                 idle_share=trace["idle_share"], err=err, fd_err=fd_err,
                 losses=losses, descent=descent)
 
@@ -3237,9 +3283,9 @@ def seg_exact(kernel, plain, label, a) -> float:
 
 def unit_timing(P, kernel, plain, args, label, rays, grid_bytes,
                 flops_per_sample, flops_per_ray, id_reads=1) -> dict:
-    """ms per launch over every work unit in ``args`` (eps 1e-3), the
-    plain version's ms on the first, the mean samples a unit needs and the
-    bound of the mean unit."""
+    """ms per launch over every work unit in ``args``, the plain version's
+    ms on the first, the mean samples a unit needs and the bound of the
+    mean unit (with baked (M, S), their reads at the samples' voxels)."""
     def units():
         for a in args:
             kernel(a)
@@ -3254,6 +3300,9 @@ def unit_timing(P, kernel, plain, args, label, rays, grid_bytes,
     occ = getattr(a, "occ", None)
     if occ is not None:
         nbytes += occ.numel() * 4
+    if a.mgrid is not None:
+        nbytes += read_bytes((a.mgrid.numel() + a.sgrid.numel()) * 4,
+                             samples * 8)
     bound_ms, bound_by, ops_ms, bytes_ms = bound(
         samples * flops_per_sample + rays * flops_per_ray, nbytes)
     log(f"{label}: {ms:.4f} ms a unit, plain {plain_ms:.2f} ms, needed "
@@ -3527,6 +3576,373 @@ def shard_cli_phase(tmp: str) -> None:
         f"{share:.2e} of the channels differ")
     check(worst <= TOL_PNG_LEVELS and share < PNG_SHARE,
           f"5j: sharded PNG differs ({worst} levels, share {share})")
+
+
+# ---- sharded fits ----------------------------------------------------------
+
+def fold_mesh(P, render_dist, comp, vol, tf, cam, cfg, shape):
+    """Every work unit of a ``shape`` mesh in this process, differentiable,
+    folded as ``render_vrc_sharded`` folds what it gathers -> [W, H, 4]."""
+    import torch
+
+    n_rays, n_samp, n_vol = shape
+    w = cfg.width // n_rays
+    cols = []
+    for ri in range(n_rays):
+        segs = []
+        for si in range(n_samp):
+            units = [render_dist.render_segment(vol, tf, cam, cfg, shape,
+                                                (ri, si, vi),
+                                                differentiable=True)
+                     for vi in range(n_vol)]
+            segs.append(render_dist.fold_volume(
+                [u[0] for u in units], [u[1] for u in units], cam, cfg,
+                ri * w, w) if n_vol > 1 else units[0])
+        seg = comp.fold_segments([x[0] for x in segs], [x[1] for x in segs])
+        cols.append(comp.segment_finalize(seg, torch.tensor(
+            cfg.background, dtype=torch.float32, device=seg[0].device)))
+    return torch.cat(cols, dim=0)
+
+
+def owned_samples(march, a) -> int:
+    """The samples of a work unit that its slab owns (all of a segment's),
+    off the volume too."""
+    import torch
+
+    if not a.slab_x:
+        return a.width * a.height * a.spr
+    o, d = march._rays(a, a.x_offset, a.full_width)
+    ids_at = march._sample_ids(a, o, d)
+    n = torch.zeros((), dtype=torch.int64, device=a.ids.device)
+    for i in range(a.s_start, a.s_start + a.spr):
+        n += march.owned_by(a, ids_at(i)[3]).sum()
+    return int(n)
+
+
+def shard_fit_kernel_phase(P, march, march_vjp, a5, a5_vjp, volumes, tf,
+                           rng, res) -> dict:
+    """Phase 3r: the work units of sharded fits at the main paths' shapes
+    (a1 700x700x500, ``sobel_lit_700``, ``a5_500``; eps 0) on both volumes:
+    K1 baked slab units bit-exact to ``march_plain``; K4 segment and slab
+    units, plain and baked, and K6 segment units within TOL_GRAD of max
+    |dplain| under seeded cotangents; the units' dcolors summed over a
+    (2, 2, 1) and a (1, 2, 2) mesh (a5: (2, 2, 1) and (1, 4, 1)) through
+    the fold's cotangents within TOL_SHARD_SUM of the whole render's K4 /
+    K6 dcolors; each variant's ms per launch over a mesh's units, its plain
+    version's and its bound -> max errors (``res`` gets the times).  The
+    units against plain versions: every unit on MNI-dims, the first and the
+    last of each mesh on sphere100."""
+    import torch
+
+    from volumerenderingproject_tpu_torch.ops import composite as comp
+    from volumerenderingproject_tpu_torch.parallel import render_dist
+
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR)
+    lit = P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"])
+    a5_cfg = P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                            algorithm=P.Algorithm.TEST)
+    cam = orbit_cameras(P, rng, 1)[0]
+    grad_rng = np.random.default_rng(53)
+    errs = {"k1_baked_slab": 0.0, "k4_segment": [0.0, 0.0],
+            "k4_segment_baked": [0.0, 0.0], "k4_slab": [0.0, 0.0],
+            "k4_slab_baked": [0.0, 0.0], "k6_segment": [0.0, 0.0],
+            "sum": 0.0}
+    variants = (("k4_segment", cfg, (2, 2, 1)),
+                ("k4_segment_baked", lit, (2, 2, 1)),
+                ("k4_slab", cfg, (1, 2, 2)),
+                ("k4_slab_baked", lit, (1, 2, 2)),
+                ("k6_segment", a5_cfg, (2, 2, 1)))
+    for vname, vol in volumes.items():
+        # K1's baked slab: the forward of a lit slab's unit
+        baked_slabs = [march_vjp.prepare_diff(
+            vol, tf, cam, lit, **unit_kwargs(vol, lit, (1, 2, 2), xyz))[0]
+            for xyz in mesh_coords((1, 2, 2))]
+        for xyz, a in zip(mesh_coords((1, 2, 2)), baked_slabs):
+            check(a.mgrid is not None and a.slab_x > 0, "3r: a baked slab")
+            errs["k1_baked_slab"] = max(errs["k1_baked_slab"], seg_exact(
+                march.march_kernel, march.march_plain,
+                f"3r {vname}/K1 baked slab/{xyz}", a))
+        if vname == "mni_dims_182x218x182":
+            res["k1_baked_slab"] = unit_timing(
+                P, march.march_kernel, march.march_plain, baked_slabs,
+                f"3r K1 baked slab units of (1, 2, 2), {vname} "
+                "sobel_lit_700 eps 0", baked_slabs[0].width * lit.height,
+                baked_slabs[0].ids.numel(),
+                FLOPS_PER_SAMPLE + FLOPS_PER_BAKED_SAMPLE, 0)
+        del baked_slabs
+        # K4 and K6 units against their plain versions, seeded cotangents
+        for key, c, shape in variants:
+            a5_unit = key.startswith("k6")
+            kern, plain = ((a5_vjp.march_a5_bwd_kernel,
+                            a5_vjp.march_a5_bwd_plain) if a5_unit else
+                           (march_vjp.march_bwd_kernel,
+                            march_vjp.march_bwd_plain))
+            units = []
+            coords = mesh_coords(shape)
+            if vname != "mni_dims_182x218x182":  # every unit on MNI-dims
+                coords = [coords[0], coords[-1]]
+            for xyz in coords:
+                kw = unit_kwargs(vol, c, shape, xyz)
+                if a5_unit:
+                    kw.pop("x0", None), kw.pop("slab_x", None)
+                    a, _ = a5_vjp.prepare_a5_diff(vol, tf, cam, c, **kw)
+                else:
+                    a, _ = march_vjp.prepare_diff(vol, tf, cam, c, **kw)
+                g = cotangents(a, grad_rng)
+                e_abs, e_rel = unit_bwd_vs_plain(kern, plain,
+                                                 f"3r {vname}/{key}/{xyz}",
+                                                 a, g)
+                errs[key] = [max(errs[key][0], e_abs),
+                             max(errs[key][1], e_rel)]
+                units.append((a, g))
+            if vname == "mni_dims_182x218x182":
+                res[key] = bwd_unit_timing(march, march_vjp, a5, a5_vjp,
+                                           units, f"3r {key} units of "
+                                           f"{shape}, {vname}", a5_unit)
+            del units
+            torch.cuda.empty_cache()
+        # the units' dcolors summed through the fold's cotangents against
+        # the whole render's
+        for c, shapes, whole in (
+                (cfg, SHARD_FIT_MESHES, march_vjp.render_vrc_diff),
+                (lit, SHARD_FIT_MESHES, march_vjp.render_vrc_diff),
+                (a5_cfg, ((2, 2, 1), (1, 4, 1)), a5_vjp.render_test_diff)):
+            g_img = torch.tensor(grad_rng.normal(
+                0.0, 1.0, (c.width, c.height, 4)).astype(np.float32)
+                / np.float32(c.width * c.height), device=tf.colors.device)
+
+            def dcolors(render):
+                colors = tf.colors.clone().requires_grad_()
+                img = render(P.TransferFunction(tf.lower, tf.upper, colors,
+                                                tf.hg_g))
+                img.backward(g_img)
+                return colors.grad
+
+            want = dcolors(lambda t2: whole(vol, t2, cam, c))
+            scale = float(want.abs().max())
+            check(scale > 0.0, "3r: the whole render's dcolors are 0")
+            for shape in shapes:
+                got = dcolors(lambda t2: fold_mesh(
+                    P, render_dist, comp, vol, t2, cam, c, shape))
+                e = float((got - want).abs().max()) / scale
+                name = (f"{c.algorithm.name}{' lit' if c.lighting else ''} "
+                        f"{shape}")
+                log(f"3r {vname}/{name}: units' summed dcolors vs the "
+                    f"whole render's, max err {e:.3e} of max |d| {scale:.3e}"
+                    f" (tol {TOL_SHARD_SUM:g})")
+                check(e <= TOL_SHARD_SUM, f"3r {vname}/{name}: {e}")
+                errs["sum"] = max(errs["sum"], e)
+            torch.cuda.empty_cache()
+    return errs
+
+
+def unit_bwd_vs_plain(kernel, plain, label, a, g):
+    """``bwd_vs_plain`` for a work unit, which may own no sample that
+    reaches the gradient: then the kernel's dcolors must be exactly 0 as
+    well."""
+    import torch
+
+    want = plain(a, *g)
+    if float(want.abs().max()) > 0.0:
+        return bwd_vs_plain(kernel, plain, label, a, g)
+    got = kernel(a, *g)
+    torch.cuda.synchronize()
+    e = float(got.abs().max())
+    log(f"{label}: the unit's plain dcolors are 0; kernel max |d| {e:.3e} "
+        "(must be 0)")
+    check(e == 0.0, f"{label}: kernel dcolors {e} where plain ones are 0")
+    return 0.0, 0.0
+
+
+def bwd_unit_timing(march, march_vjp, a5, a5_vjp, units, label,
+                    a5_unit) -> dict:
+    """ms per launch of a backward kernel over a mesh's work units (each
+    with its cotangents), the plain version's ms on the first unit, and the
+    bound of the mean unit: the samples inside the volume (at eps 0, the
+    plain forward's count) and the unit's other samples that it owns, by
+    the FLOPS_PER_BWD_* (FLOPS_PER_A5_BWD_*) rule of phases 3b and 3d."""
+    kern = (a5_vjp.march_a5_bwd_kernel if a5_unit
+            else march_vjp.march_bwd_kernel)
+    plain = (a5_vjp.march_a5_bwd_plain if a5_unit
+             else march_vjp.march_bwd_plain)
+
+    def launch_all():
+        for a, g in units:
+            kern(a, *g)
+
+    ms = timed_ms(launch_all, 5, prefill=True, label=label) / len(units)
+    a, g = units[0]
+    plain_ms = time_plain(lambda: plain(a, *g), warm=True)  # the check ran it
+    if a5_unit:
+        inside = samples_needed(a5.march_a5_plain, [u[0] for u in units])
+        owned = a.width * a.height * a.spr
+    else:
+        inside = samples_needed(lambda x, st: march.march_plain(
+            march_vjp._fwd_args(x), st), [u[0] for u in units])
+        owned = sum(owned_samples(march, u[0]) for u in units) / len(units)
+    rays = a.width * a.height
+    k = a.colors.shape[0]
+    baked = a.mgrid is not None
+    nbytes = (read_bytes(a.ids.numel(), inside * (8 if a5_unit else 1))
+              + rays * 16 + k * 16
+              + march_vjp.num_blocks(a.width, a.height) * k * 16)
+    if baked:
+        nbytes += read_bytes((a.mgrid.numel() + a.sgrid.numel()) * 4,
+                             inside * 8)
+    if a5_unit:
+        per_inside = (FLOPS_PER_A5_BWD_SAMPLE
+                      + min(8, k) * FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL)
+        per_ray = FLOPS_PER_A5_BWD_RAY
+    else:
+        per_inside = FLOPS_PER_BWD_SAMPLE + (
+            FLOPS_PER_BWD_BAKED_SAMPLE if baked else 0)
+        per_ray = FLOPS_PER_BWD_RAY
+    ops = (inside * per_inside
+           + (owned - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+           + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL + per_ray))
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
+    log(f"{label}: {ms:.4f} ms a unit, plain {plain_ms:.2f} ms, samples a "
+        f"unit inside the volume {inside} of {owned} owned, bound "
+        f"{ops_ms:.4f} ms (operations) / {bytes_ms:.4f} ms (bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, inside=inside, owned=owned,
+                units=len(units))
+
+
+def shard_fit_phase(P, fit, phong, launch, shard_worker, volumes, tf, rng,
+                    res) -> dict:
+    """Phase 7m: sharded fits with 4 ranks on the one card, joined by gloo,
+    in one spawn, on the MNI-dims volume: a1 colour fits (700x700x500) on
+    (2, 2, 1) and (1, 2, 2), a lit colour and light fit (``sobel_lit_700``)
+    on (2, 2, 1), a lit colour fit on (1, 2, 2) and an a5 colour fit
+    (``a5_500``) on (2, 2, 1).  Each job: SHARD_FIT_STEPS
+    ``fit_transfer_function`` steps, after which every rank's parameters
+    must be bit-equal; then one step (the warm-up) whose gradients, summed
+    over the mesh, must lie within TOL_SHARD_SUM (of the largest component)
+    of the single-device kernel fit's, and SHARD_FIT_TIMED timed steps with
+    each rank's K1, K3, K4 and K6 launches counted by work unit.  Then 1
+    rank through NCCL.  -> launches by kernel variant and unit, summed over
+    ranks."""
+    import torch
+
+    vname = "mni_dims_182x218x182"
+    vol = volumes[vname]
+    cam = orbit_cameras(P, rng, 1)[0]
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR)
+    lit = P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"])
+    a5_cfg = P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                            algorithm=P.Algorithm.TEST)
+    start_tf, _ = lit_fit_start(P, phong, tf, rng, False)
+    _, start_light = lit_fit_start(P, phong, tf, rng, True)
+    # what each step launches on every rank: (K1 or K3 launches by variant
+    # and unit, K4 or K6 launches by variant and unit)
+    specs = [("a1_221", (2, 2, 1), cfg, None, "segment", "plain", 1),
+             ("a1_122", (1, 2, 2), cfg, None, "slab", "plain", 1),
+             ("lit_light_221", (2, 2, 1), lit, start_light, "segment",
+              "baked", 1 + phong.N_LIGHT_PARAMS + 1),
+             ("lit_122", (1, 2, 2), lit, None, "slab", "baked", 1),
+             ("a5_221", (2, 2, 1), a5_cfg, None, "segment", "a5", 1)]
+    jobs, singles = [], {}
+    cpu = dict(volume=vol.to("cpu"), camera=cam.to("cpu"))
+    for name, shape, c, light, _, _, _ in specs:
+        target = P.render(vol, tf, cam, c)
+        jobs.append(dict(name=name, mesh=shape, tf=start_tf.to("cpu"),
+                         config=c, target=target.cpu(), steps=SHARD_FIT_STEPS,
+                         lr=FIT_LR, timed_steps=SHARD_FIT_TIMED,
+                         light=None if light is None else light.to("cpu"),
+                         **cpu))
+        params = fit.FitParams.init(start_tf, light=light)
+        loss = fit.render_loss(params, start_tf, vol, cam, target, c)
+        loss.backward()
+        singles[name] = [p.grad.detach() for p in params.parameters()]
+    totals = {"k1_segment": 0, "k1_slab": 0, "k1_baked_segment": 0,
+              "k1_baked_slab": 0, "k4_segment": 0, "k4_slab": 0,
+              "k4_segment_baked": 0, "k4_slab_baked": 0, "k3_segment": 0,
+              "k6_segment": 0}
+    step_ms, grad_errs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launch.spawn(shard_worker.fit_jobs, SHARD_RANKS, "gloo", jobs, tmp,
+                     "gloo", "cuda")
+        log(f"7m: {SHARD_RANKS} ranks (gloo) ran {len(jobs)} fit jobs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, shape, c, light, unit, var, k1_per in specs:
+            outs, metas = [], []
+            for r in range(SHARD_RANKS):
+                base = os.path.join(tmp, f"{name}.rank{r}")
+                outs.append(dict(np.load(base + ".npz")))
+                with open(base + ".json") as f:
+                    metas.append(json.load(f))
+            n = len(singles[name])
+            for r in range(1, SHARD_RANKS):
+                check(all(np.array_equal(outs[r][f"p{i}"], outs[0][f"p{i}"])
+                          for i in range(n)),
+                      f"7m {name}: rank {r}'s parameters differ")
+            check(all(np.isfinite(outs[0]["losses"])),
+                  f"7m {name}: loss not finite")
+            errs = []
+            for i, want in enumerate(singles[name]):
+                got = torch.from_numpy(outs[0][f"g{i}"]).to(want.device)
+                scale = float(want.abs().max())
+                errs.append(float((got - want).abs().max()) / scale
+                            if scale > 0 else float(got.abs().max()))
+            grad_errs[name] = max(errs)
+            check(grad_errs[name] <= TOL_SHARD_SUM,
+                  f"7m {name}: step-1 gradients vs the single-device fit's "
+                  f"{errs}")
+            steps = metas[0]["steps"]
+            for r, m in enumerate(metas):
+                if var == "a5":
+                    got = (m["k3_segment"], m["k6_segment"])
+                else:
+                    got = (m["k1_shard"][unit], m["k4_shard"][unit])
+                want = (k1_per * steps, steps)
+                check(got == want, f"7m {name} rank {r}: launches {got} "
+                      f"(K1/K3, K4/K6), want {want}")
+                if var == "a5":
+                    totals["k3_segment"] += got[0]
+                    totals["k6_segment"] += got[1]
+                else:
+                    pre = "k1_baked_" if var == "baked" else "k1_"
+                    totals[pre + unit] += got[0]
+                    totals[f"k4_{unit}" + ("_baked" if var == "baked"
+                                           else "")] += got[1]
+            step_ms[name] = metas[0]["ms_per_step"]
+            log(f"7m {name} {shape}: rank 0 {step_ms[name]:.3f} ms/step over "
+                f"{steps} steps, step-1 gradients vs single-device max err "
+                f"{grad_errs[name]:.3e} (tol {TOL_SHARD_SUM:g}), losses "
+                f"{outs[0]['losses'].tolist()}, launches K1 "
+                f"{metas[0]['k1_shard']} {metas[0]['k1']}, K4 "
+                f"{metas[0]['k4_shard']} {metas[0]['k4']}, K3 segment "
+                f"{metas[0]['k3_segment']}, K6 segment "
+                f"{metas[0]['k6_segment']}")
+    # one rank through NCCL: the mesh (1, 1, 1), one segment unit a step
+    job = dict(jobs[0], name="nccl_111", mesh=(1, 1, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.spawn(shard_worker.fit_jobs, 1, "nccl", [job], tmp, "nccl",
+                     "cuda")
+        out = dict(np.load(os.path.join(tmp, "nccl_111.rank0.npz")))
+        with open(os.path.join(tmp, "nccl_111.rank0.json")) as f:
+            meta = json.load(f)
+    errs = []
+    for i, want in enumerate(singles["a1_221"]):
+        got = torch.from_numpy(out[f"g{i}"]).to(want.device)
+        errs.append(float((got - want).abs().max())
+                    / float(want.abs().max()))
+    steps = meta["steps"]
+    log(f"7m nccl (1, 1, 1): {meta['ms_per_step']:.3f} ms/step, gradients "
+        f"vs single-device max err {max(errs):.3e}, launches K1 "
+        f"{meta['k1_shard']}, K4 {meta['k4_shard']}")
+    check(max(errs) <= TOL_SHARD_SUM, f"7m nccl: gradients {errs}")
+    check(meta["k1_shard"]["segment"] == meta["k4_shard"]["segment"] == steps,
+          f"7m nccl: launches {meta['k1_shard']} {meta['k4_shard']}")
+    totals["k1_segment"] += steps
+    totals["k4_segment"] += steps
+    step_ms["nccl_111"] = meta["ms_per_step"]
+    res["step_ms"] = step_ms
+    res["grad_errs"] = grad_errs
+    res["launches"] = dict(totals)
+    return totals
 
 
 class PhaseClock:
@@ -3805,6 +4221,13 @@ def main() -> int:
         P, march, a5, volumes, mc_vols, large["dense_320"], tf, a5_edge,
         np.random.default_rng(51), shard_res)
     clock("3p-3q K1 segment and slab, K3 segment vs plain")
+
+    # ---- 3r. the work units of sharded fits vs plain ------------------------
+    shard_fit_res = {}
+    shard_fit_errs = shard_fit_kernel_phase(
+        P, march, march_vjp, a5, a5_vjp, volumes, tf,
+        np.random.default_rng(54), shard_fit_res)
+    clock("3r K1 baked slab, K4 segment and slab, K6 segment vs plain")
 
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
@@ -4094,6 +4517,12 @@ def main() -> int:
         mc_fit["k4"] += r["k4"]
     clock("7l multichannel fit path")
 
+    # ---- 7m. sharded fits: 4 ranks on the card (gloo), 1 through NCCL -------
+    shard_fit_launches = shard_fit_phase(
+        P, fit, phong, launch, shard_worker, volumes, tf,
+        np.random.default_rng(55), shard_fit_res)
+    clock("7m sharded fit path")
+
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
         "name": "march_a1",
@@ -4295,7 +4724,12 @@ def main() -> int:
         "library_ms": None,
     })
     # the work units of sharded renders: K1's segment and slab modes, K3's
-    # segment mode (launches: every rank of 4h)
+    # segment mode (launches: every rank of 4h, and of 7m's fits; K1
+    # baked slabs have an entry of their own)
+    fl = shard_fit_launches
+    shard_launches["segment"] += fl["k1_segment"] + fl["k1_baked_segment"]
+    shard_launches["slab"] += fl["k1_slab"]
+    shard_launches["a5_segment"] += fl["k3_segment"]
     for name, key, src, line in (
             ("march_a1_segment", "segment", "march.cu",
              "pallas_march.py:1837"),
@@ -4315,6 +4749,40 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    # the work units of sharded fits (launches: every rank of 7m)
+    for name, key, src, line in (
+            ("march_a1_baked_slab", "k1_baked_slab", "march.cu",
+             "pallas_march_vjp.py:568"),
+            ("march_bwd_a1_segment", "k4_segment", "march_bwd.cu",
+             "pallas_march_vjp.py:88"),
+            ("march_bwd_a1_segment_baked", "k4_segment_baked",
+             "march_bwd.cu", "pallas_march_vjp.py:88"),
+            ("march_bwd_a1_slab", "k4_slab", "march_bwd.cu",
+             "pallas_march_vjp.py:88"),
+            ("march_bwd_a1_slab_baked", "k4_slab_baked", "march_bwd.cu",
+             "pallas_march_vjp.py:88"),
+            ("march_bwd_a5_segment", "k6_segment", "a5_bwd.cu",
+             "pallas_a5.py:1128")):
+        r = shard_fit_res[key]
+        err = shard_fit_errs[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"volumerenderingproject_tpu_torch/csrc/{src}",
+            "replaces": f"volumerenderingproject_tpu/ops/{line}",
+            "launches": fl[key],
+            "max_abs_err": err if key == "k1_baked_slab" else err[0],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
+    units = {k: v for k, v in shard_fit_res.items() if k.startswith("k")}
+    log(f"sharded fits: units {json.dumps(units)}; errors "
+        f"{json.dumps(shard_fit_errs)}; ms/step "
+        f"{json.dumps(shard_fit_res['step_ms'])}; step-1 gradients vs "
+        f"single-device {json.dumps(shard_fit_res['grad_errs'])}")
     log(f"sharded renders: units {json.dumps(shard_res)}")
     log(f"multichannel: {json.dumps(mc_res)}; K4 mc max relative err "
         f"{mc_errs['k4_rel']:.3e}; in-kernel lighting: {json.dumps(lit_res)};"

@@ -24,6 +24,7 @@ from volumerenderingproject_tpu_torch.diff import fit as pfit
 from volumerenderingproject_tpu_torch.harness import cli
 from volumerenderingproject_tpu_torch.ingest import synthetic
 from volumerenderingproject_tpu_torch.ops import phong
+from volumerenderingproject_tpu_torch.parallel import mesh as pmesh
 from volumerenderingproject_tpu_torch.scene.transfer_function import (
     from_text, to_text)
 from volumerenderingproject_tpu_torch.utils import imageio
@@ -189,10 +190,12 @@ def test_checkpoint_resume_bit_identical(scene, tmp_path):
 
 
 def test_unported_fit_options_raise(scene):
-    """Sharded fits raise; bound fits are ported (smooth mode,
+    """A sharded fit that no differentiable kernel takes raises, naming the
+    scan route (item 11a; the sharded fits the kernels take are in
+    tests/test_torch_parallel_fit.py); bound fits are ported (smooth mode,
     tests/test_torch_smooth_vjp.py) and only add the bounds, light fits
     (tests/test_torch_lit_fit.py) the light's six fields as leaves."""
-    _, jtf, _, _, _, _, _ = scene
+    _, jtf, _, cfg, target, pv, pc = scene
     tf = _port_tf(jtf, np.asarray(jtf.colors))
     bounded = pfit.FitParams.init(tf, fit_bounds=True)
     assert len(bounded.parameters()) == 4
@@ -204,8 +207,11 @@ def test_unported_fit_options_raise(scene):
     assert torch.equal(lit.light.direction, light.direction)
     assert lit.light.direction is not light.direction
     params = pfit.FitParams.init(tf)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        pfit.render_loss(params, tf, None, None, None, None, mesh=object())
+    mesh = pmesh.Mesh(shape=(2, 2, 1), coords=(0, 0, 0), groups={})
+    lut = RenderConfig.from_json(cfg.to_json()).replace(tf_lut=64)
+    with pytest.raises(NotImplementedError, match="item 11a"):
+        pfit.render_loss(params, tf, pv, pc, torch.from_numpy(target), lut,
+                         mesh=mesh)
 
 
 # -- bound fits (smooth mode) ----------------------------------------------

@@ -25,7 +25,7 @@ from volumerenderingproject_tpu.parallel.mesh import make_mesh as jmake_mesh
 
 from volumerenderingproject_tpu_torch import interop
 from volumerenderingproject_tpu_torch.models import raycast
-from volumerenderingproject_tpu_torch.ops import a5, a5_vjp, march, march_vjp
+from volumerenderingproject_tpu_torch.ops import a5, march
 from volumerenderingproject_tpu_torch.ops import composite as comp
 from volumerenderingproject_tpu_torch.ops.phong import default_light
 from volumerenderingproject_tpu_torch.parallel import launch
@@ -299,18 +299,28 @@ def test_ranks_need_cuda_without_a_device(monkeypatch):
     assert launch.rank_device(3, "gloo", "cpu") == torch.device("cpu")
 
 
-def test_backward_of_a_unit_raises_14b():
-    pv, ptf, pc, pcfg = _small()
-    a = march.prepare(pv, ptf, pc, pcfg, 0.0, s_start=8, s_count=8,
-                      segment=True)
-    g = (torch.zeros(16, 6, 3), torch.zeros(16, 6))
-    with pytest.raises(NotImplementedError, match="14b"):
-        march_vjp.march_bwd_plain(a, *g)
-    a5a = a5.prepare_a5(pv, ptf, pc, pcfg, 0.0, x_offset=8, local_width=8,
-                        segment=True)
-    with pytest.raises(NotImplementedError, match="14b"):
-        a5_vjp.march_a5_bwd_plain(a5a, torch.zeros(8, 6, 3),
-                                  torch.zeros(8, 6))
+@pytest.mark.parametrize("case", [
+    ("lut", (2, 2, 1), dict(tf_lut=64), 1, False, "11a"),
+    ("multichannel", (2, 2, 1), {}, 3, False, "11a"),
+    ("smooth", (1, 2, 1), dict(interp=Interp.TRILINEAR), 1, False, "11a"),
+    ("conic_lit", (2, 2, 1), dict(conic=True, lighting=True), 1, False,
+     "11a"),
+    ("light_on_volume_axis", (1, 1, 4), dict(lighting=True), 1, True,
+     "14b.2"),
+], ids=lambda c: c[0])
+def test_sharded_fits_outside_the_kernels_raise(case):
+    """A sharded fit's work unit that no differentiable kernel takes raises,
+    naming the scan route (item 11a) or the slab scan (item 14b.2); it never
+    drops to the scan segments or the plain versions."""
+    _, shape, over, channels, light, match = case
+    jv = _volume(channels)
+    pv, ptf, pc, pcfg = _port(jv, J.default_transfer_function(),
+                              J.Camera.initial(position=CAM), SCENE_CFG)
+    lg = default_light("cpu") if light else None
+    with pytest.raises(NotImplementedError, match=match):
+        render_dist.render_segment(pv, ptf, pc, pcfg.replace(**over), shape,
+                                   (0, 0, shape[2] - 1), light=lg,
+                                   differentiable=True)
 
 
 def test_kernel_wrappers_refuse_cpu_units():

@@ -1,22 +1,27 @@
-"""Sharded renders as they run: ranks in processes of their own
+"""Sharded renders and fits as they run: ranks in processes of their own
 (``parallel/launch.spawn``), joined by gloo on the CPU, each holding its
 work unit and the gathers, against the JAX package's ``render_vrc_sharded``
 (its XLA scan segments, ``use_pallas=False``) on the JAX package's scene
-(tests/test_parallel.py:15-25; seed 7, early termination 0); and the CLI's
-``render --mesh``.  Every rank must return the whole image."""
+(tests/test_parallel.py:15-25; seed 7, early termination 0); sharded fit
+steps (``fit_transfer_function(mesh=...)``) against the port's
+single-device fit; and the CLI's ``render --mesh``.  Every rank must return
+the whole image, and end a fit with the same parameters."""
 
 import json
 import os
 
 import numpy as np
 import pytest
+import torch
 
 import volumerenderingproject_tpu as J
 from volumerenderingproject_tpu.parallel import render_dist as jrd
 from volumerenderingproject_tpu.parallel.mesh import make_mesh as jmake_mesh
 
 from volumerenderingproject_tpu_torch import interop
+from volumerenderingproject_tpu_torch.diff import fit as pfit
 from volumerenderingproject_tpu_torch.harness import cli
+from volumerenderingproject_tpu_torch.ops.phong import default_light
 from volumerenderingproject_tpu_torch.parallel import launch
 from volumerenderingproject_tpu_torch.utils import imageio
 from volumerenderingproject_tpu_torch.utils.config import RenderConfig
@@ -97,6 +102,37 @@ def test_gloo_full_mesh_8_ranks(tmp_path):
         jv, jtf, jc, jcfg, jmake_mesh(2, 2, 2), use_pallas=False))
     got = _run([dict(name="full", mesh=(2, 2, 2), **scene)], 8, tmp_path)
     _check(*got["full"], want, (2, 2, 2))
+
+
+def test_gloo_fit_steps_match_single_device(tmp_path):
+    """4 ranks take 2 fit_transfer_function steps on (2, 2, 1) and (1, 2,
+    2), and a lit colour and light fit on (2, 2, 1): every rank ends with
+    the same parameters, bit for bit, within 1e-5 of the single-device
+    fit's 2 steps."""
+    _, scene = _scene()
+    target = torch.from_numpy(np.random.default_rng(8).uniform(
+        0.0, 1.0, (16, 6, 4)).astype(np.float32))
+    jobs = [dict(name=f"fit_{m[0]}{m[1]}{m[2]}", mesh=m, target=target,
+                 steps=2, lr=1e-2, **scene) for m in ((2, 2, 1), (1, 2, 2))]
+    jobs.append(dict(jobs[0], name="fit_light_221",
+                     config=scene["config"].replace(lighting=True),
+                     light=default_light("cpu")))
+    launch.spawn(shard_worker.fit_jobs, 4, "gloo", jobs, str(tmp_path),
+                 "gloo", "cpu")
+    for job in jobs:
+        want, losses = pfit.fit_transfer_function(
+            scene["volume"], scene["camera"], target, scene["tf"],
+            job["config"], steps=2, learning_rate=1e-2,
+            light=job.get("light"), device="cpu")
+        want = [p.detach().numpy() for p in want.parameters()]
+        got = [np.load(os.path.join(tmp_path, f"{job['name']}.rank{r}.npz"))
+               for r in range(4)]
+        for r in range(4):
+            for i, w in enumerate(want):
+                np.testing.assert_array_equal(got[r][f"p{i}"], got[0][f"p{i}"])
+        for i, w in enumerate(want):
+            np.testing.assert_allclose(got[0][f"p{i}"], w, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got[0]["losses"], losses, rtol=1e-5)
 
 
 def test_a_failing_rank_fails_the_run(tmp_path):

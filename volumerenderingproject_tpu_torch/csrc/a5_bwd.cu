@@ -42,6 +42,15 @@
 // for a and rgb, and in pass B 9K more for the terms; the bytes it must move
 // (ids, 16 bytes of cotangent per ray, the partials) are far fewer.
 // Registers hold all per-ray state, shared memory the colours.
+//
+// A sharded a5 fit (parallel/render_dist.py, differentiable=True) launches
+// it once per rank on that rank's work unit, the backward of K3's segment
+// mode (render_test_pallas_diff_segment, pallas_a5.py:2056; scal[24] and
+// [25] of _a5_bwd_kernel, :1177, 1186, 1219): columns [x_offset, x_offset
+// + width) and samples [s_start, s_start + spr).  The camera grid takes the
+// global column and the stage matrices the global sample index, as in
+// a5.cu.  g_t is then the cotangent of the unit's own final T, which the
+// fold's autograd gives; bg_term = T_N g_t is unchanged.
 
 #include "a5_common.cuh"
 #include "block_reduce.cuh"
@@ -93,6 +102,7 @@ __global__ void __launch_bounds__(kBlock * kBlock)
 march_bwd_a5_kernel(const float* __restrict__ scal,
                     const float* __restrict__ colors, int num_intervals,
                     const uint8_t* __restrict__ ids, A5Geom g,
+                    int x_offset, int s_start,
                     const float* __restrict__ g_rgb,
                     const float* __restrict__ g_t,
                     float* __restrict__ partials) {
@@ -119,7 +129,7 @@ march_bwd_a5_kernel(const float* __restrict__ scal,
   const int px = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < g.width && py < g.height) {
     A5Ray r;
-    a5_ray_setup(scal, px, py, r);
+    a5_ray_setup(scal, px + x_offset, py, r);
     const int id0 = (int)scal[S_ID0];
     const long long ray = (long long)px * g.height + py;
     const float gr = g_rgb[3 * ray];
@@ -131,18 +141,18 @@ march_bwd_a5_kernel(const float* __restrict__ scal,
     // ---- pass A: total of w (g . c) and the final transmittance ----------
     float t = 1.0f;
     float total = 0.0f;
-    for (int i = 0; i < g.spr; ++i) {
+    for (int i = s_start; i < s_start + g.spr; ++i) {
       a5_coef_sample<KMAX>(r, i, g, ids, id0, s_col, coef, col);
       const float gd = (gr * col.x + gg * col.y) + gb * col.z;
       total = total + (t * col.w) * gd;
       t = t * (1.0f - col.w);
     }
-    const float bg_term = t * g_t[ray];  // dL/dT_N * T_N, through + T_N*bg
+    const float bg_term = t * g_t[ray];  // T_N * dL/dT_N
 
     // ---- pass B: prefix re-march and the per-interval terms --------------
     t = 1.0f;
     float pfx = 0.0f;
-    for (int i = 0; i < g.spr; ++i) {
+    for (int i = s_start; i < s_start + g.spr; ++i) {
       a5_coef_sample<KMAX>(r, i, g, ids, id0, s_col, coef, col);
       const float gd = (gr * col.x + gg * col.y) + gb * col.z;
       const float w = t * col.w;
@@ -170,15 +180,19 @@ march_bwd_a5_kernel(const float* __restrict__ scal,
 
 // Launches the a5 backward march on `stream`; returns cudaGetLastError()
 // (0 = launched).  scal: [41] f32 (ops/a5.py layout); colors: [K, 4] f32,
-// K <= 16; ids: [d1, d2, d3] uint8 (C order); g_rgb: [width, height, 3] f32;
-// g_t: [width, height] f32; partials: [ceil(width/16) * ceil(height/16), K,
-// 4] f32, one [K, 4] sum per 16x16 pixel block.
+// K <= 16; ids: [d1, d2, d3] uint8 (C order); the work unit: columns
+// [x_offset, x_offset + width), samples [s_start, s_start + spr); g_rgb:
+// [width, height, 3] f32 and g_t: [width, height] f32, the cotangents of
+// the unit's C and final T; partials: [ceil(width/16) * ceil(height/16),
+// K, 4] f32, one [K, 4] sum per 16x16 pixel block.
 extern "C" int vrp_march_bwd_a5(const float* scal, const float* colors,
                                 int K, const uint8_t* ids, int d1, int d2,
                                 int d3, int width, int height, int spr,
+                                int x_offset, int s_start,
                                 const float* g_rgb, const float* g_t,
                                 float* partials, void* stream) {
-  if (K <= 0 || K > kMaxIntervals || width <= 0 || height <= 0 || spr <= 0)
+  if (K <= 0 || K > kMaxIntervals || width <= 0 || height <= 0 ||
+      spr <= 0 || x_offset < 0 || s_start < 0)
     return (int)cudaErrorInvalidValue;
   const A5Geom g = make_a5_geom(d1, d2, d3, width, height, spr);
   const dim3 block(kBlock, kBlock);
@@ -187,13 +201,16 @@ extern "C" int vrp_march_bwd_a5(const float* scal, const float* colors,
   cudaStream_t s = (cudaStream_t)stream;
   if (K <= 4) {
     march_bwd_a5_kernel<4><<<grid, block, 0, s>>>(scal, colors, K, ids, g,
-                                                   g_rgb, g_t, partials);
+                                                   x_offset, s_start, g_rgb,
+                                                   g_t, partials);
   } else if (K <= 8) {
     march_bwd_a5_kernel<8><<<grid, block, 0, s>>>(scal, colors, K, ids, g,
-                                                   g_rgb, g_t, partials);
+                                                   x_offset, s_start, g_rgb,
+                                                   g_t, partials);
   } else {
     march_bwd_a5_kernel<16><<<grid, block, 0, s>>>(scal, colors, K, ids, g,
-                                                    g_rgb, g_t, partials);
+                                                    x_offset, s_start, g_rgb,
+                                                    g_t, partials);
   }
   return (int)cudaGetLastError();
 }

@@ -36,13 +36,18 @@
 //     intersected with the segment's, so a ray whose clip range misses it
 //     returns (0, 1).  Early termination acts on the unit's own T, which
 //     starts at 1.  With `segment` set the output is (C, T), no background.
-//   * slab (`kSlab`, with the plain, LUT and channel-grid variants): the
-//     id grid, the brick map and the channel grids hold x-planes
-//     [x0, x0 + slab_x) only.  A sample belongs to the slab that holds its
-//     x-clamped voxel index, off the volume too (sample_voxel_slab), so
-//     each sample is composited by one slab; the bricks lie on the slab's
-//     own x grid (pallas_march.py:419-422, 466-474).  The host tightens the
-//     box clip's x extent to the slab (ops/march.py _box).
+//   * slab (`kSlab`, with the plain, LUT, channel-grid and baked-light
+//     variants): the id grid, the brick map, the channel grids and the
+//     baked (M, S) hold x-planes [x0, x0 + slab_x) only.  A sample belongs
+//     to the slab that holds its x-clamped voxel index, off the volume too
+//     (sample_voxel_slab), so each sample is composited by one slab; the
+//     bricks lie on the slab's own x grid (pallas_march.py:419-422,
+//     466-474).  The host tightens the box clip's x extent to the slab
+//     (ops/march.py _box).  The baked slab is the forward of a lit slab's
+//     differentiable work unit (pallas_march_vjp.py:568 with slab_x and
+//     baked_light): its (M, S) are the whole volume's bake, cropped to the
+//     slab (ops/march_vjp.prepare_diff), since the normals cross the
+//     slab's faces.  In-kernel lighting on a slab is not here.
 //
 // One thread marches one ray:
 //   ray setup -> clip of the sample range to the dataset box (+-1 sample)
@@ -186,7 +191,7 @@ __device__ __forceinline__ void shade(float4& col,
 }
 
 // kMc: the number of channel grids (0: none; 1: grey; 3: rgb); kSlab: the
-// grids hold an x-slab (unlit only)
+// grids hold an x-slab (no in-kernel light)
 template <typename Id, bool kBaked, bool kLit, int kMc, bool kSlab>
 __global__ void __launch_bounds__(256)
 march_a1_kernel(const float* __restrict__ scal,
@@ -199,7 +204,7 @@ march_a1_kernel(const float* __restrict__ scal,
                 const float* __restrict__ chans, Geom g, int conic,
                 int scale_alpha, float density_scale, int segment,
                 float* __restrict__ out) {
-  static_assert(!kSlab || (!kBaked && !kLit), "a slab marches unlit");
+  static_assert(!kSlab || !kLit, "a slab takes no in-kernel light");
   __shared__ float4 s_col[sizeof(Id) == 1 ? kMaxIntervals : kMaxLut];
   __shared__ float s_light[kLit ? 10 : 1];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -276,6 +281,13 @@ march_a1_kernel(const float* __restrict__ scal,
         const long long flat = sample_voxel_slab(i, o, d, ds, clip, g);
         if (flat == -2) continue;  // another slab's sample
         col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
+        if constexpr (kBaked) {  // the slab's planes of the whole bake
+          const float m = flat < 0 ? 1.0f : __ldg(mgrid + flat);
+          const float sh = flat < 0 ? 0.0f : __ldg(sgrid + flat);
+          col.x = col.x * m + sh;
+          col.y = col.y * m + sh;
+          col.z = col.z * m + sh;
+        }
         if constexpr (kMc > 0) {
           const long long nslab = (long long)g.nx * g.dim[1] * g.dim[2];
           col.x = flat < 0 ? 0.0f : __ldg(chans + flat);
@@ -359,14 +371,15 @@ void launch(const Inputs& in, const Geom& g, int conic, float density_scale,
 // scal: [32] f32; colors: [K, 4] f32; ids: [nx, d2, d3] (C order; nx =
 // slab_x on a slab, else d1), uint8 interval ids (id_bytes 1, K <= 256) or
 // uint16 LUT indices (id_bytes 2, K <= 1024); occ: [nbx * nby * nbz] int32
-// on the same grid.  At most one of: mgrid, sgrid ([d1, d2, d3] f32 each,
+// on the same grid.  At most one of: mgrid, sgrid ([nx, d2, d3] f32 each,
 // baked light); vol ([d1, d2, d3] f32, the raw volume) and lvec ([10] f32,
 // the light), in-kernel light; chans ([n_chans, nx, d2, d3] f32, n_chans 1
 // or 3, uint8 ids only), a 4-D volume's channel grids.  The work unit:
 // columns [x_offset, x_offset + width) of a full_width-wide image, samples
 // [s_start, s_start + spr) of the d1-deep geometry's rays, and with slab_x
-// > 0 (unlit only) the grids' x-planes [x0, x0 + slab_x).  out: [width,
-// height, 4] f32, (C + T bg, 1), or with segment set (C, T).
+// > 0 (no in-kernel light; baked light with uint8 ids) the grids' x-planes
+// [x0, x0 + slab_x).  out: [width, height, 4] f32, (C + T bg, 1), or with
+// segment set (C, T).
 extern "C" int vrp_march_a1(const float* scal, const float* colors, int K,
                             const void* ids, int id_bytes,
                             const int32_t* occ, int nbx, int nby, int nbz,
@@ -387,7 +400,9 @@ extern "C" int vrp_march_a1(const float* scal, const float* colors, int K,
       (int)baked + (int)lit + (int)mc > 1 ||
       (mc && (id_bytes != 1 || (n_chans != 1 && n_chans != 3))) ||
       x_offset < 0 || x_offset + width > full_width || s_start < 0 ||
-      slab_x < 0 || (slab && (baked || lit || x0 < 0 || x0 + slab_x > d1)))
+      slab_x < 0 ||
+      (slab && (lit || (baked && id_bytes != 1) || x0 < 0 ||
+                x0 + slab_x > d1)))
     return (int)cudaErrorInvalidValue;
   Geom g = make_geom(d1, d2, d3, depth, width, height, spr, nbx, nby, nbz);
   g.x_off = x_offset;
@@ -399,7 +414,10 @@ extern "C" int vrp_march_a1(const float* scal, const float* colors, int K,
   }
   const cudaStream_t s = (cudaStream_t)stream;
   const Inputs in{scal, colors, K, ids, occ, mgrid, sgrid, vol, lvec, chans};
-  if (slab && mc && n_chans == 1)
+  if (slab && baked)
+    launch<uint8_t, true, false, 0, true>(in, g, conic, density_scale,
+                                          segment, out, s);
+  else if (slab && mc && n_chans == 1)
     launch<uint8_t, false, false, 1, true>(in, g, conic, density_scale,
                                            segment, out, s);
   else if (slab && mc)

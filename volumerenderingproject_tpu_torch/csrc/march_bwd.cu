@@ -21,8 +21,29 @@
 //     440-456).
 // It also takes the volumes of _march_streamed_bwd_kernel (K5, the same
 // two passes over HBM->VMEM x-blocks with ownership extents): the volume
-// stays in device memory.  The slab and segment variants of that kernel
-// are not here.
+// stays in device memory.
+//
+// A sharded fit (parallel/render_dist.py, differentiable=True) launches it
+// once per rank on that rank's work unit, the backward of K1's segment and
+// slab modes (render_vrc_pallas_diff_segment, pallas_march_vjp.py:1854;
+// the kernel's local_width/slab_x handling, :111-130, 172-175, 238-241,
+// 404-466):
+//   * segment, every variant: columns [x_offset, x_offset + width) of a
+//     full_width-wide image and samples [s_start, s_start + spr).  Rays
+//     keep their global column in the ray setup and samples their global
+//     index, as in K1 (the Geom fields, march_common.cuh).  The output the
+//     cotangents belong to is the unit's (C, T) pair, so g_t is the
+//     cotangent of the unit's own final T, which the fold's autograd gives
+//     (the whole render's g_t = g . bg is the special case of one unit);
+//     bg_term = T_N g_t is unchanged.
+//   * slab (`kSlab`, plain and baked): the id grid and (M, S) hold
+//     x-planes [x0, x0 + slab_x) only, and a sample belongs to the slab
+//     that holds its x-clamped voxel index (sample_voxel_slab).  A sample
+//     that another slab owns is the over identity in both passes, alpha
+//     0, and scatters into no interval; an owned sample off the volume
+//     takes id0 and scatters into its interval, as in the whole backward.
+//     Summed over the slabs, the gradients are the whole render's: the
+//     ownership partitions the samples.
 // Given the per-ray cotangents g (of the rgb output) and g_t (of the final
 // transmittance T_N, which reaches the output through out = C + T_N * bg),
 // it computes dL/dcolors [K, 4] of the forward march (march.cu) at eps 0
@@ -85,8 +106,11 @@ struct Sample {
   float a, gd, m;
 };
 
-// kMc: the number of channel grids (0: none; 1: grey; 3: rgb)
-template <int KMAX, typename Id, bool kBaked, int kMc>
+// kMc: the number of channel grids (0: none; 1: grey; 3: rgb); kSlab: the
+// grids hold an x-slab (interval ids, plain or baked).  A sample that
+// another slab owns comes back as interval -1 with alpha 0: the over
+// identity, which no interval's sums take.
+template <int KMAX, typename Id, bool kBaked, int kMc, bool kSlab>
 __device__ __forceinline__ Sample bwd_sample(
     int i, const float o[3], const float d[3], float ds, float clip,
     const Geom& g, const Id* __restrict__ ids, int id0,
@@ -96,7 +120,24 @@ __device__ __forceinline__ Sample bwd_sample(
   int idx;
   float m = 1.0f, sh = 0.0f;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  if constexpr (kMc > 0) {  // c' from the channel grids, as K1 reads it
+  if constexpr (kSlab) {
+    const long long flat = sample_voxel_slab(i, o, d, ds, clip, g);
+    if (flat == -2) {  // another slab's sample
+      Sample s;
+      s.k = -1;
+      s.a = 0.0f;
+      s.gd = 0.0f;
+      s.m = 1.0f;
+      return s;
+    }
+    idx = flat < 0 ? id0 : (int)__ldg(ids + flat);
+    if constexpr (kBaked) {
+      if (flat >= 0) {
+        m = __ldg(mgrid + flat);
+        sh = __ldg(sgrid + flat);
+      }
+    }
+  } else if constexpr (kMc > 0) {  // c' from the channel grids, as K1 reads it
     const long long flat = sample_voxel(i, o, d, ds, clip, g);
     idx = flat < 0 ? id0 : (int)__ldg(ids + flat);
     if (flat >= 0) {
@@ -132,7 +173,7 @@ __device__ __forceinline__ Sample bwd_sample(
   return s;
 }
 
-template <int KMAX, typename Id, bool kBaked, int kMc>
+template <int KMAX, typename Id, bool kBaked, int kMc, bool kSlab>
 __global__ void __launch_bounds__(kBlock * kBlock)
 march_bwd_a1_kernel(const float* __restrict__ scal,
                     const float* __restrict__ colors, int num_intervals,
@@ -183,23 +224,24 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
     const long long nvox = (long long)g.dim[0] * g.dim[1] * g.dim[2];
 
     // ---- pass A: total of w (g . c') and the final transmittance ---------
+    // (the unit's samples; its T starts at 1)
     float t = 1.0f;
     float total = 0.0f;
-    for (int i = 0; i < g.spr; ++i) {
-      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc>(
+    for (int i = g.s_start; i < g.s_start + g.spr; ++i) {
+      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc, kSlab>(
           i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
           s_itv, gr, gg, gb);
       const float w = t * s.a;
       total = total + w * s.gd;
       t = t * (1.0f - s.a);
     }
-    const float bg_term = t * g_t[ray];  // dL/dT_N * T_N, through + T_N*bg
+    const float bg_term = t * g_t[ray];  // T_N * dL/dT_N
 
     // ---- pass B: prefix re-march and the per-interval terms --------------
     t = 1.0f;
     float pfx = 0.0f;
-    for (int i = 0; i < g.spr; ++i) {
-      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc>(
+    for (int i = g.s_start; i < g.s_start + g.spr; ++i) {
+      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc, kSlab>(
           i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
           s_itv, gr, gg, gb);
       const float w = t * s.a;
@@ -238,22 +280,22 @@ struct Inputs {
   float* partials;
 };
 
-template <typename Id, bool kBaked, int kMc>
+template <typename Id, bool kBaked, int kMc, bool kSlab = false>
 void launch(const Inputs& in, const Geom& g, int conic, cudaStream_t s) {
   const dim3 block(kBlock, kBlock);
   const dim3 grid((g.height + kBlock - 1) / kBlock,
                   (g.width + kBlock - 1) / kBlock);
   const Id* id = static_cast<const Id*>(in.ids);
   if (in.K <= 4) {
-    march_bwd_a1_kernel<4, Id, kBaked, kMc><<<grid, block, 0, s>>>(
+    march_bwd_a1_kernel<4, Id, kBaked, kMc, kSlab><<<grid, block, 0, s>>>(
         in.scal, in.colors, in.K, id, in.itv, in.lut_n, in.mgrid, in.sgrid,
         in.chans, g, conic, in.g_rgb, in.g_t, in.partials);
   } else if (in.K <= 8) {
-    march_bwd_a1_kernel<8, Id, kBaked, kMc><<<grid, block, 0, s>>>(
+    march_bwd_a1_kernel<8, Id, kBaked, kMc, kSlab><<<grid, block, 0, s>>>(
         in.scal, in.colors, in.K, id, in.itv, in.lut_n, in.mgrid, in.sgrid,
         in.chans, g, conic, in.g_rgb, in.g_t, in.partials);
   } else {
-    march_bwd_a1_kernel<16, Id, kBaked, kMc><<<grid, block, 0, s>>>(
+    march_bwd_a1_kernel<16, Id, kBaked, kMc, kSlab><<<grid, block, 0, s>>>(
         in.scal, in.colors, in.K, id, in.itv, in.lut_n, in.mgrid, in.sgrid,
         in.chans, g, conic, in.g_rgb, in.g_t, in.partials);
   }
@@ -270,7 +312,12 @@ void launch(const Inputs& in, const Geom& g, int conic, cudaStream_t s) {
 // (n_chans 1 or 3, uint8 ids, unlit) for a 4-D volume, else null; g_rgb:
 // [width, height, 3] f32; g_t: [width, height] f32; partials:
 // [ceil(width/16) * ceil(height/16), K, 4] f32, one [K, 4] sum per 16x16
-// pixel block.
+// pixel block.  The work unit: columns [x_offset, x_offset + width) of a
+// full_width-wide image, samples [s_start, s_start + spr) of the d1-deep
+// geometry's rays, and with slab_x > 0 (interval ids, plain or baked) the
+// grids' x-planes [x0, x0 + slab_x): ids, mgrid and sgrid are then
+// [slab_x, d2, d3].  g_rgb and g_t are the cotangents of the unit's C and
+// final T.
 extern "C" int vrp_march_bwd_a1(const float* scal, const float* colors, int K,
                                 const void* ids, int id_bytes,
                                 const uint8_t* itv, int lut_n,
@@ -278,21 +325,37 @@ extern "C" int vrp_march_bwd_a1(const float* scal, const float* colors, int K,
                                 const float* chans, int n_chans, int d1,
                                 int d2, int d3, int depth, int width,
                                 int height, int spr, int conic,
-                                const float* g_rgb, const float* g_t,
-                                float* partials, void* stream) {
+                                int x_offset, int full_width, int s_start,
+                                int x0, int slab_x, const float* g_rgb,
+                                const float* g_t, float* partials,
+                                void* stream) {
   const bool lut = id_bytes == 2;
-  const bool baked = mgrid != nullptr, mc = chans != nullptr;
+  const bool baked = mgrid != nullptr, mc = chans != nullptr,
+             slab = slab_x > 0;
   if ((id_bytes != 1 && id_bytes != 2) || K <= 0 || K > kMaxIntervals ||
       width <= 0 || height <= 0 || spr <= 0 ||
       baked != (sgrid != nullptr) ||
       (lut && (itv == nullptr || lut_n <= 0 || lut_n > kMaxLut)) ||
-      (mc && (lut || baked || (n_chans != 1 && n_chans != 3))))
+      (mc && (lut || baked || (n_chans != 1 && n_chans != 3))) ||
+      x_offset < 0 || x_offset + width > full_width || s_start < 0 ||
+      slab_x < 0 || (slab && (lut || mc || x0 < 0 || x0 + slab_x > d1)))
     return (int)cudaErrorInvalidValue;
-  const Geom g = make_geom(d1, d2, d3, depth, width, height, spr, 0, 0, 0);
+  Geom g = make_geom(d1, d2, d3, depth, width, height, spr, 0, 0, 0);
+  g.x_off = x_offset;
+  g.gwidth = full_width;
+  g.s_start = s_start;
+  if (slab) {
+    g.x0 = x0;
+    g.nx = slab_x;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   const Inputs in{scal,  colors, K,     ids, itv,     lut_n,
                   mgrid, sgrid,  chans, g_rgb, g_t, partials};
-  if (mc && n_chans == 1)
+  if (slab && baked)
+    launch<uint8_t, true, 0, true>(in, g, conic, s);
+  else if (slab)
+    launch<uint8_t, false, 0, true>(in, g, conic, s);
+  else if (mc && n_chans == 1)
     launch<uint8_t, false, 1>(in, g, conic, s);
   else if (mc)
     launch<uint8_t, false, 3>(in, g, conic, s);

@@ -26,13 +26,22 @@ their gradient is zero almost everywhere, here and in the JAX package, and
 they do not move.  ``light`` (an ``ops.phong.Light``) adds its six fields,
 the 10 light parameters.
 
+With ``mesh`` (a ``parallel.mesh.Mesh``; JAX fit.py:85-121, 229-247) every
+rank of a process group renders its work unit of the image through
+``parallel/render_dist.render_vrc_sharded(differentiable=True)`` (K1 and
+K4 at the unit's offsets, or K3 and K6; the TF colours, the density and,
+on the rays and samples axes, the light's 10 parameters train), holds the
+whole target and computes the same loss; after ``loss.backward()`` each
+parameter's gradient is summed over the mesh (``Mesh.all_reduce_``), so
+every rank takes the same Adam step and the parameters stay replicated.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 item): what only the JAX package's XLA scan fits (item 11a: conic lit fits,
 light fits of a5, smooth, LUT or scattered renders or from a non-uniform
-light colour, scattered fits of a5, smooth, conic or LUT renders, and
-4-D fits other than the ortho, unlit, nearest-voxel a1 alpha-column fit;
-item 11d: fits of more than 16 intervals) and sharded fits over a mesh
-(item 14).
+light colour, scattered fits of a5, smooth, conic or LUT renders, 4-D fits
+other than the ortho, unlit, nearest-voxel a1 alpha-column fit, and the
+sharded fits that its kernels do not take; item 11d: fits of more than 16
+intervals) and sharded fits that its slab scan takes (item 14b.2).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.a5_vjp import render_test_diff
+from ..parallel.render_dist import render_vrc_sharded
 from ..ops.march_vjp import render_vrc_diff, render_vrc_scatter_diff
 from ..ops.phong import Light
 from ..ops.smooth_vjp import render_vrc_smooth_diff
@@ -108,15 +118,23 @@ def render_loss(params: FitParams, tf: TransferFunction, volume, camera,
                 target: torch.Tensor, config: RenderConfig,
                 mesh=None) -> torch.Tensor:
     """MSE between the differentiable render and the target image, on the
-    device that holds the volume."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded fits are not ported yet: ROADMAP.md item 14 (parallel)")
+    device that holds the volume; with ``mesh``, the sharded render of this
+    rank's mesh (the module docstring)."""
     tf2 = _apply_params(tf, params)
     zero = torch.zeros((), dtype=_f32, device=params.density_scale.device)
     density = torch.maximum(params.density_scale, zero)  # jnp.clip(d, 0, None)
-    img = _render_with_density(volume, tf2, camera, config, density,
-                               params.light)
+    if mesh is None:
+        img = _render_with_density(volume, tf2, camera, config, density,
+                                   params.light)
+    else:
+        # fit.py:97-119: the density folds into the alphas, and the sharded
+        # render differentiates through the kernels' work units
+        colors = torch.cat([tf2.colors[:, :3], tf2.colors[:, 3:4] * density],
+                           dim=1)
+        tf3 = TransferFunction(lower=tf2.lower, upper=tf2.upper,
+                               colors=colors, hg_g=tf2.hg_g)
+        img = render_vrc_sharded(volume, tf3, camera, config, mesh,
+                                 differentiable=True, light=params.light)
     return torch.mean((img[..., :3] - target[..., :3]) ** 2)
 
 
@@ -168,12 +186,19 @@ def make_train_step(tf: TransferFunction, config: RenderConfig,
                     optimizer: torch.optim.Optimizer, mesh=None):
     """A train step ``(params, volume, camera, target) -> loss``: one
     forward and one backward march, then one update of ``optimizer``, which
-    holds ``params``' tensors and its own state."""
+    holds ``params``' tensors and its own state.  With ``mesh`` every
+    gradient is summed over the mesh before the update."""
 
     def step(params: FitParams, volume, camera, target) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = render_loss(params, tf, volume, camera, target, config, mesh)
         loss.backward()
+        if mesh is not None:
+            # every rank builds the same graph, so a gradient is None on
+            # every rank or on none
+            for p in params.parameters():
+                if p.grad is not None:
+                    mesh.all_reduce_(p.grad)
         optimizer.step()
         return loss.detach()
 
@@ -194,7 +219,9 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
 
     ``resume=True`` restores the latest checkpoint in ``checkpoint_dir``
     (parameters and optimizer state) and continues up to ``steps`` steps in
-    all; every ``checkpoint_every`` steps a checkpoint is written."""
+    all; every ``checkpoint_every`` steps a checkpoint is written.  With
+    ``mesh`` every rank of it calls this with the whole target, and the rank
+    at (0, 0, 0) writes the checkpoints (the parameters are replicated)."""
     dev = resolve_device(device)
     volume, camera, tf = volume.to(dev), camera.to(dev), tf.to(dev)
     if not isinstance(target, torch.Tensor):
@@ -219,7 +246,9 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
     for i in range(start, steps):
         loss = train_step(params, volume, camera, target)
         losses.append(float(loss))
-        if checkpoint_dir and checkpoint_every and (i + 1) % checkpoint_every == 0:
+        if (checkpoint_dir and checkpoint_every
+                and (i + 1) % checkpoint_every == 0
+                and (mesh is None or mesh.coords == (0, 0, 0))):
             save_checkpoint(checkpoint_dir, i + 1, params, optimizer)
     return params, losses
 

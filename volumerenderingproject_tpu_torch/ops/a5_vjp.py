@@ -5,7 +5,11 @@ differentiable a5 render.
 
 Counterpart of ``volumerenderingproject_tpu/ops/pallas_a5.py``'s diff cores
 on the unlit resident path: ``a5_diff_config_ok``, ``_make_a5_core``'s
-custom VJP around ``_a5_bwd_kernel``, and ``render_test_pallas_diff``.
+custom VJP around ``_a5_bwd_kernel``, ``render_test_pallas_diff`` and, for a
+sharded fit's work unit on the rays and samples axes,
+``render_test_pallas_diff_segment`` (its columns and samples; the
+cotangents are those of the unit's C and of its own final T, which the
+fold's autograd gives).
 
 The a5 sample colour is linear in the colour table, so sample s has the
 per-interval coefficients ``coef_k = sum_corners w_c [id_c == k]`` inside
@@ -44,8 +48,10 @@ from .march_vjp import num_blocks
 _f32 = torch.float32
 MAX_INTERVALS = 16  # the JAX kernel's limit (a5_diff_config_ok)
 
-# launches of the CUDA kernel since import (or since a caller reset it)
+# launches of the CUDA kernel since import (or since a caller reset them),
+# and the launches that took a sharded fit's work unit
 launches = 0
+segment_launches = 0
 
 
 def check_diff_supported(config: RenderConfig, channels: int,
@@ -78,16 +84,16 @@ def check_diff_supported(config: RenderConfig, channels: int,
 
 
 def prepare_a5_diff(volume, tf: TransferFunction, camera,
-                    config: RenderConfig):
+                    config: RenderConfig, **unit):
     """(a5 args at eps 0, the colours on the volume's device).  The colours
-    keep their autograd history; the args are built from a detached
-    copy."""
+    keep their autograd history; the args are built from a detached copy.
+    ``unit`` holds the work-unit keywords of ``a5.prepare_a5``."""
     check_diff_supported(config, volume.channels, tf.num_intervals)
     colors = tf.colors.to(volume.data.device)
     with torch.no_grad():
         tf_fixed = TransferFunction(tf.lower, tf.upper, colors.detach(),
                                     tf.hg_g)
-        args = a5.prepare_a5(volume, tf_fixed, camera, config, 0.0)
+        args = a5.prepare_a5(volume, tf_fixed, camera, config, 0.0, **unit)
     return args, colors
 
 
@@ -122,30 +128,21 @@ def _coef_samples(a: A5Args):
     return sample
 
 
-def check_whole_render(a: A5Args) -> None:
-    """Raise NotImplementedError for a sharded render's work unit: the a5
-    backward march takes whole renders; its segment offsets
-    (pallas_a5.py:2056) are ROADMAP.md item 14b."""
-    if a.segment or a.x_offset or a.s_start:
-        raise NotImplementedError(
-            "the a5 backward march of a sharded work unit is not ported "
-            "yet: ROADMAP.md item 14b")
-
-
 def march_a5_bwd_plain(a: A5Args, g_rgb: torch.Tensor,
                        g_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel -> dL/dcolors [K, 4]:
     the kernel's two passes with its float order, as a loop over samples
-    vectorised over rays.  Each ray sums its terms per interval in sample
-    order; the rays' sums are added last."""
-    check_whole_render(a)
+    vectorised over rays, over a work unit's columns and samples (``g_t``
+    the cotangent of its own final T).  Each ray sums its terms per interval
+    in sample order; the rays' sums are added last."""
     dev = a.ids.device
     sample = _coef_samples(a)
     gr, gg, gb = g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2]
     shape = (a.width, a.height)
     t = torch.ones(shape, dtype=_f32, device=dev)
     total = torch.zeros(shape, dtype=_f32, device=dev)
-    for i in range(a.spr):  # pass A
+    samples = range(a.s_start, a.s_start + a.spr)
+    for i in samples:  # pass A
         _, alpha, rgb = sample(i)
         gd = (gr * rgb[..., 0] + gg * rgb[..., 1]) + gb * rgb[..., 2]
         total = total + (t * alpha) * gd
@@ -157,7 +154,7 @@ def march_a5_bwd_plain(a: A5Args, g_rgb: torch.Tensor,
     g4 = torch.stack([gr, gg, gb], dim=-1)[..., None, :]
     t = torch.ones(shape, dtype=_f32, device=dev)
     pfx = torch.zeros(shape, dtype=_f32, device=dev)
-    for i in range(a.spr):  # pass B
+    for i in samples:  # pass B
         coef, alpha, rgb = sample(i)
         gd = (gr * rgb[..., 0] + gg * rgb[..., 1]) + gb * rgb[..., 2]
         w = t * alpha
@@ -178,9 +175,9 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.vrp_march_bwd_a5
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # scal, colors, K, ids, d1, d2, d3, width, height, spr, g_rgb, g_t,
-        # partials, stream
-        fn.argtypes = [p, p, i, p] + [i] * 6 + [p, p, p, p]
+        # scal, colors, K, ids, d1, d2, d3, width, height, spr, x_offset,
+        # s_start, g_rgb, g_t, partials, stream
+        fn.argtypes = [p, p, i, p] + [i] * 8 + [p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -188,9 +185,12 @@ def _kernel_lib() -> ctypes.CDLL:
 def march_a5_bwd_kernel(a: A5Args, g_rgb: torch.Tensor,
                         g_t: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/a5_bwd.cu`` on the current stream and sum its
-    per-block partials -> dL/dcolors [K, 4]."""
-    global launches
-    check_whole_render(a)
+    per-block partials -> dL/dcolors [K, 4], over a work unit's columns and
+    samples."""
+    global launches, segment_launches
+    if a.mgrid is not None:
+        raise ValueError("the a5 backward march is unlit: ROADMAP.md item "
+                         "11a")
     a5.check_kernel_args(a, MAX_INTERVALS, extra=(
         ("g_rgb", g_rgb, _f32, (a.width, a.height, 3)),
         ("g_t", g_t, _f32, (a.width, a.height))))
@@ -202,18 +202,21 @@ def march_a5_bwd_kernel(a: A5Args, g_rgb: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.vrp_march_bwd_a5(
             a.scal.data_ptr(), a.colors.data_ptr(), k, a.ids.data_ptr(),
-            *a.dims, a.width, a.height, a.spr, g_rgb.data_ptr(),
-            g_t.data_ptr(), partials.data_ptr(),
+            *a.dims, a.width, a.height, a.spr, a.x_offset, a.s_start,
+            g_rgb.data_ptr(), g_t.data_ptr(), partials.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"a5 backward march kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
+    if a.segment:
+        segment_launches += 1
     return partials.sum(dim=0)
 
 
-def _forward(a: A5Args) -> torch.Tensor:
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
+def _forward(a: A5Args):
+    """K3 on CUDA tensors, its plain version on CPU tensors -> the image,
+    or a unit's (C, T) pair."""
     return a5.march_a5_kernel(a) if a.ids.is_cuda else a5.march_a5_plain(a)
 
 
@@ -226,18 +229,22 @@ def _backward(a: A5Args, g_rgb: torch.Tensor,
 
 
 class _A5MarchFn(torch.autograd.Function):
-    """colors [K, 4] -> image [W, H, 4] through the a5 march at eps 0; the
-    backward march gives dL/dcolors."""
+    """colors [K, 4] -> image [W, H, 4], or a unit's (C [w, H, 3], T [w, H,
+    1]), through the a5 march at eps 0; the backward march gives
+    dL/dcolors."""
 
     @staticmethod
-    def forward(ctx, colors: torch.Tensor, a: A5Args) -> torch.Tensor:
+    def forward(ctx, colors: torch.Tensor, a: A5Args):
         a = a._replace(colors=colors.detach().to(_f32).contiguous())
         ctx.args = a
         return _forward(a)
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
+    def backward(ctx, g: torch.Tensor, g_t: torch.Tensor | None = None):
         a = ctx.args
+        if a.segment:  # the cotangents of the unit's C and final T
+            return _backward(a, g.contiguous(),
+                             g_t[..., 0].contiguous()), None
         bg = a.scal[S_BG:S_BG + 3]
         g_rgb = g[..., :3].contiguous()
         # the cotangent of T_N through rgb = C + T_N * bg (alpha is 1)
@@ -247,14 +254,17 @@ class _A5MarchFn(torch.autograd.Function):
 
 
 def render_test_diff(volume, tf: TransferFunction, camera,
-                     config: RenderConfig, *, device=None) -> torch.Tensor:
+                     config: RenderConfig, *, device=None, **unit):
     """a5/TEST render -> [W, H, 4] (alpha 1), differentiable with respect to
     ``tf.colors`` through the forward a5 march (K3) and the backward march
     (K6) on ``device`` (CUDA unless given); CPU tensors take their plain
     versions.  Equal in value to ``render(..., mode="scan")`` for a5; the
     gradient equals autograd through that scan up to the float order of
-    the coefficient form, except where a sample's alpha is exactly 1."""
+    the coefficient form, except where a sample's alpha is exactly 1.
+    With ``unit``, the keywords of ``a5.prepare_a5`` that select a sharded
+    fit's work unit (``segment=True``), it returns the unit's (C, T) pair
+    (``render_test_pallas_diff_segment``, pallas_a5.py:2056)."""
     dev = resolve_device(device)
     volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)
-    args, colors = prepare_a5_diff(volume, tf, camera, config)
+    args, colors = prepare_a5_diff(volume, tf, camera, config, **unit)
     return _A5MarchFn.apply(colors, args)

@@ -55,7 +55,10 @@ planes only (trunc(cal_max) stays the whole volume's), and every sample
 belongs to the slab that holds its x-clamped voxel index, off the volume
 too (sampling.py:105-140), so that each sample is composited by one slab;
 the others leave (C, T) as it is.  The box clip's x extent shrinks to the
-slab (pallas_march.py:1717-1724).
+slab (pallas_march.py:1717-1724).  A slab takes baked (M, S) only from the
+differentiable march (``ops/march_vjp.prepare_diff``), which bakes them on
+the whole volume and crops them to the slab: the normals cross the slab's
+faces.
 
 Every skip the kernel makes is exact: a skipped sample has alpha exactly 0
 and leaves (C, T) unchanged.  A negative alpha (a fit can drive one below
@@ -121,7 +124,8 @@ class MarchArgs(NamedTuple):
     spr: int
     conic: bool
     density_scale: float
-    # [X, Y, Z] f32 baked M and S, lit or scattered only
+    # [X, Y, Z] f32 baked M and S (of the slab's planes on a slab), lit or
+    # scattered only
     mgrid: Optional[torch.Tensor] = None
     sgrid: Optional[torch.Tensor] = None
     # [N] uint8: the TF interval of each LUT entry (``lut_intervals``); set
@@ -349,26 +353,33 @@ def check_fused_supported(config: RenderConfig, light: Light | None,
 
 
 def check_slab_supported(config: RenderConfig, light: Light | None) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md item 14b, for what the
-    x-slab march does not compute: lighting and scattering, whose gradients
-    and transmittance cross the slab's faces (the JAX package takes its
-    slab scan with halos there, render_dist.py:563-580)."""
+    """Raise NotImplementedError, naming ROADMAP.md item 14b.2, for what the
+    x-slab march does not compute by itself: lighting and scattering, whose
+    gradients and transmittance cross the slab's faces (the JAX package
+    takes its slab scan with halos there, render_dist.py:563-580).  The
+    differentiable march supplies a lit slab's cropped bake instead
+    (:func:`prepare`'s ``baked_grids``)."""
     if is_lit(config, light) or config.scattering:
         raise NotImplementedError(
             "lighting and scattering on the volume axis need the slab scan "
-            "with x-halos: ROADMAP.md item 14b")
+            "with x-halos: ROADMAP.md item 14b.2")
 
 
 def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
             light: Light | None = None, *, x_offset: int = 0,
             local_width: int | None = None, s_start: int = 0,
             s_count: int | None = None, x0: int = 0,
-            slab_x: int | None = None, segment: bool = False) -> MarchArgs:
+            slab_x: int | None = None, segment: bool = False,
+            baked_grids: Tuple[torch.Tensor, torch.Tensor] | None = None
+            ) -> MarchArgs:
     """Prep for one march; all tensors on the volume's device.  ``light``
     defaults to :func:`ops.phong.default_light` where the render is lit or
     scattered.  The keywords select a sharded render's work unit (this
     module's docstring): ``volume`` is the whole volume, of which a slab
-    keeps planes [x0, x0 + slab_x); ``segment`` marches to (C, T)."""
+    keeps planes [x0, x0 + slab_x); ``segment`` marches to (C, T).
+    ``baked_grids`` are the (M, S) of a baked march, given by the caller in
+    place of the bake: a lit slab's, the whole volume's bake cropped to the
+    slab's planes (``ops/march_vjp.prepare_diff``)."""
     check_supported(config)
     route = check_fused_supported(config, light, volume.channels)
     dev = volume.data.device
@@ -377,8 +388,12 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
     cal_max_trunc = torch.trunc(volume.cal_max.to(_f32))
     d1 = volume.dims[0]
     slab_x = slab_x or 0
+    if baked_grids is not None and route != "baked":
+        raise ValueError("baked_grids go with a baked march (lighting on "
+                         "ortho rays under a uniform light colour)")
     if slab_x:
-        check_slab_supported(config, light)
+        if baked_grids is None:
+            check_slab_supported(config, light)
         if not (0 <= x0 and 0 < slab_x and x0 + slab_x <= d1):
             raise ValueError(f"slab [{x0}, {x0 + slab_x}) outside x extent "
                              f"{d1}")
@@ -416,7 +431,9 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
     scal = scal_vector(camera, config, volume.dims, volume.octree_depth,
                        cal_max_trunc, early_eps, full, id0, x0, slab_x)
     mgrid = sgrid = vol = lvec = None
-    if route == "baked":
+    if baked_grids is not None:
+        mgrid, sgrid = baked_grids
+    elif route == "baked":
         mgrid, sgrid = bake_grids(volume, tf, camera, config, light,
                                   cal_max_trunc, cal_max_trunc)
     elif route == "lit":
@@ -710,16 +727,17 @@ def march_kernel(a: MarchArgs):
     if baked + lit + mc > 1 or (mc and a.ids.dtype != torch.uint8):
         raise ValueError("one of baked light, in-kernel light or channel "
                          "grids (the last with interval ids)")
-    if a.slab_x and (baked or lit):
-        raise ValueError("an x-slab marches unlit: ROADMAP.md item 14b")
+    if a.slab_x and (lit or (baked and a.ids.dtype != torch.uint8)):
+        raise ValueError("an x-slab takes no in-kernel light, and baked "
+                         "(M, S) with interval ids: ROADMAP.md item 14b.2")
     grid = (a.slab_x or a.dims[0],) + tuple(a.dims[1:])
     checks = [("scal", a.scal, _f32, (SCAL_LEN,)),
               ("colors", a.colors, _f32, None),
               ("ids", a.ids, a.ids.dtype, grid),
               ("occ", a.occ, torch.int32, None)]
     if baked:
-        checks += [("mgrid", a.mgrid, _f32, a.dims),
-                   ("sgrid", a.sgrid, _f32, a.dims)]
+        checks += [("mgrid", a.mgrid, _f32, grid),
+                   ("sgrid", a.sgrid, _f32, grid)]
     if lit:
         checks += [("vol", a.vol, _f32, a.dims), ("lvec", a.lvec, _f32, (10,))]
     if mc:

@@ -5,10 +5,11 @@ differentiable renders.
 
 Counterpart of ``volumerenderingproject_tpu/ops/pallas_march_vjp.py`` on the
 a1 path: ``_march_bwd_kernel`` in its plain, ``baked_light``, ``lut_n``,
-LUT + baked-light and ``mc_grids`` variants (no slab), the ``_make_core``
-custom VJP, the light-differentiable ``_make_lit_core``, the multichannel
-``_make_mc_core`` and ``render_vrc_pallas_diff`` with
-``render_vrc_pallas_diff_multichannel``.
+LUT + baked-light and ``mc_grids`` variants, with the segment and slab
+offsets of a sharded fit's work unit, the ``_make_core`` custom VJP, the
+light-differentiable ``_make_lit_core``, the multichannel ``_make_mc_core``,
+``render_vrc_pallas_diff`` with ``render_vrc_pallas_diff_multichannel``, and
+``render_vrc_pallas_diff_segment``.
 
 Backward math (front-to-back over in (C, T) form, output alpha 1):
 
@@ -55,6 +56,17 @@ interval plus the shared base, each tangent grid a ``torch.func.jvp`` of the
 scatter bake; ``hg_g`` takes K more where it requires grad.  The direct
 part (classify and recurrence at fixed S) is the baked backward march.
 
+A sharded fit's work unit (``parallel/render_dist.py``; the unit keywords
+of ``march.prepare``) returns its raw (C, T) pair, and the cotangents are
+those of C and of the unit's own final T, which the fold's autograd gives;
+on an x-slab a sample that another slab owns is the over identity in both
+passes, alpha 0, and scatters into no interval, so the slabs' gradients sum
+to the whole render's.  A lit slab takes the whole volume's bake cropped to
+its planes (the normals cross its faces), and a light fit runs on the rays
+and samples axes only, where its tangent marches are segment marches and
+their inner product takes the cotangent of C alone (the light moves no
+alpha, and a unit has no background term).
+
 The forward runs at ``early_eps = 0`` with ``density_scale`` folded into the
 alpha column (its clip included), so the march runs with density 1 and the
 chain rule through the fold reaches the raw colours; the scatter bake then
@@ -88,6 +100,9 @@ BLOCK = 16  # pixels per edge of the kernel's blocks; one partial per block
 launches = 0
 variant_launches = {"plain": 0, "lut": 0, "baked": 0, "lut_baked": 0,
                     "mc": 0}
+# and the launches that took a sharded fit's work unit: a segment over the
+# whole volume, or one on an x-slab of it
+shard_launches = {"segment": 0, "slab": 0}
 
 
 def check_mc_fit_supported(config: RenderConfig, channels: int) -> None:
@@ -253,14 +268,17 @@ def diff_scatter_eligible(volume, tf: TransferFunction,
 
 
 def prepare_diff(volume, tf: TransferFunction, camera, config: RenderConfig,
-                 bake: bool = True) -> Tuple[MarchArgs, torch.Tensor]:
+                 bake: bool = True, **unit) -> Tuple[MarchArgs, torch.Tensor]:
     """(march args at eps 0 and density 1, the colours with the static
     ``density_scale`` folded into alpha).  The colours keep their autograd
     history; the args are built from a detached copy: with lighting the
     baked (M, S) of the default light (``bake=False`` leaves them to the
     caller, as a light fit bakes its own), with ``tf_lut`` the uint16
     LUT-index grid and ``itv``, the interval of every LUT entry, beside the
-    TF's own colours."""
+    TF's own colours.  ``unit`` holds the work-unit keywords of
+    ``march.prepare``; a lit slab's (M, S) are the whole volume's bake
+    cropped to its planes, as the JAX package's halo-extended slab bake
+    gives them (render_dist.py:433-456)."""
     check_diff_supported(config, volume.channels, tf.num_intervals)
     colors = tf.colors.to(volume.data.device)
     if config.density_scale != 1.0:
@@ -270,10 +288,18 @@ def prepare_diff(volume, tf: TransferFunction, camera, config: RenderConfig,
     with torch.no_grad():
         tf_fixed = TransferFunction(tf.lower, tf.upper, colors.detach(),
                                     tf.hg_g)
-        args = march.prepare(
-            volume, tf_fixed, camera,
-            config.replace(density_scale=1.0, lighting=config.lighting
-                           and bake), 0.0)
+        cfg = config.replace(density_scale=1.0,
+                             lighting=config.lighting and bake)
+        grids = None
+        slab_x = unit.get("slab_x") or 0
+        if slab_x and cfg.lighting:
+            x0 = unit.get("x0", 0)
+            cal = torch.trunc(volume.cal_max.to(_f32))
+            grids = tuple(g[x0:x0 + slab_x].contiguous() for g in
+                          march.bake_grids(volume, tf_fixed, camera, cfg,
+                                           None, cal, cal))
+        args = march.prepare(volume, tf_fixed, camera, cfg, 0.0,
+                             baked_grids=grids, **unit)
         if config.tf_lut:
             itv = tf_fixed.lut_intervals(config.tf_lut).to(torch.uint8)
             args = args._replace(colors=colors.detach().to(_f32).contiguous(),
@@ -289,33 +315,24 @@ def _fwd_args(a: MarchArgs) -> MarchArgs:
     return a._replace(colors=a.colors[a.itv.long()].contiguous(), itv=None)
 
 
-def check_whole_render(a: MarchArgs) -> None:
-    """Raise NotImplementedError for a sharded render's work unit: the
-    backward march takes whole renders; its segment and slab offsets
-    (pallas_march_vjp.py:1854) are ROADMAP.md item 14b."""
-    if (a.segment or a.slab_x or a.x_offset or a.s_start
-            or a.full_width not in (0, a.width)):
-        raise NotImplementedError(
-            "the backward march of a sharded work unit (segment or slab) is "
-            "not ported yet: ROADMAP.md item 14b")
-
-
 def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
                     g_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel -> dL/dcolors [K, 4]:
     the kernel's two passes with its float order, as a loop over samples
     vectorised over rays, in every variant (interval ids or LUT indices,
-    baked light or not, a 4-D volume's channel grids).  Each ray sums its
-    terms per interval in sample order; the rays' sums are added last."""
+    baked light or not, a 4-D volume's channel grids) and over a work
+    unit's columns, samples and x-slab, where ``g_t`` is the cotangent of
+    the unit's own final T and a sample that another slab owns is the over
+    identity, in no interval's sums.  Each ray sums its terms per interval
+    in sample order; the rays' sums are added last."""
     if a.density_scale != 1.0:
         raise ValueError("fold density_scale into the colours first "
                          "(prepare_diff)")
-    check_whole_render(a)
     lut = a.ids.dtype == torch.uint16
     if lut != (a.itv is not None):
         raise ValueError("LUT indices need itv, interval ids none")
     dev = a.ids.device
-    o, d = march._rays(a)
+    o, d = march._rays(a, a.x_offset, a.full_width)
     ids_at = march._sample_ids(a, o, d)
     colors = a.colors
     k = colors.shape[0]
@@ -331,10 +348,12 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
     gr, gg, gb = g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2]
 
     def sample(i):
-        """(interval, alpha, g . c', M) of every ray's sample i."""
-        sid, valid, flat, _ = ids_at(i)
+        """(interval, alpha, g . c', M, owned) of every ray's sample i;
+        alpha 0 where another slab owns it (owned None off a slab)."""
+        sid, valid, flat, ijk = ids_at(i)
         mid = itv[sid] if lut else sid
         rgba = colors[mid]
+        owned = march.owned_by(a, ijk) if a.slab_x else None
         r, g, b = rgba[..., 0], rgba[..., 1], rgba[..., 2]
         m = None
         if baked:  # c' = c * M + S; off the volume M = 1, S = 0
@@ -345,13 +364,17 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
             ch = torch.where(valid, cflat[:, flat], zero_f)
             r, g, b = (ch[0],) * 3 if ch.shape[0] == 1 else ch
         gd = (gr * r + gg * g) + gb * b
-        return mid, rgba[..., 3], gd, m
+        alpha = rgba[..., 3]
+        if owned is not None:
+            alpha = torch.where(owned, alpha, zero_f)
+        return mid, alpha, gd, m, owned
 
     shape = (a.width, a.height)
+    samples = range(a.s_start, a.s_start + a.spr)
     t = torch.ones(shape, dtype=_f32, device=dev)
     total = torch.zeros(shape, dtype=_f32, device=dev)
-    for i in range(a.spr):  # pass A
-        _, alpha, gd, _ = sample(i)
+    for i in samples:  # pass A
+        _, alpha, gd, _, _ = sample(i)
         w = t * alpha
         total = total + w * gd
         t = t * (1.0 - alpha)
@@ -361,8 +384,8 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
     zero = torch.zeros((), dtype=_f32, device=dev)
     t = torch.ones(shape, dtype=_f32, device=dev)
     pfx = torch.zeros(shape, dtype=_f32, device=dev)
-    for i in range(a.spr):  # pass B
-        mid, alpha, gd, m = sample(i)
+    for i in samples:  # pass B
+        mid, alpha, gd, m, owned = sample(i)
         w = t * alpha
         pfx = pfx + w * gd
         suffix = total - pfx
@@ -375,6 +398,8 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
         else:
             wm = w * m if baked else w  # dC/dc = w M
             terms = torch.stack([wm * gr, wm * gg, wm * gb, da], dim=-1)
+        if owned is not None:  # another slab's sample: no interval's
+            terms = torch.where(owned[..., None], terms, zero)
         acc.scatter_add_(1, mid.reshape(-1, 1, 1).expand(-1, 1, 4),
                          terms.reshape(-1, 1, 4))
     return acc.sum(dim=0)
@@ -391,9 +416,9 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         # scal, colors, K, ids, id_bytes, itv, lut_n, mgrid, sgrid, chans,
-        # n_chans, d1, d2, d3, depth, width, height, spr, conic, g_rgb, g_t,
-        # partials, stream
-        fn.argtypes = ([p, p, i, p, i, p, i, p, p, p] + [i] * 9
+        # n_chans, d1, d2, d3, depth, width, height, spr, conic, x_offset,
+        # full_width, s_start, x0, slab_x, g_rgb, g_t, partials, stream
+        fn.argtypes = ([p, p, i, p, i, p, i, p, p, p] + [i] * 14
                        + [p, p, p, p])
         fn.restype = ctypes.c_int
     return lib
@@ -405,7 +430,8 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
     per-block partials -> dL/dcolors [K, 4].  The variant follows the args
     (``march.variant``): uint8 interval ids or uint16 LUT indices with
     ``itv``, with baked (M, S) grids or without, or with a 4-D volume's
-    channel grids."""
+    channel grids; over a work unit's columns and samples, and an x-slab
+    (interval ids, plain or baked)."""
     global launches
     dev = a.ids.device
     if dev.type != "cuda":
@@ -413,7 +439,6 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
     if a.density_scale != 1.0:
         raise ValueError("fold density_scale into the colours first "
                          "(prepare_diff)")
-    check_whole_render(a)
     lut = a.ids.dtype == torch.uint16
     baked = a.mgrid is not None
     mc = a.chans is not None
@@ -422,16 +447,20 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
     if a.vol is not None or (mc and (lut or baked)):
         raise ValueError("the backward march has no in-kernel light, and "
                          "its channel grids go with interval ids, unlit")
+    if a.slab_x and (lut or mc):
+        raise ValueError("an x-slab's backward takes interval ids, plain or "
+                         "baked: ROADMAP.md item 11a")
+    grid = (a.slab_x or a.dims[0],) + tuple(a.dims[1:])
     checks = [("scal", a.scal, _f32, (SCAL_LEN,)),
               ("colors", a.colors, _f32, None),
-              ("ids", a.ids, torch.uint16 if lut else torch.uint8, a.dims),
+              ("ids", a.ids, torch.uint16 if lut else torch.uint8, grid),
               ("g_rgb", g_rgb, _f32, (a.width, a.height, 3)),
               ("g_t", g_t, _f32, (a.width, a.height))]
     if lut:
         checks.append(("itv", a.itv, torch.uint8, None))
     if baked:
-        checks += [("mgrid", a.mgrid, _f32, a.dims),
-                   ("sgrid", a.sgrid, _f32, a.dims)]
+        checks += [("mgrid", a.mgrid, _f32, grid),
+                   ("sgrid", a.sgrid, _f32, grid)]
     if mc:
         checks.append(("chans", a.chans, _f32,
                        (a.chans.shape[0],) + tuple(a.dims)))
@@ -462,6 +491,7 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
             a.chans.data_ptr() if mc else None,
             a.chans.shape[0] if mc else 0,
             *a.dims, a.depth, a.width, a.height, a.spr, int(a.conic),
+            a.x_offset, a.full_width or a.width, a.s_start, a.x0, a.slab_x,
             g_rgb.data_ptr(), g_t.data_ptr(), partials.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -469,11 +499,14 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
                            f"{err}")
     launches += 1
     variant_launches[march.variant(a)] += 1
+    if a.segment:
+        shard_launches["slab" if a.slab_x else "segment"] += 1
     return partials.sum(dim=0)
 
 
-def _forward(a: MarchArgs) -> torch.Tensor:
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+def _forward(a: MarchArgs):
+    """K1 on CUDA tensors, its plain version on CPU tensors -> the image,
+    or a unit's (C, T) pair."""
     a = _fwd_args(a)
     return march.march_kernel(a) if a.ids.is_cuda else march.march_plain(a)
 
@@ -486,10 +519,14 @@ def _backward(a: MarchArgs, g_rgb: torch.Tensor,
     return march_bwd_plain(a, g_rgb, g_t)
 
 
-def _cotangents(a: MarchArgs, g: torch.Tensor
+def _cotangents(a: MarchArgs, g: torch.Tensor,
+                g_t: torch.Tensor | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(g_rgb [W, H, 3], g_t [W, H]): the image cotangent's rgb part and
-    the cotangent of T_N through rgb = C + T_N * bg (alpha is 1)."""
+    """(g_rgb [W, H, 3], g_t [W, H]): of a whole render, the image
+    cotangent's rgb part and the cotangent of T_N through rgb = C + T_N * bg
+    (alpha is 1); of a unit, the cotangents of its C and its final T."""
+    if a.segment:
+        return g.contiguous(), g_t[..., 0].contiguous()
     bg = a.scal[S_BG:S_BG + 3]
     g_rgb = g[..., :3].contiguous()
     g_t = ((g_rgb[..., 0] * bg[0] + g_rgb[..., 1] * bg[1])
@@ -498,19 +535,20 @@ def _cotangents(a: MarchArgs, g: torch.Tensor
 
 
 class _MarchFn(torch.autograd.Function):
-    """colors [K, 4] -> image [W, H, 4] through the forward march at eps 0;
-    the backward march gives dL/dcolors."""
+    """colors [K, 4] -> image [W, H, 4], or a unit's (C [w, H, 3], T [w, H,
+    1]), through the forward march at eps 0; the backward march gives
+    dL/dcolors."""
 
     @staticmethod
-    def forward(ctx, colors: torch.Tensor, a: MarchArgs) -> torch.Tensor:
+    def forward(ctx, colors: torch.Tensor, a: MarchArgs):
         a = a._replace(colors=colors.detach().to(_f32).contiguous())
         ctx.args = a
         return _forward(a)
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
+    def backward(ctx, *g: torch.Tensor):
         a = ctx.args
-        return _backward(a, *_cotangents(a, g)), None
+        return _backward(a, *_cotangents(a, *g)), None
 
 
 def light_grad(a: MarchArgs, g_rgb: torch.Tensor, grad: torch.Tensor,
@@ -519,14 +557,16 @@ def light_grad(a: MarchArgs, g_rgb: torch.Tensor, grad: torch.Tensor,
     """dL/dlight_vec [10] of a baked march ``a`` (cf. ``_make_lit_core``):
     <g, C(dM_p, dS_p)> - <g, C(0, 0)> per parameter p, with (dM_p, dS_p)
     the bake's tangents on the gradient field ``grad`` and C the march's
-    colour sum (the background off), 11 forward marches in all."""
+    colour sum (the background off; a unit's C), 11 forward marches in
+    all."""
     dm, ds = phong.bake_tangents(None, None, light_vec, view_dir, grad=grad)
     scal = a.scal.clone()
     scal[S_BG:S_BG + 3] = 0.0  # out = C
     t = a._replace(scal=scal)
 
     def dot(mg, sg):
-        return (g_rgb * _forward(t._replace(mgrid=mg, sgrid=sg))[..., :3]).sum()
+        out = _forward(t._replace(mgrid=mg, sgrid=sg))
+        return (g_rgb * (out[0] if a.segment else out[..., :3])).sum()
 
     zero = torch.zeros_like(a.mgrid)
     oov = dot(zero, zero)  # the off-volume samples' constant (1, 0)
@@ -535,15 +575,15 @@ def light_grad(a: MarchArgs, g_rgb: torch.Tensor, grad: torch.Tensor,
 
 
 class _LitMarchFn(torch.autograd.Function):
-    """(colors [K, 4], light_vec [10]) -> image [W, H, 4]: the bake of the
-    light vector on the gradient field ``grad``, then the baked forward
-    march at eps 0; the backward march gives dL/dcolors and
-    :func:`light_grad` dL/dlight_vec."""
+    """(colors [K, 4], light_vec [10]) -> image [W, H, 4], or a unit's (C,
+    T) on the rays and samples axes: the bake of the light vector on the
+    gradient field ``grad``, then the baked forward march at eps 0; the
+    backward march gives dL/dcolors and :func:`light_grad`
+    dL/dlight_vec."""
 
     @staticmethod
     def forward(ctx, colors: torch.Tensor, light_vec: torch.Tensor,
-                a: MarchArgs, grad: torch.Tensor, view_dir: torch.Tensor
-                ) -> torch.Tensor:
+                a: MarchArgs, grad: torch.Tensor, view_dir: torch.Tensor):
         light_vec = light_vec.detach().to(_f32)
         mgrid, sgrid = phong.bake_light_vec(grad, light_vec, view_dir)
         a = a._replace(colors=colors.detach().to(_f32).contiguous(),
@@ -553,9 +593,9 @@ class _LitMarchFn(torch.autograd.Function):
         return _forward(a)
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
+    def backward(ctx, *g: torch.Tensor):
         a = ctx.args
-        g_rgb, g_t = _cotangents(a, g)
+        g_rgb, g_t = _cotangents(a, *g)
         dcolors = dlight = None
         if ctx.needs_input_grad[0]:
             dcolors = _backward(a, g_rgb, g_t)
@@ -673,7 +713,7 @@ def render_vrc_scatter_diff(volume, tf: TransferFunction, camera,
 
 def render_vrc_diff(volume, tf: TransferFunction, camera,
                     config: RenderConfig, *, device=None,
-                    light: phong.Light | None = None) -> torch.Tensor:
+                    light: phong.Light | None = None, **unit):
     """a1/VRC render -> [W, H, 4] (alpha 1), differentiable with respect to
     ``tf.colors`` through the forward march (K1) and the backward march
     (K4) on ``device`` (CUDA unless given); CPU tensors take their plain
@@ -686,19 +726,35 @@ def render_vrc_diff(volume, tf: TransferFunction, camera,
     ``render(..., mode="scan")``; the gradient equals autograd through that
     scan except where a sample's alpha is exactly 1 (see the module
     docstring).  Scattered configs differentiate through
-    :func:`render_vrc_scatter_diff`, with ``light`` static."""
+    :func:`render_vrc_scatter_diff`, with ``light`` static.
+
+    With ``unit``, the keywords of ``march.prepare`` that select a sharded
+    fit's work unit (``segment=True``), it returns the unit's (C [w, H,
+    3], T [w, H, 1]) pair (``render_vrc_pallas_diff_segment``,
+    pallas_march_vjp.py:1854), differentiable through its cotangents;
+    ``parallel/render_dist.py`` says which units the kernels take."""
     if config.scattering:
+        if unit:
+            raise NotImplementedError(
+                "sharded scattered fits are not ported yet: ROADMAP.md item "
+                "11a (the JAX package fits them through its XLA scan "
+                "segments)")
         return render_vrc_scatter_diff(volume, tf, camera, config,
                                        device=device, light=light)
     dev = resolve_device(device)
     volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)
     if light is None:
-        args, colors = prepare_diff(volume, tf, camera, config)
+        args, colors = prepare_diff(volume, tf, camera, config, **unit)
         return _MarchFn.apply(colors, args)
+    if unit.get("slab_x"):
+        raise NotImplementedError(
+            "a light fit on the volume axis is not ported yet: ROADMAP.md "
+            "item 14b.2 (the JAX package fits it through its slab scan)")
     light = light.to(dev)
     check_light_fit_supported(config, volume.channels, tf.num_intervals,
                               light)
-    args, colors = prepare_diff(volume, tf, camera, config, bake=False)
+    args, colors = prepare_diff(volume, tf, camera, config, bake=False,
+                                **unit)
     with torch.no_grad():
         grad = conv3d.gradient_field(volume.data, config.gradient_filter,
                                      config.presmooth_sigma)

@@ -11,6 +11,17 @@ Counterpart of ``volumerenderingproject_tpu/parallel/mesh.py``: a
     composites the samples its slab owns, and the slabs compose in
     visibility order.
 
+A sharded fit differentiates through the gathers: :meth:`Mesh.all_gather`
+passes back to each rank the cotangent of its own slice and communicates
+nothing, which is exact because every rank of an axis group computes the
+same fold, finalize and loss from what it gathered (the sum of the ranks'
+own-slice cotangents is the cotangent of the whole).  Each rank's parameter
+gradients are then its own units' share, and :meth:`Mesh.all_reduce_` sums
+them over the mesh.  (``torch.distributed.nn.functional.all_gather`` would
+reduce-scatter the cotangent that every rank holds in full, which
+multiplies the gradients by the group's size, and gloo has no
+reduce-scatter.)
+
 Rank r sits at the coordinates of JAX's row-major ``reshape(rays, samples,
 volume)`` of the device list.  Every rank builds one sub-group per axis of
 size > 1 (the ranks that share the other two coordinates), and every rank
@@ -47,11 +58,18 @@ class Mesh:
 
     def all_gather(self, tensor: torch.Tensor, axis: str
                    ) -> List[torch.Tensor]:
-        """``tensor`` of every rank along ``axis``, in coordinate order.  The
-        gloo backend gathers CPU tensors only, so under it a CUDA tensor
-        goes to the host and back; only the gather moves."""
+        """``tensor`` of every rank along ``axis``, in coordinate order,
+        differentiable: the backward gives this rank the cotangent of its
+        own slice (the module docstring says why that is exact)."""
         if self.size(axis) == 1:
             return [tensor]
+        return list(_AllGather.apply(tensor, self, axis))
+
+    def _gather(self, tensor: torch.Tensor, axis: str
+                ) -> List[torch.Tensor]:
+        """The communication of :meth:`all_gather`.  The gloo backend
+        gathers CPU tensors only, so under it a CUDA tensor goes to the
+        host and back; only the gather moves."""
         group = self.groups[axis]
         src = tensor.contiguous()
         host = dist.get_backend(group) == "gloo" and src.is_cuda
@@ -62,6 +80,38 @@ class Mesh:
         if host:
             out = [t.to(tensor.device) for t in out]
         return out
+
+    def all_reduce_(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum ``tensor`` over the whole mesh, in place: along each axis of
+        size > 1 in turn (rays, samples, volume), which the per-axis groups
+        give with no group of their own.  Under gloo a CUDA tensor goes
+        through the host, as in :meth:`all_gather`.  -> ``tensor``."""
+        for axis in AXES:
+            if self.size(axis) == 1:
+                continue
+            group = self.groups[axis]
+            host = dist.get_backend(group) == "gloo" and tensor.is_cuda
+            buf = tensor.detach().cpu() if host else tensor.detach()
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+            if host:
+                with torch.no_grad():
+                    tensor.copy_(buf)
+        return tensor
+
+
+class _AllGather(torch.autograd.Function):
+    """tensor -> the tensors of every rank along an axis; the backward
+    returns the cotangent of this rank's own slice and communicates
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, tensor: torch.Tensor, mesh: Mesh, axis: str):
+        ctx.own = mesh.coord(axis)
+        return tuple(mesh._gather(tensor.detach(), axis))
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        return grads[ctx.own], None, None
 
 
 def coords_of(rank: int, shape: Tuple[int, int, int]) -> Tuple[int, int, int]:

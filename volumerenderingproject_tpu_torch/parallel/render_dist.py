@@ -1,4 +1,5 @@
-"""Sharded rendering over a ("rays", "samples", "volume") mesh, forward only.
+"""Sharded rendering over a ("rays", "samples", "volume") mesh, and its
+differentiable form for sharded fits.
 
 Counterpart of ``volumerenderingproject_tpu/parallel/render_dist.py``
 (``render_vrc_sharded``, render_dist.py:257-668), with ``torch.distributed``
@@ -40,7 +41,31 @@ kernel computes raises: on the rays and samples axes smooth mode
 scan segments (``models/raycast.render_vrc_segment``,
 ``render_test_segment``) under ``mode="scan"`` only; on the volume axis
 lighting, scattering, smooth mode and a5 need the JAX package's slab scan
-with x-halos (render_dist.py:563-580), ROADMAP.md item 14b.
+with x-halos (render_dist.py:563-580), ROADMAP.md item 14b.2.
+
+``differentiable=True`` (a sharded fit, diff/fit.py's mesh path) runs each
+rank's work unit through the autograd functions of the differentiable
+marches, as the JAX package routes it (``_diff_segment_eligible``,
+render_dist.py:189-254, and its fused diff cores, :387-466): forward K1
+and backward K4 (``ops/march_vjp.render_vrc_diff``), or K3 and K6
+(``ops/a5_vjp.render_test_diff``), at the unit's offsets, eps 0:
+
+  * a1 nearest-voxel, one channel, no LUT, no scattering, at most 16
+    intervals: on the rays and samples axes plain, baked (``lighting``)
+    and with an explicit ``light`` on ortho rays, whose 10 parameters
+    train through tangent marches of K1 baked; on the volume axis plain
+    (ortho or conic) and baked with the default light (ortho), the bake the
+    whole volume's, cropped to the slab;
+  * a5 unlit on the rays and samples axes.
+
+The fold differentiates through ``Mesh.all_gather`` (each rank takes the
+cotangent of its own slice).  The other sharded fits raise: LUT, 4-D,
+smooth, scattered, more than 16 intervals and conic lit ones, which the
+JAX package differentiates through its XLA scan segments (ROADMAP.md item
+11a), and a light on the volume axis or a5 slabs (its slab scan, item
+14b.2).  The TPU's memory predicates (``packed_geometry``,
+``baked_light_feasible``) have no counterpart: the volume stays in device
+memory.
 """
 
 from __future__ import annotations
@@ -50,7 +75,7 @@ from typing import List, Tuple
 import torch
 
 from ..models import raycast
-from ..ops import a5, march
+from ..ops import a5, a5_vjp, march, march_vjp
 from ..ops import composite as comp
 from ..ops.phong import Light
 from ..utils.config import Algorithm, Interp, RenderConfig
@@ -90,7 +115,7 @@ def shard_sizes(volume, config: RenderConfig, shape: Tuple[int, int, int]
 def _check_route(config: RenderConfig, mode: str, slab: bool,
                  light: Light | None) -> None:
     """Raise for a work unit that no segment kernel computes, naming
-    ``mode="scan"`` (rays and samples axes) or ROADMAP.md item 14b (the
+    ``mode="scan"`` (rays and samples axes) or ROADMAP.md item 14b.2 (the
     volume axis)."""
     if mode not in ("fast", "scan"):
         raise ValueError(f"unknown mode {mode!r}: a sharded render takes "
@@ -102,7 +127,7 @@ def _check_route(config: RenderConfig, mode: str, slab: bool,
             raise NotImplementedError(
                 "this volume-axis render (the slab scan with x-halos: "
                 "lighting, scattering, smooth mode, a5, an explicit light, "
-                "mode='scan') is not ported yet: ROADMAP.md item 14b")
+                "mode='scan') is not ported yet: ROADMAP.md item 14b.2")
         return
     if mode == "fast" and (light is not None or (
             not test and config.interp is Interp.TRILINEAR)):
@@ -113,21 +138,74 @@ def _check_route(config: RenderConfig, mode: str, slab: bool,
             "through the plain scan segments")
 
 
+def check_diff_route(volume, tf, config: RenderConfig, mode: str,
+                     slab: bool, light: Light | None) -> None:
+    """Raise NotImplementedError for a sharded fit's work unit that no
+    differentiable kernel computes (the module docstring), naming ROADMAP.md
+    item 11a (the JAX package's XLA scan segments) or 14b.2 (its slab
+    scan)."""
+    if mode != "fast":
+        raise NotImplementedError(
+            "a sharded fit runs the differentiable kernels (mode='fast'); "
+            "fits through the scan segments are ROADMAP.md item 11a")
+    test = config.algorithm is Algorithm.TEST
+    what = None
+    if volume.channels != 1:
+        what = "fits of 4-D volumes"
+    elif not test and config.interp is not Interp.NEAREST:
+        what = "smooth fits"
+    elif config.scattering:
+        what = "scattered fits"
+    elif config.tf_lut:
+        what = "LUT fits"
+    elif tf.num_intervals > march_vjp.MAX_INTERVALS:
+        what = (f"fits of more than {march_vjp.MAX_INTERVALS} intervals "
+                f"({tf.num_intervals})")
+    elif config.conic and (config.lighting or light is not None):
+        what = "conic lit fits"
+    elif test and (config.lighting or light is not None):
+        what = "lit a5 fits"
+    if what is not None:
+        raise NotImplementedError(
+            f"sharded {what} are not ported yet: ROADMAP.md item 11a (the "
+            "scan route for fits; the JAX package differentiates them "
+            "through its XLA scan segments, render_dist.py:189-254)")
+    if slab and (test or light is not None):
+        raise NotImplementedError(
+            "a sharded fit on the volume axis with an explicit light or a5 "
+            "is not ported yet: ROADMAP.md item 14b.2 (the JAX package "
+            "differentiates it through its slab scan)")
+
+
 def render_segment(volume, tf, camera, config: RenderConfig,
                    shape: Tuple[int, int, int], coords: Tuple[int, int, int],
-                   *, mode: str = "fast", light: Light | None = None):
+                   *, mode: str = "fast", light: Light | None = None,
+                   differentiable: bool = False):
     """The work unit of the rank at ``coords`` of a ``shape`` mesh -> its
     (C [w, H, 3], T [w, H, 1]) pair.  ``volume`` is the whole volume, of
     which a volume-axis unit keeps its slab's planes.  ``mode="fast"`` runs
     the segment kernels (their plain versions on CPU tensors) at
     ``config.early_termination``; ``mode="scan"`` the plain scan segments,
-    rays and samples axes only."""
+    rays and samples axes only.  ``differentiable=True`` runs the
+    differentiable kernels at eps 0, the pair differentiable with respect to
+    ``tf.colors`` (and ``light``'s fields)."""
     w_local, s_local, slab_x = shard_sizes(volume, config, shape)
     ri, si, vi = coords
-    _check_route(config, mode, slab_x > 0, light)
     unit = dict(x_offset=ri * w_local, local_width=w_local,
                 s_start=si * s_local, s_count=s_local)
     test = config.algorithm is Algorithm.TEST
+    if differentiable:
+        check_diff_route(volume, tf, config, mode, slab_x > 0, light)
+        if test:
+            return a5_vjp.render_test_diff(volume, tf, camera, config,
+                                           device=volume.data.device,
+                                           segment=True, **unit)
+        if slab_x:
+            unit.update(x0=vi * slab_x, slab_x=slab_x)
+        return march_vjp.render_vrc_diff(volume, tf, camera, config,
+                                         device=volume.data.device,
+                                         light=light, segment=True, **unit)
+    _check_route(config, mode, slab_x > 0, light)
     if mode == "scan":
         scan = raycast.render_test_segment if test else (
             raycast.render_vrc_segment)
@@ -157,8 +235,8 @@ def fold_volume(segs_c: List[torch.Tensor], segs_t: List[torch.Tensor],
 
 
 def render_vrc_sharded(volume, tf, camera, config: RenderConfig, mesh: Mesh,
-                       *, mode: str = "fast", light: Light | None = None
-                       ) -> torch.Tensor:
+                       *, mode: str = "fast", light: Light | None = None,
+                       differentiable: bool = False) -> torch.Tensor:
     """Distributed a1/VRC or a5/TEST render over ``mesh`` -> the full
     [W, H, 4] image (alpha 1) on every rank.
 
@@ -168,11 +246,16 @@ def render_vrc_sharded(volume, tf, camera, config: RenderConfig, mesh: Mesh,
     says; ``mode="scan"`` runs the plain scan segments on the rays and
     samples axes.  The gathers run on the mesh's groups: NCCL on CUDA
     tensors, gloo on CPU tensors (or on CUDA tensors through the host).
+    ``differentiable=True`` renders at eps 0 through the differentiable
+    kernels, the image differentiable with respect to ``tf.colors`` (and
+    ``light``'s fields on the rays and samples axes); each rank's gradients
+    are then its own units' share, which ``Mesh.all_reduce_`` sums.
     """
     shape = mesh.shape
     w_local = config.width // shape[0]
     c, t = render_segment(volume, tf, camera, config, shape, mesh.coords,
-                          mode=mode, light=light)
+                          mode=mode, light=light,
+                          differentiable=differentiable)
     if mesh.size("volume") > 1:
         c, t = fold_volume(mesh.all_gather(c, "volume"),
                            mesh.all_gather(t, "volume"), camera, config,
