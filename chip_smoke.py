@@ -2,6 +2,11 @@
 """On-card smoke run of the PyTorch/CUDA port (``volumerenderingproject_tpu_torch``).
 
     python3 chip_smoke.py        # from the repository root, on a machine with one CUDA GPU
+    python3 chip_smoke.py --parent DIR   # and time K8, K9 of another checkout
+
+``--parent`` names the root of another checkout of this repository (the
+parent commit unpacked with ``git archive``): its smooth kernels are built
+from its own ``csrc/`` and timed in turns with this tree's (phases 3g-3h).
 
 Phases, each of which exits non-zero on failure:
 
@@ -91,15 +96,21 @@ each with its own seeds:
      to 2e-6 (bit-exact expected): on edge inputs (9x11x10 with negative
      voxels and cal_max 200.9, 61x37 pixels, K = 2, 4 and 16, sharpness
      40, 200 and 1000, ortho, conic and conic uncorrected, rays grazing the
-     entry faces, alpha exactly 1, a front clip, eps 1e-3), then ortho and
-     conic on both volumes, and at eps 1e-3 against the exact render; its
-     time on the orbit's inputs, the plain version's and the bound;
+     entry faces, alpha exactly 1, a front clip, eps 1e-3, a camera inside
+     the volume, a view whose rays all miss the box, a sample step longer
+     than a voxel), then ortho and conic on both volumes, and at eps 1e-3
+     against the exact render; its time on the orbit's inputs, the plain
+     version's and the bound;
   3h. the smooth backward kernel (K9) with the volume gradient against
      ``march_smooth_bwd_plain`` + ``splat_volume_grad_plain`` on the same
      edges and on both volumes (dcolors, dlower, dupper, dvolume, each
      within 5e-3 of max |dplain|); K9's time with and without the splat;
-     central differences of the loss in three TF bounds and three voxels
-     at 700x700x500 on the MNI-dims volume, within 1e-2;
+     per volume, the samples in the kernels' per-ray ranges
+     (``smooth.sample_range``) against those with a corner in the volume;
+     with ``--parent``, K8 and K9 of both trees in turns (parent, this
+     tree, this tree, parent); central differences of the loss in three
+     TF bounds and three voxels at 700x700x500 on the MNI-dims volume,
+     within 1e-2;
   4d. 8 orbit frames per volume after one warm-up through ``render()``
      (eps 1e-3), K8's launches counted;
   5f. the CLI ``render --interp trilinear`` and ``fit --interp trilinear
@@ -157,9 +168,10 @@ seeds:
      formula, 512^3, at its streamed rows' shapes (304x304 pixels, 300
      samples): K1 plain and baked, K3 unlit and baked (bit-exact to their
      plain versions at eps 0; eps 1e-3 within TOL_EPS), K4 plain and baked
-     and K6 (within TOL_GRAD of max |dplain|), at 320^3 K8 and K9 too; each
-     kernel's time, its plain version's, its bound and the peak memory of
-     prep and kernel;
+     and K6 (within TOL_GRAD of max |dplain|), K8 (TOL_SMOOTH) and K9
+     (TOL_GRAD) with their samples in range; each kernel's time, its plain
+     version's (the smooth pair's at 320^3 only), its bound and the peak
+     memory of prep and kernel;
   3l. scattered renders (strength 1.5) on the MNI-dims and dense 320^3
      volumes: a1 with non-zero HG g, a1 lit, a1 LUT 64 and a5, through K1
      and K3 baked, bit-exact to their plain versions at eps 0; the kernel,
@@ -1418,7 +1430,10 @@ def smooth_edge_cases(P, tf, from_text):
     tf, camera, config, eps)]: non-cubic 9x11x10 dims with negative voxels
     and cal_max 200.9, 61x37 pixels, K = 2, 4 and 16, sharpness 40, 200 and
     1000 (exp overflows to inf), ortho, conic and conic uncorrected, rays
-    grazing the entry faces, alpha exactly 1, a front clip, eps 1e-3."""
+    grazing the entry faces, alpha exactly 1, a front clip, eps 1e-3, a
+    camera inside the volume (conic and ortho), a view whose rays all miss
+    the box (the kernels' ranges are empty) and 6 samples a ray (a step of
+    3.7 voxels)."""
     rng = np.random.default_rng(12)
     odd = P.make_volume(rng.uniform(-40, 255, (9, 11, 10)).astype(np.float32),
                         cal_max=200.9)
@@ -1433,6 +1448,9 @@ def smooth_edge_cases(P, tf, from_text):
     colors[:, 3] = 1.0
     opaque = P.TransferFunction(tf.lower, tf.upper, colors, tf.hg_g)
     k16 = tf16(P, tf.colors.device)
+    inside = P.Camera.initial(position=(0.1, 0.05, 0.2))
+    away = P.Camera(near.position, -near.front, near.right, near.up,
+                    near.top_left)  # looks away from the volume
     return [
         ("k2_s200", odd, k2, near, small, 0.0),
         ("k4_s40", odd, tf, near, small.replace(tf_sharpness=40.0), 0.0),
@@ -1447,6 +1465,12 @@ def smooth_edge_cases(P, tf, from_text):
         ("alpha_one", odd, opaque, near, small, 0.0),
         ("front_clip", odd, tf, near, small.replace(front_clip=0.5), 0.0),
         ("eps1e-3", odd, tf, near, small, 1e-3),
+        ("camera_inside_volume_conic", odd, tf, inside,
+         small.replace(conic=True), 0.0),
+        ("camera_inside_volume_ortho", odd, tf, inside, small, 0.0),
+        ("all_rays_miss", odd, tf, away, small, 0.0),
+        ("step_longer_than_a_voxel", odd, tf, near,
+         small.replace(samples_per_ray=6), 0.0),
     ]
 
 
@@ -1539,12 +1563,134 @@ def smooth_fd_check(P, smooth_vjp, vol, tf, cfg, rng) -> float:
     return worst
 
 
-def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
-                         per_volume) -> dict:
-    """Phases 3g (K8 against march_smooth_plain) and 3h (K9 against
-    march_smooth_bwd_plain + splat_volume_grad_plain, and the central
-    differences) -> the errors; times and bounds go into ``per_volume``."""
+def range_share(smooth, a, touching: int, label: str) -> int:
+    """Samples in the kernels' per-ray ranges (``smooth.sample_range``) of
+    march input ``a``, logged against the ``touching`` samples with a
+    corner in the volume (the plain version's ``stats["inside"]`` at eps
+    0) -> the samples in range."""
+    i_lo, i_hi = smooth.sample_range(a)
+    in_range = int((i_hi - i_lo + 1).clamp_min(0).sum())
+    total = a.width * a.height * a.spr
+    log(f"{label}: samples in the per-ray ranges {in_range} of {total} "
+        f"({in_range / total:.4f}), with a corner in the volume {touching} "
+        f"({touching / total:.4f}); ranges over touching "
+        f"{in_range / max(touching, 1):.4f}")
+    check(in_range >= touching, f"{label}: fewer samples in range than touch")
+    return in_range
+
+
+TREE_SMOOTH = ("smooth", "smooth_bwd")  # the sources timed against a tree
+
+
+def start_tree_build(_build, tree: str):
+    """Start ``nvcc`` on the smooth kernels of checkout ``tree`` (a directory
+    holding ``volumerenderingproject_tpu_torch/csrc/``), one process a
+    source, into ``build/trees/<tree's name>/`` -> {source: (process,
+    library)}."""
+    tree = os.path.abspath(tree)
+    out = _build.BUILD_DIR.parent / "trees" / os.path.basename(tree)
+    out.mkdir(parents=True, exist_ok=True)
+    csrc = os.path.join(tree, "volumerenderingproject_tpu_torch", "csrc")
+    procs = {}
+    for name in TREE_SMOOTH:
+        lib = str(out / f"lib{name}.so")
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+def tree_libs(build) -> dict:
+    """A tree's smooth libraries, once ``start_tree_build``'s processes
+    have ended -> {source: ctypes.CDLL}."""
+    import ctypes
+
+    libs = {}
+    for name, (proc, lib) in build.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"{lib}: nvcc exit {proc.returncode}: "
+              f"{text}")
+        libs[name] = ctypes.CDLL(lib)
+    return libs
+
+
+def smooth_runs(smooth, smooth_vjp, libs, args8, a9, g) -> dict:
+    """{name: fn}: K8 over the march inputs ``args8`` and K9 on ``a9`` with
+    cotangents ``g``, without and with the splat, launched straight
+    through the C functions of ``libs`` (a tree's smooth kernels), with no
+    wrapper around them, into buffers that fit any block shape (a block
+    holds a pixel at least): so every tree's kernels run alike, whatever
+    its blocks.  The partials are not summed; the volume gradient adds
+    up over the calls."""
     import torch
+
+    fwd = smooth.bind(libs["smooth"]).vrp_smooth_fwd
+    bwd = smooth_vjp.bind(libs["smooth_bwd"]).vrp_smooth_bwd
+    dev = a9.data.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((args8[0].width, args8[0].height, 4), device=dev)
+    k = a9.colors.shape[0]
+    partials = torch.empty((a9.width * a9.height, k, smooth_vjp.NCOLS),
+                           device=dev)
+    dvol = torch.zeros(a9.dims, device=dev)
+
+    def march_args(a):
+        return (a.scal.data_ptr(), a.lower.data_ptr(), a.upper.data_ptr(),
+                a.colors.data_ptr(), a.colors.shape[0], a.data.data_ptr(),
+                *a.dims, a.width, a.height, a.spr, int(a.conic))
+
+    def k8():
+        for a in args8:
+            check(fwd(*march_args(a), out.data_ptr(), stream) == 0,
+                  "K8 launch failed")
+
+    def k9(splat):
+        def run():
+            check(bwd(*march_args(a9), g[0].data_ptr(), g[1].data_ptr(),
+                      partials.data_ptr(),
+                      dvol.data_ptr() if splat else None, stream) == 0,
+                  "K9 launch failed")
+        return run
+
+    return {f"K8 x{len(args8)}": k8, "K9": k9(False),
+            "K9 with the splat": k9(True)}
+
+
+def time_in_turns(runs: dict, label: str) -> dict:
+    """Every tree's runs ({tree: {name: fn}}) timed in turns, the trees in
+    order and then in reverse (for two: parent, this tree, this tree,
+    parent), each a ``timed_ms`` -> {tree: {name: the mean of its two
+    turns, ms}}."""
+    order = list(runs) + list(reversed(runs))
+    times = {t: {n: [] for n in fns} for t, fns in runs.items()}
+    for tree in order:
+        for name, fn in runs[tree].items():
+            times[tree][name].append(timed_ms(fn, 5, prefill=True))
+    means = {t: {n: sum(v) / len(v) for n, v in d.items()}
+             for t, d in times.items()}
+    for name in next(iter(runs.values())):
+        log(f"{label}: {name} in turns, ms: " + "; ".join(
+            f"{t} {[round(x, 5) for x in times[t][name]]} mean "
+            f"{means[t][name]:.4f}" for t in runs))
+    return means
+
+
+def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
+                         per_volume, parent=None) -> dict:
+    """Phases 3g (K8 against march_smooth_plain) and 3h (K9 against
+    march_smooth_bwd_plain + splat_volume_grad_plain, the samples in range
+    and the central differences) -> the errors; times and bounds go into
+    ``per_volume``; with ``parent`` (``start_tree_build`` of another
+    checkout) K8 and K9 of both trees are timed in turns."""
+    import torch
+
+    from volumerenderingproject_tpu_torch.ops import _build
+
+    libs = None if parent is None else {
+        "parent": tree_libs(parent),
+        "this tree": {n: _build.load(n) for n in TREE_SMOOTH}}
+    orbits = {}  # each volume's K8 orbit, for the timing in turns
 
     cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR,
                          interp=P.Interp.TRILINEAR)
@@ -1605,6 +1751,7 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             inside += stats["inside"] / FRAMES
         plain_ms = time_plain(lambda: smooth.march_smooth_plain(args[0]),
                               warm=True)  # the stats loop ran it
+        orbits[vname] = (cams, main_cfg)
         k = tf.num_intervals
         rays = W * H
         ops = (inside * (FLOPS_PER_SMOOTH_SAMPLE
@@ -1667,6 +1814,16 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
                               prefill=True)
             stats = {}
             smooth.march_smooth_plain(a, stats)
+            in_range = range_share(smooth, a, stats["inside"],
+                                   f"smooth {vname}/{name}")
+            if libs is not None:
+                cams, main_cfg = orbits[vname]
+                args8 = [smooth.prepare_smooth(vol, tf, cam, main_cfg, 1e-3)
+                         for cam in cams]
+                per_volume[vname]["smooth_in_turns"] = time_in_turns(
+                    {t: smooth_runs(smooth, smooth_vjp, lib, args8, a, g)
+                     for t, lib in libs.items()}, f"smooth {vname}")
+                del args8
             k = a.colors.shape[0]
             rays = W * H
             total = rays * SPR
@@ -1681,7 +1838,8 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
                 bwd_ms=ms, bwd_splat_ms=splat_ms, bwd_plain_ms=plain_ms,
                 bwd_plain_splat_ms=plain_splat_ms, fwd_eps0_ms=fwd_ms,
                 bwd_bound_ms=b[0], bwd_bound_by=b[1], bwd_splat_bound_ms=bs[0],
-                bwd_splat_bound_by=bs[1], bwd_inside=stats["inside"])
+                bwd_splat_bound_by=bs[1], bwd_inside=stats["inside"],
+                bwd_in_range=in_range)
             log(f"smooth {vname}: K9 {ms:.4f} ms, with the splat "
                 f"{splat_ms:.4f} ms; plain {plain_ms:.2f} ms, with the splat "
                 f"{plain_splat_ms:.2f} ms; K8 at eps 0 {fwd_ms:.4f} ms; "
@@ -2302,9 +2460,10 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
     on the dense 320^3 and 512^3 volumes, K1 plain and baked and K3 unlit
     and baked against their plain versions (bit-exact at eps 0; eps 1e-3
     within TOL_EPS of the exact render), K4 plain and baked and K6 (within
-    TOL_GRAD of max |dplain|), and at 320^3 K8 (TOL_SMOOTH) and K9; each
-    kernel's ms per launch at eps 1e-3 (forward) or 0 (backward), its
-    plain version's, its bound and the peak memory of prep + kernel ->
+    TOL_GRAD of max |dplain|), K8 (TOL_SMOOTH) and K9 (with the volume
+    gradient, TOL_GRAD); each kernel's ms per launch at eps 1e-3 (forward)
+    or 0 (backward, K8 and K9 at eps 0), its plain version's, its bound and
+    the peak memory of prep + kernel, and K8's and K9's samples in range ->
     {volume: {kernel: numbers}}."""
     import torch
 
@@ -2404,22 +2563,25 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
                 f"{peak:.1f} MiB ({own:.1f} MiB above the start)")
             del a, g
             torch.cuda.empty_cache()
-        if vol.dims[0] != LARGE_SIZES[0]:
-            continue
-        # smooth mode at 320^3 (the JAX package runs its scan there)
+        # smooth mode (the JAX package runs its scan at these sizes)
         cfg = base.replace(interp=P.Interp.TRILINEAR)
         m0 = mem_reset()
         a = smooth.prepare_smooth(vol, tf, cam, cfg, 0.0)
         ms = timed_ms(lambda: smooth.march_smooth_kernel(a), 5, prefill=True,
                       label=f"{vname}/k8")
         peak, own = peak_mb(m0)
-        got, want = smooth.march_smooth_kernel(a), smooth.march_smooth_plain(a)
+        stats = {}
+        got = smooth.march_smooth_kernel(a)
+        want = smooth.march_smooth_plain(a, stats)
         e = float((got - want).abs().max())
         log(f"{vname}/k8: K8 vs plain max err {e:.3e} (tol {TOL_SMOOTH:g})")
         check(e <= TOL_SMOOTH, f"{vname}/k8: max err {e}")
-        stats = {}
-        smooth.march_smooth_plain(a, stats)
-        plain_ms = time_plain(lambda: smooth.march_smooth_plain(a))
+        # the plain versions are timed at the first size only: their time is
+        # host launches, the same at both (the rays and samples are)
+        timed = vol.dims[0] == LARGE_SIZES[0]
+        plain_ms = time_plain(lambda: smooth.march_smooth_plain(a),
+                              warm=True) if timed else None  # the check ran it
+        in_range = range_share(smooth, a, stats["inside"], f"{vname}/k8")
         k = tf.num_intervals
         b = bound(stats["inside"] * (FLOPS_PER_SMOOTH_SAMPLE + (k - 1)
                                      * FLOPS_PER_SMOOTH_SAMPLE_PER_INTERVAL)
@@ -2429,8 +2591,9 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
                   read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
                   + k * 24 + rays * 16)
         r["k8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                       bound_by=b[1], err=e, peak_mb=peak, own_mb=own)
-        log(f"{vname}/k8: K8 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+                       bound_by=b[1], err=e, peak_mb=peak, own_mb=own,
+                       inside=stats["inside"], in_range=in_range)
+        log(f"{vname}/k8: K8 {ms:.4f} ms, plain {plain_ms} ms, bound "
             f"{b[0]:.4f} ms ({b[1]}), peak memory {peak:.1f} MiB")
         del a
         a = smooth_vjp.prepare_smooth_diff(vol, tf, cam, cfg)
@@ -2440,8 +2603,11 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
                       prefill=True, label=f"{vname}/k9")
         peak, own = peak_mb(m0)
         errs = smooth_bwd_vs_plain(smooth_vjp, f"{vname}/k9", a, g)
+        # the check ran the plain backward with the splat, whose operations
+        # without it are a part
         plain_ms = time_plain(
-            lambda: smooth_vjp.march_smooth_bwd_plain(a, *g))
+            lambda: smooth_vjp.march_smooth_bwd_plain(a, *g),
+            warm=True) if timed else None
         total = rays * cfg.samples_per_ray
         b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False),
                   read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
@@ -2451,7 +2617,7 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
                        bound_by=b[1], err=max(v[0] for v in errs.values()),
                        err_rel=max(v[1] for v in errs.values()),
                        peak_mb=peak, own_mb=own)
-        log(f"{vname}/k9: K9 {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        log(f"{vname}/k9: K9 {ms:.4f} ms, plain {plain_ms} ms, bound "
             f"{b[0]:.4f} ms ({b[1]}), peak memory {peak:.1f} MiB")
         del a, g
         torch.cuda.empty_cache()
@@ -3957,9 +4123,19 @@ class PhaseClock:
         self.t = now
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    parent = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--parent":
+            log(__doc__)
+            return 2
+        parent = os.path.abspath(argv[1])
+        if not os.path.isdir(os.path.join(
+                parent, "volumerenderingproject_tpu_torch", "csrc")):
+            log(f"FAIL: --parent {argv[1]} holds no checkout of this package")
+            return 2
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is false; this script needs a "
             "CUDA GPU")
@@ -3986,6 +4162,9 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------------
     t0 = time.time()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    # the parent's smooth kernels build beside this tree's
+    parent_build = (None if parent is None
+                    else start_tree_build(_build, parent))
     _build.build(sources)
     march._kernel_lib()
     march_vjp._kernel_lib()
@@ -4172,7 +4351,8 @@ def main() -> int:
     # ---- 3g, 3h. the smooth kernels (K8, K9) vs plain on the card ----------
     smooth_rng = np.random.default_rng(17)
     smooth_errs = smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf,
-                                       from_text, smooth_rng, per_volume)
+                                       from_text, smooth_rng, per_volume,
+                                       parent_build)
     clock("3g-3h K8, K9 vs plain")
 
     # ---- 3i. F1: alphas above 1, T < 0 ----------------------------------------
@@ -4813,4 +4993,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

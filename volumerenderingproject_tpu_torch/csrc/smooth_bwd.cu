@@ -21,37 +21,56 @@
 // ray as sums of w_k w_s and w_k da and multiplied by g at the end of the
 // ray.
 //
-// One thread marches one ray through both passes, every sample of it (a
-// sample off the volume has a nonzero smooth alpha and an alpha gradient).
+// One thread marches one ray through both passes, clipped as K8 is to the
+// samples that may have a corner in the volume (smooth_sample_range,
+// smooth_common.cuh).  A sample outside that range takes the launch's
+// constant rgba0 = classify(0 / cal_max) and its s1, s2, w (shared memory,
+// once per block); its alpha is not 0, so it still carries an alpha
+// gradient.  Pass A adds (T a0) gd0 to the total, gd0 = g . rgb0 taken once
+// per ray in the order of every gd, so pass A and the prefix of pass B are
+// the full evaluation's to the bit.  In pass B such a sample keeps its own
+// w_s and dL/da, the division included, but runs no interval loop: its
+// terms are linear in w_s and dL/da with constant w_k, s1 and s2, so the
+// ray sums its off-range w_s and dL/da and folds the two sums into every
+// interval once, at the end:
+//   q_k = ((sum w_s (g . (c_k - c_0)) + sum dL/da (a_k - a_0)) sharp) w0_k.
+// That regroups the float sums, so K9 is not bit-exact to
+// march_smooth_bwd_plain (chip_smoke.py holds it to 5e-3 of max |dplain|;
+// it stays near 2e-5).  Such a sample's dL/dvn reaches no voxel (every
+// corner is out of range): it splats nothing.
 // The per-interval sums sit in registers (instantiated for K <= 4, 8, 16);
 // at the end each block reduces its rays' [K, 6] sums in a fixed order
 // (block_reduce.cuh) into partials [nblocks, K, 6], which the caller adds
 // with torch.sum: no atomics there, the same bits every run.
 //
 // The volume gradient is the trilinear adjoint fused into pass B: each
-// sample adds (dL/dvn / cal_max) wx wy wz into a zeroed f32 [X*Y*Z] buffer
-// with atomicAdd, at its eight corners in range, at the position the
-// forward took (one position chain, smooth_common.cuh).  The TPU kernel
-// wrote a per-sample dL/dvn plane instead (980 MB at 700x700x500) and
-// scattered it in XLA.  Atomic adds land in an order that changes from run
-// to run, so dL/dvolume varies by ulps between runs.
+// sample in the range adds (dL/dvn / cal_max) wx wy wz into a zeroed f32
+// [X*Y*Z] buffer with atomicAdd, at its eight corners in range, at the
+// position the forward took (one position chain, smooth_common.cuh).  The
+// TPU kernel wrote a per-sample dL/dvn plane instead (980 MB at 700x700x500)
+// and scattered it in XLA.  Atomic adds land in an order that changes from
+// run to run, so dL/dvolume varies by ulps between runs.
 //
-// What bounds it on an H100: operations, some 60 per sample plus about 40
-// per interval (the smooth sample of K8 evaluated in both passes, the
-// chain, the bound and colour terms), and with the volume gradient the
-// atomic adds, eight per sample inside the volume, which contend where
-// many rays cross one voxel.  Bytes (the volume, 16 bytes of cotangent per
-// ray, the partials, the volume gradient) are far fewer.
+// What bounds it on an H100: operations, those of the samples in the range
+// (some 60 per sample plus about 40 per interval: the smooth sample of K8
+// evaluated in both passes, the chain, the bound and colour terms), which
+// the launch's bound counts, beside K4's chain and two sums for the rest
+// (its IEEE division included); a warp runs the full chain for the union
+// of its rays' ranges; with the volume gradient, the atomic adds, eight per
+// sample inside the volume, which contend where many rays cross one voxel.
+// Bytes (the volume, 16 bytes of cotangent per ray, the partials, the
+// volume gradient) are far fewer.  Tensor cores, TMA and clusters do not
+// serve this walk: its corner reads and adds depend on the ray.
 
 #include "block_reduce.cuh"
 #include "smooth_common.cuh"
 
 namespace {
 
-constexpr int kWarps = kSmoothBlock * kSmoothBlock / 32;
+constexpr int kWarps = kSmoothThreads / 32;
 
 template <int KMAX>
-__global__ void __launch_bounds__(kSmoothBlock* kSmoothBlock)
+__global__ void __launch_bounds__(kSmoothThreads)
 smooth_bwd_kernel(const float* __restrict__ scal,
                   const float* __restrict__ lower,
                   const float* __restrict__ upper,
@@ -61,7 +80,8 @@ smooth_bwd_kernel(const float* __restrict__ scal,
                   const float* __restrict__ g_t,
                   float* __restrict__ partials, float* __restrict__ dvol) {
   __shared__ SmoothTF<KMAX> tf;
-  load_tf<KMAX>(tf, lower, upper, colors, num_intervals);
+  const SmoothScalars s = load_smooth_scalars(scal);
+  load_tf<KMAX>(tf, lower, upper, colors, num_intervals, s);
 
   // per interval: sum of w_k w_s, of w_k da, dL/dlo_k, dL/dhi_k
   float sw[KMAX], sda[KMAX], dlo[KMAX], dhi[KMAX];
@@ -76,47 +96,65 @@ smooth_bwd_kernel(const float* __restrict__ scal,
   if (px < g.width && py < g.height) {
     float o[3], d[3];
     ray_setup(scal, g, px, py, conic, o, d);
-    const SmoothScalars s = load_smooth_scalars(scal);
     const long long ray = (long long)px * g.height + py;
     gr = g_rgb[3 * ray];
     gg = g_rgb[3 * ray + 1];
     gb = g_rgb[3 * ray + 2];
+    int i_lo, i_hi;
+    smooth_sample_range(o, d, s, g, i_lo, i_hi);
+    const float4 rgba0 = tf.rgba0;
+    const float gd0 = (gr * rgba0.x + gg * rgba0.y) + gb * rgba0.z;
     float s1[KMAX], s2[KMAX], w[KMAX];
 
     // ---- pass A: total of w (g . rgb) and the final transmittance -------
     float t = 1.0f;
     float total = 0.0f;
     for (int i = 0; i < g.spr; ++i) {
-      int b[3];
-      float f[3];
-      smooth_position(i, o, d, s, b, f);
-      const float vn = smooth_intensity(vol, g, b, f) / s.cal;
-      const float4 col =
-          smooth_classify<KMAX>(tf, num_intervals, s.sharp, vn, s1, s2, w);
-      const float gd = (gr * col.x + gg * col.y) + gb * col.z;
-      total = total + (t * col.w) * gd;
-      t = t * (1.0f - col.w);
+      float a = rgba0.w, gd = gd0;
+      if (i >= i_lo && i <= i_hi) {
+        int b[3];
+        float f[3];
+        smooth_position(i, o, d, s, b, f);
+        const float vn = smooth_intensity(vol, g, b, f) / s.cal;
+        const float4 col =
+            smooth_classify<KMAX>(tf, num_intervals, s.sharp, vn, s1, s2, w);
+        a = col.w;
+        gd = (gr * col.x + gg * col.y) + gb * col.z;
+      }
+      total = total + (t * a) * gd;
+      t = t * (1.0f - a);
     }
     const float bg_term = t * g_t[ray];  // dL/dT_N * T_N, through + T_N*bg
 
     // ---- pass B: prefix re-march, the per-interval terms, the splat -------
     t = 1.0f;
     float pfx = 0.0f;
+    float ows = 0.0f, oda = 0.0f;  // sums of w_s and da off the range
     for (int i = 0; i < g.spr; ++i) {
+      const bool in = i >= i_lo && i <= i_hi;
       int b[3];
       float f[3];
-      smooth_position(i, o, d, s, b, f);
-      const float vn = smooth_intensity(vol, g, b, f) / s.cal;
-      const float4 col =
-          smooth_classify<KMAX>(tf, num_intervals, s.sharp, vn, s1, s2, w);
-      const float gd = (gr * col.x + gg * col.y) + gb * col.z;
-      const float ws = t * col.w;
+      float a = rgba0.w, gd = gd0;
+      if (in) {
+        smooth_position(i, o, d, s, b, f);
+        const float vn = smooth_intensity(vol, g, b, f) / s.cal;
+        const float4 col =
+            smooth_classify<KMAX>(tf, num_intervals, s.sharp, vn, s1, s2, w);
+        a = col.w;
+        gd = (gr * col.x + gg * col.y) + gb * col.z;
+      }
+      const float ws = t * a;
       pfx = pfx + ws * gd;  // pass A's order: total - pfx is exact at the end
       const float suffix = total - pfx;
-      const float denom = 1.0f - col.w;
+      const float denom = 1.0f - a;
       const float num = suffix + bg_term;
       const float da = t * gd - (denom != 0.0f ? num / denom : 0.0f);
       t = t * denom;
+      if (!in) {
+        ows = ows + ws;
+        oda = oda + da;
+        continue;
+      }
 
       float dvn = 0.0f, wsum = 0.0f;
 #pragma unroll
@@ -163,6 +201,23 @@ smooth_bwd_kernel(const float* __restrict__ scal,
         }
       }
     }
+
+    // ---- the off-range samples' terms, folded once ------------------------
+#pragma unroll
+    for (int k = 1; k < KMAX; ++k) {
+      if (k < num_intervals) {
+        const float4 dk = tf.dk[k];
+        const float gdk = (gr * dk.x + gg * dk.y) + gb * dk.z;
+        const float dldw = ows * gdk + oda * dk.w;
+        const float q = (dldw * s.sharp) * tf.w0[k];
+        dlo[k] = dlo[k] - q * (1.0f - tf.s1_0[k]);
+        dhi[k] = dhi[k] + q * (1.0f - tf.s2_0[k]);
+        sw[k] = sw[k] + tf.w0[k] * ows;
+        sda[k] = sda[k] + tf.w0[k] * oda;
+      }
+    }
+    sw[0] = sw[0] + tf.base0 * ows;
+    sda[0] = sda[0] + tf.base0 * oda;
   }
 
   float acc[KMAX][6];
@@ -183,9 +238,9 @@ void launch(const float* scal, const float* lower, const float* upper,
             const float* colors, int K, const float* vol, const Geom& g,
             int conic, const float* g_rgb, const float* g_t, float* partials,
             float* dvol, cudaStream_t stream) {
-  const dim3 block(kSmoothBlock, kSmoothBlock);
-  const dim3 grid((g.height + kSmoothBlock - 1) / kSmoothBlock,
-                  (g.width + kSmoothBlock - 1) / kSmoothBlock);
+  const dim3 block(kSmoothBlockY, kSmoothBlockX);
+  const dim3 grid((g.height + kSmoothBlockY - 1) / kSmoothBlockY,
+                  (g.width + kSmoothBlockX - 1) / kSmoothBlockX);
   smooth_bwd_kernel<KMAX><<<grid, block, 0, stream>>>(
       scal, lower, upper, colors, K, vol, g, conic, g_rgb, g_t, partials,
       dvol);
@@ -197,8 +252,8 @@ void launch(const float* scal, const float* lower, const float* upper,
 // (0 = launched).  scal: [29] f32 (ops/smooth.py layout); lower, upper: [K]
 // f32; colors: [K, 4] f32, K <= 16; vol: [d1, d2, d3] f32 (C order); g_rgb:
 // [width, height, 3] f32; g_t: [width, height] f32; partials:
-// [ceil(width/16) * ceil(height/16), K, 6] f32, one [K, 6] sum per 16x16
-// pixel block (columns dr, dg, db, da, dlower, dupper); dvol: [d1, d2, d3]
+// [ceil(width/64) * ceil(height/4), K, 6] f32, one [K, 6] sum per block of
+// 64 x 4 pixels (columns dr, dg, db, da, dlower, dupper); dvol: [d1, d2, d3]
 // f32 zeroed by the caller, or null for no volume gradient.
 extern "C" int vrp_smooth_bwd(const float* scal, const float* lower,
                               const float* upper, const float* colors, int K,

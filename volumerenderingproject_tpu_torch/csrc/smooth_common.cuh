@@ -1,7 +1,8 @@
 // Shared by the smooth-mode marches (smooth.cu, K8; smooth_bwd.cu, K9): the
 // scalar-vector slots of smooth mode, the transfer function in shared
-// memory, and the chain from a sample index to its RGBA, written once so
-// that the forward and the backward march evaluate every sample alike.
+// memory, the chain from a sample index to its RGBA, and each ray's range
+// of samples that may touch the volume, written once so that the forward
+// and the backward march evaluate and skip every sample alike.
 //
 // A sample (pallas_smooth.py:103-302, expression by expression):
 //   ti  = float(i) * ds + clip
@@ -15,7 +16,19 @@
 // Build with -fmad=false: a contracted product-sum moves the sample.  The
 // ray setup is the a1 marches' (march_common.cuh), whose float order is the
 // smooth kernel's (_ray_setup, pallas_smooth.py:64-100).
-
+//
+// The per-ray range (smooth_sample_range).  A sample has a corner in the
+// volume only where every vox_c lies in [-1, dim_c).  Outside that box all
+// eight reads are 0, so the sample's intensity is exactly 0 and its RGBA
+// is classify(0 / cal_max): one constant of the launch (rgba0 below, with
+// its s1, s2 and w), whatever the ray.  Its smooth alpha is not 0, so such
+// a sample still composites; it just needs no position, no reads and no
+// sigmoids.  Each ray clips itself against that box in ray space, as K1
+// clips to the dataset box (march.cu), on a box widened beyond the float
+// chain's rounding and by one sample at each end: a sample outside the
+// range has no corner in the volume, and a sample inside it runs the full
+// bounds-checked chain, so a range that is too wide costs time and never
+// changes a value.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,7 +44,16 @@ namespace {
 constexpr int SM_CAL_MAX = 2, SM_SHARP = 4, SM_VOFF = 22, SM_L = 25,
               SM_BG = 26;
 constexpr int kSmoothMaxIntervals = 16;  // the JAX kernels' limit
-constexpr int kSmoothBlock = 16;         // pixels per block edge
+// a block's pixels along y (threadIdx.x) and x (threadIdx.y): a warp is 4 x
+// 8 neighbouring rays, whose ranges and corner reads overlap more than a
+// 16 x 2 warp's.  Of 16x16, 8x32, 4x64, 2x128 and 32x8 it was the fastest
+// for K8 and K9 together on the MNI-dims volume on the H100
+// (harness/ab_smooth.py; PERF.md).
+constexpr int kSmoothBlockY = 4, kSmoothBlockX = 64;
+constexpr int kSmoothThreads = kSmoothBlockY * kSmoothBlockX;
+// the range's box is widened by this times (max |o_c| + |clip| + 2), in
+// ray space: about a hundred times what the float chain rounds there
+constexpr float kRangePad = 1.0f / 16384.0f;
 
 // The smooth scalars of one march, read once per thread.
 struct SmoothScalars {
@@ -47,32 +69,12 @@ struct SmoothTF {
   float lo[KMAX], hi[KMAX];
   float4 c0;
   float4 dk[KMAX];
+  // the RGBA of intensity 0, which every sample outside its ray's range
+  // takes, its s1, s2 and w (slot k; slot 0 unused) and 1 - sum_k w
+  float4 rgba0;
+  float s1_0[KMAX], s2_0[KMAX], w0[KMAX];
+  float base0;
 };
-
-// Every thread of the block calls this before its march.
-template <int KMAX>
-__device__ __forceinline__ void load_tf(SmoothTF<KMAX>& tf,
-                                        const float* __restrict__ lower,
-                                        const float* __restrict__ upper,
-                                        const float* __restrict__ colors,
-                                        int num_intervals) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  if (tid < KMAX) {
-    const bool in = tid < num_intervals;
-    tf.lo[tid] = in ? lower[tid] : 0.0f;
-    tf.hi[tid] = in ? upper[tid] : 0.0f;
-    const float4 c0 =
-        make_float4(colors[0], colors[1], colors[2], colors[3]);
-    float4 dk = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (in) {
-      const float* c = colors + 4 * tid;
-      dk = make_float4(c[0] - c0.x, c[1] - c0.y, c[2] - c0.z, c[3] - c0.w);
-    }
-    tf.dk[tid] = dk;
-    if (tid == 0) tf.c0 = c0;
-  }
-  __syncthreads();
-}
 
 __device__ __forceinline__ SmoothScalars
 load_smooth_scalars(const float* __restrict__ scal) {
@@ -167,6 +169,100 @@ __device__ __forceinline__ float4 smooth_classify(const SmoothTF<KMAX>& tf,
     }
   }
   return rgba;
+}
+
+// Every thread of the block calls this before its march: the bounds, c_0
+// and c_k - c_0, then rgba0 = classify(0 / cal_max), taken once through
+// the same function as every sample.
+template <int KMAX>
+__device__ __forceinline__ void load_tf(SmoothTF<KMAX>& tf,
+                                        const float* __restrict__ lower,
+                                        const float* __restrict__ upper,
+                                        const float* __restrict__ colors,
+                                        int num_intervals,
+                                        const SmoothScalars& s) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if (tid < KMAX) {
+    const bool in = tid < num_intervals;
+    tf.lo[tid] = in ? lower[tid] : 0.0f;
+    tf.hi[tid] = in ? upper[tid] : 0.0f;
+    const float4 c0 =
+        make_float4(colors[0], colors[1], colors[2], colors[3]);
+    float4 dk = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (in) {
+      const float* c = colors + 4 * tid;
+      dk = make_float4(c[0] - c0.x, c[1] - c0.y, c[2] - c0.z, c[3] - c0.w);
+    }
+    tf.dk[tid] = dk;
+    tf.s1_0[tid] = tf.s2_0[tid] = tf.w0[tid] = 0.0f;
+    if (tid == 0) tf.c0 = c0;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tf.rgba0 = smooth_classify<KMAX>(tf, num_intervals, s.sharp,
+                                     0.0f / s.cal, tf.s1_0, tf.s2_0, tf.w0);
+    float wsum = 0.0f;  // in K9's order
+#pragma unroll
+    for (int k = 1; k < KMAX; ++k)
+      if (k < num_intervals) wsum = wsum + tf.w0[k];
+    tf.base0 = 1.0f - wsum;
+  }
+  __syncthreads();
+}
+
+// Samples [i_lo, i_hi] of the ray (o, d), clamped to [0, spr): those that
+// may have a corner in the volume; i_lo > i_hi where there is none.  The
+// box vox_c in [-1, dim_c) is, in ray space (p = (vox - voff) / L - 0.5),
+// [(-1 - voff_c) / L - 0.5, (dim_c - voff_c) / L - 0.5], widened by
+// kRangePad (max |o_c| + |clip| + 2); near the box |ti d| is at most
+// |o| + 1, so that bounds every term the chain rounds.  A direction
+// component of magnitude at most 1e-12 is not divided by: the ray is then
+// inside or outside that axis's slab for every sample (K1's `safe`).  A ray
+// or scalar that is not finite, or a step that is not positive, takes every
+// sample: its chain then decides alone.  ops/smooth.sample_range mirrors
+// this function in the same float order.
+__device__ __forceinline__ void smooth_sample_range(const float o[3],
+                                                    const float d[3],
+                                                    const SmoothScalars& s,
+                                                    const Geom& g, int& i_lo,
+                                                    int& i_hi) {
+  i_lo = 0;
+  i_hi = g.spr - 1;
+  bool finite = s.ds > 0.0f && isfinite(s.ds) && isfinite(s.clip) &&
+                isfinite(s.L);
+  float mag = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    finite = finite && isfinite(o[c]) && isfinite(d[c]) &&
+             isfinite(s.voff[c]);
+    mag = fmaxf(mag, fabsf(o[c]));
+  }
+  if (!finite) return;
+  const float pad = kRangePad * ((mag + fabsf(s.clip)) + 2.0f);
+  float t_lo = -INFINITY, t_hi = INFINITY;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float lo = ((-1.0f - s.voff[c]) / s.L - 0.5f) - pad;
+    const float hi = (((float)g.dim[c] - s.voff[c]) / s.L - 0.5f) + pad;
+    const bool safe = fabsf(d[c]) > 1e-12f;
+    const float dv = safe ? d[c] : 1.0f;
+    const float ta = (lo - o[c]) / dv;
+    const float tb = (hi - o[c]) / dv;
+    const bool in_c = (o[c] >= lo) && (o[c] <= hi);
+    const float lo_c = safe ? fminf(ta, tb) : (in_c ? -INFINITY : INFINITY);
+    const float hi_c = safe ? fmaxf(ta, tb) : (in_c ? INFINITY : -INFINITY);
+    t_lo = fmaxf(t_lo, lo_c);
+    t_hi = fminf(t_hi, hi_c);
+  }
+  if (!(t_hi >= t_lo)) {  // the ray misses the box
+    i_lo = g.spr;
+    i_hi = -1;
+    return;
+  }
+  const float f_lo = floorf((t_lo - s.clip) / s.ds);
+  const float f_hi = ceilf((t_hi - s.clip) / s.ds);
+  i_lo = max(i_lo, (int)fminf(fmaxf(f_lo, -1.0e9f), 1.0e9f) - 1);
+  i_hi = min(i_hi, (int)fminf(fmaxf(f_hi, -1.0e9f), 1.0e9f) + 1);
 }
 
 }  // namespace

@@ -15,11 +15,15 @@ the scalar vector and the image of ``render_vrc_smooth_pallas``
     rgba = c_0 + w_1 (c_1 - c_0) + w_2 (c_2 - c_0) + ...
     C += (T a) rgb,  T *= 1 - a;   image = (C + T bg, 1)
 
-Every sample is marched: off the volume a sample reads intensity 0, whose
-smooth alpha is not 0, so no box clip or brick skip applies.  A ray stops
-before the first sample at which |T| <= eps.  The volume is one contiguous
-f32 [X, Y, Z] tensor at every size: the TPU kernel's f32 rows (z <= 128)
-and its 10-bit packed grid were VMEM layouts and are not ported.
+Every sample composites: off the volume a sample reads intensity 0, whose
+smooth alpha is not 0, so no sample is skipped.  Its RGBA is then the
+constant classify(0 / cal_max), so the kernels evaluate only the samples
+of each ray's range (:func:`sample_range`, the box on which a corner can
+lie in the volume) and give the rest that constant, which is exact.  A
+ray stops before the first sample at which |T| <= eps.  The volume is one
+contiguous f32 [X, Y, Z] tensor at every size: the TPU kernel's f32 rows
+(z <= 128) and its 10-bit packed grid were VMEM layouts and are not
+ported.
 
 The fused march computes the plain smooth classify only, as the JAX
 package's ``smooth_pallas_eligible`` says: no lighting, scattering or LUT,
@@ -30,6 +34,7 @@ in ``mode="scan"`` (:func:`check_smooth_supported`).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -205,6 +210,53 @@ def touches_volume(vox: torch.Tensor, dims) -> torch.Tensor:
     return ((vox >= -1.0) & (vox < dimv)).all(dim=-1)
 
 
+RANGE_PAD = 2.0 ** -14  # csrc/smooth_common.cuh kRangePad
+
+
+def sample_range(a: SmoothArgs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(i_lo, i_hi), int64 [W, H]: each ray's samples that may have a
+    corner in the volume, as the kernels compute them
+    (``smooth_sample_range``, csrc/smooth_common.cuh), in their float
+    order; i_lo > i_hi where there is none.  The kernels give every sample
+    outside it the RGBA of intensity 0.  Used to check and count that
+    range; the plain versions evaluate every sample."""
+    s = a.scal
+    o, d = march._rays(a)
+    ds, clip, L = s[S_DS], s[S_CLIP], s[S_L]
+    voff = s[S_VOFF:S_VOFF + 3]
+    dims = torch.tensor(a.dims, dtype=_f32, device=s.device)
+    scalars = torch.cat([s[[S_DS, S_CLIP, S_L]], voff])
+    finite = (torch.isfinite(o).all(-1) & torch.isfinite(d).all(-1)
+              & bool(torch.isfinite(scalars).all() and ds > 0.0))
+    mag = o.abs().amax(-1)
+    pad = (RANGE_PAD * ((mag + clip.abs()) + 2.0))[..., None]
+    lo = ((-1.0 - voff) / L - 0.5) - pad
+    hi = ((dims - voff) / L - 0.5) + pad
+    safe = d.abs() > 1e-12
+    dv = torch.where(safe, d, torch.ones_like(d))
+    ta = (lo - o) / dv
+    tb = (hi - o) / dv
+    in_c = (o >= lo) & (o <= hi)
+    inf = torch.full_like(d, math.inf)
+    lo_c = torch.where(safe, torch.minimum(ta, tb),
+                       torch.where(in_c, -inf, inf))
+    hi_c = torch.where(safe, torch.maximum(ta, tb),
+                       torch.where(in_c, inf, -inf))
+    t_lo = lo_c.amax(-1)
+    t_hi = hi_c.amin(-1)
+
+    def index(v):
+        return v.clamp(-1e9, 1e9).to(torch.int64)
+
+    i_lo = (index(torch.floor((t_lo - clip) / ds)) - 1).clamp_min(0)
+    i_hi = (index(torch.ceil((t_hi - clip) / ds)) + 1).clamp_max(a.spr - 1)
+    hit = t_hi >= t_lo  # else the ray misses the box
+    i_lo = torch.where(hit, i_lo, a.spr)
+    i_hi = torch.where(hit, i_hi, -1)
+    return (torch.where(finite, i_lo, 0),
+            torch.where(finite, i_hi, a.spr - 1))
+
+
 def march_smooth_plain(a: SmoothArgs, stats: dict | None = None
                        ) -> torch.Tensor:
     """Plain PyTorch version of the kernel -> [W, H, 4]: the same function
@@ -241,7 +293,13 @@ def march_smooth_plain(a: SmoothArgs, stats: dict | None = None
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("smooth")
+    return bind(_build.load("smooth"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of csrc/smooth.cu (this tree's or another
+    checkout's, which chip_smoke.py times beside it), with the C signature
+    of ``vrp_smooth_fwd`` set."""
     fn = lib.vrp_smooth_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int

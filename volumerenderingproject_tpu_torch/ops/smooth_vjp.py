@@ -48,7 +48,9 @@ from . import _build, smooth
 from .smooth import S_BG, S_CAL_MAX, S_SHARP, SmoothArgs
 
 _f32 = torch.float32
-BLOCK = 16  # pixels per edge of the kernel's blocks; one partial per block
+# the kernel's blocks: 64 pixels along x by 4 along y (csrc/smooth_common.cuh);
+# one partial per block
+BLOCK_X, BLOCK_Y = 64, 4
 NCOLS = 6  # partial columns: dr, dg, db, da, dlower, dupper
 
 # launches of the CUDA kernel since import (or since a caller reset it)
@@ -175,12 +177,17 @@ def march_smooth_bwd_plain(a: SmoothArgs, g_rgb: torch.Tensor,
 
 
 def num_blocks(width: int, height: int) -> int:
-    """Rows of the kernel's partials: one per 16x16 pixel block."""
-    return -(-width // BLOCK) * -(-height // BLOCK)
+    """Rows of the kernel's partials: one per block of 64 x 4 pixels."""
+    return -(-width // BLOCK_X) * -(-height // BLOCK_Y)
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("smooth_bwd")
+    return bind(_build.load("smooth_bwd"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of csrc/smooth_bwd.cu (this tree's or another
+    checkout's), with the C signature of ``vrp_smooth_bwd`` set."""
     fn = lib.vrp_smooth_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
