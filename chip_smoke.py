@@ -2,11 +2,13 @@
 """On-card smoke run of the PyTorch/CUDA port (``volumerenderingproject_tpu_torch``).
 
     python3 chip_smoke.py        # from the repository root, on a machine with one CUDA GPU
-    python3 chip_smoke.py --parent DIR   # and time K8, K9 of another checkout
+    python3 chip_smoke.py --parent DIR   # and time K4, K8, K9 of another checkout
 
 ``--parent`` names the root of another checkout of this repository (the
-parent commit unpacked with ``git archive``): its smooth kernels are built
-from its own ``csrc/`` and timed in turns with this tree's (phases 3g-3h).
+parent commit unpacked with ``git archive``): its smooth kernels and K4 are
+built from its own ``csrc/`` and timed in turns with this tree's (phases
+3b, 3g-3h, 3j, 3k and 3r: K4 plain, LUT, baked and LUT + baked, the K5
+fold at 320^3 and 512^3, K4's segment and slab units, K8, K9).
 
 Phases, each of which exits non-zero on failure:
 
@@ -18,12 +20,21 @@ Phases, each of which exits non-zero on failure:
      samples per ray) on two volumes: ``centered_sphere(100)`` and a
      seeded 182x218x182 volume (MNI152-1mm dims) of nested ellipsoid
      shells plus noise, so every interval of the default transfer
-     function occurs;
+     function occurs; rays within 1e-7 of parallel to each face of the
+     box, whose samples K1's clip lost before it took the pad;
   3b. the backward march kernel (K4) against its plain PyTorch version on
      the same edge inputs, on an interval of alpha exactly 1, on
-     TF(0).alpha = -3e-5, on 16 intervals, on a static density_scale and
-     at 700x700x500 on both volumes (ortho and conic), with one seeded
-     cotangent per case; the error is max |dK4 - dplain| / max |dplain|;
+     TF(0).alpha = -3e-5, 0.05 and 1, on 16 intervals, on a static
+     density_scale, on rays that miss the box, a step longer than a voxel,
+     the rays nearly parallel to a face, the sample windows of a (1, 4, 1)
+     split and the first and the last slab of (1, 1, 2) under rays along
+     x, and at 700x700x500 on both volumes (ortho and conic), with one
+     seeded cotangent per case; the error is max |dK4 - dplain| / max
+     |dplain|; K4's spans (``march_vjp.sample_range``) checked against
+     the chain on the card (no sample with a voxel outside the chain's
+     span, no owned sample outside the visited ones, every constant
+     sample owned and off the volume) and, per volume, the samples in the
+     chain's span against those that touch the volume;
   4. the render path: 8 orbit frames per volume through ``render()`` (the
      bench.py orbit, radius 1.5, early_termination=1e-3), with the kernels'
      launch counts set to 0 just before and read just after;
@@ -135,8 +146,9 @@ K1 baked), on both volumes, with their own seeds:
      ``render()`` within 2e-5 of the plain scan, which composites on;
   3j. K4's baked, LUT and LUT + baked variants against
      ``march_bwd_plain`` (within 5e-3 of max |dplain|) on edge inputs (K
-     = 2, 4, 16; an interval of alpha 1; TF(0).alpha 0.05; a front clip;
-     LUT sizes 64, 256, 1024) and at full size: baked at
+     = 2, 4, 16; an interval of alpha 1; TF(0).alpha 0.05 and 1; a front
+     clip; LUT sizes 64, 256, 1024; rays that miss the box; a step longer
+     than a voxel) and at full size: baked at
      ``sobel_lit_700``, LUT at 700x700x500 ``tf_lut=256``, LUT + baked at
      ``lut_phong_300``; each variant's time, the plain version's and the
      bound;
@@ -168,7 +180,8 @@ seeds:
      formula, 512^3, at its streamed rows' shapes (304x304 pixels, 300
      samples): K1 plain and baked, K3 unlit and baked (bit-exact to their
      plain versions at eps 0; eps 1e-3 within TOL_EPS), K4 plain and baked
-     and K6 (within TOL_GRAD of max |dplain|), K8 (TOL_SMOOTH) and K9
+     and K6 (within TOL_GRAD of max |dplain|; K4 plain also at
+     TF(0).alpha 1, K4's spans checked), K8 (TOL_SMOOTH) and K9
      (TOL_GRAD) with their samples in range; each kernel's time, its plain
      version's (the smooth pair's at 320^3 only), its bound and the peak
      memory of prep and kernel;
@@ -210,7 +223,9 @@ in-kernel lighting (conic rays, any light colour), with their own seeds:
      prep's, the bound and the peak memory;
   3n. K4 mc against ``march_bwd_plain`` on the same volumes: the rgb
      columns exactly 0, the alpha column within TOL_GRAD of max |dplain|;
-     its time, the plain version's and the bound;
+     on the 3-channel volumes at 61x37x37 also TF(0).alpha 1 and 0.05,
+     rays that miss the box and a step longer than a voxel, and K4's spans
+     checked; its time, the plain version's and the bound;
   3o. K1's in-kernel lighting (``lit``, and ``lut_lit`` with a LUT)
      against ``march_plain``, bit-exact at eps 0: on edge inputs (dense
      voxels on every face, a conic camera inside the volume, LUT 96, the
@@ -275,6 +290,9 @@ their own seeds:
      through the fold's cotangents of a seeded image cotangent, within
      TOL_SHARD_SUM of the whole render's K4 / K6 dcolors; each variant's
      ms per launch over a mesh's units, the plain version's and the bound;
+     K4's spans checked on the plain slab units on MNI-dims, and there the
+     first and the last unit of a (1, 4, 1) split and of a (1, 2, 2) split
+     under an ortho camera along x against the plain version;
   7m. 4 ranks on the one card joined by gloo (``parallel/launch.spawn`` of
      ``tests/_torch_shard_worker.fit_jobs``), one spawn, on the MNI-dims
      volume: a1 colour fits (700x700x500) on (2, 2, 1) and (1, 2, 2), a lit
@@ -319,6 +337,10 @@ FRAMES = 8
 TOL_EXACT = 2e-5  # kernel vs plain, eps = 0 (and at equal eps)
 TOL_EPS = 1.1e-3  # kernel at eps = 1e-3 vs the exact plain render
 TOL_GRAD = 5e-3  # backward kernel vs plain, relative to max |dplain|
+# K4's per-block partials vs the float64 sums of march_bwd_plain's float32
+# terms, relative to their largest: a sample that K4's spans drop or give
+# the wrong interval on every ray of a block moves its partial far more
+TOL_SPAN_F64 = 1e-4
 TOL_FIT = 1e-5  # 2 fit steps, kernels vs plain versions
 # central difference of the loss along its gradient (a step of FD_STEP in
 # parameter units) against the change the gradient predicts: float32
@@ -351,10 +373,16 @@ FLOPS_PER_SAMPLE = 38
 # sum, + T_N g_t, the division, T (g . c), da 9; w and da into its
 # interval's sums 2 (g multiplies an interval's sum of w once per ray)
 FLOPS_PER_BWD_SAMPLE = 40
-# a sample off the volume takes id0's colour, whose g . c is per ray: the
-# chain 9 and its two sums 2 (whether it is off the volume follows from the
-# ray's clip against the box, as in the forward bounds)
+# a sample off the volume takes id0's colour, whose g . c is per ray, and
+# its alpha a0.  Where a0 != 0: the chain 9 and its two sums 2 (whether it
+# is off the volume follows from the ray's clip against the box, as in the
+# forward bounds)
 FLOPS_PER_BWD_OUTSIDE_SAMPLE = 11
+# where a0 == 0 such a sample leaves T and the suffix sum as they are, so
+# every sample of a run of them has one dL/da, T gd0 - num: 2, times the
+# run's length 1, into k0's sum 1, once a run; a ray has at most two runs
+# (before and after the volume, whose samples are contiguous on a ray)
+FLOPS_PER_BWD_OUTSIDE_RUN = 4
 # and per ray: for every interval g . c_k 5 and g times its sum of w 3;
 # T_N g_t 1
 FLOPS_PER_BWD_RAY_PER_INTERVAL = 8
@@ -373,7 +401,7 @@ FLOPS_PER_A5_RAY = 15  # first-stage x, y terms 9; C + T bg 6
 # coefficient 8, the chain 9 (as a1's); then for each interval present (at
 # most min(8, K)): a and g . rgb from its coefficient 4 (g . c_k is per ray)
 # and coef w and coef da into its sums 4.  A sample off the volume costs
-# FLOPS_PER_BWD_OUTSIDE_SAMPLE: its coefficients are [id0 == k].
+# what a1's does (bwd_outside_ops): its coefficients are [id0 == k].
 FLOPS_PER_A5_BWD_SAMPLE = 92
 FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL = 8
 # and per ray, besides the per-interval terms: T_N g_t 1 and the
@@ -409,7 +437,8 @@ FLOPS_PER_SMOOTH_RAY = 6
 # (c_k - c_0) is per ray), q 2, dL/dvn 3, sum w 1, dlower 3, dupper 3, the
 # two colour sums 4; with the volume gradient dL/dvn / cal_max 1, the eight
 # trilinear weights 12, times the gradient 8, the eight adds 8.  Off the
-# volume: K4's chain and sums, FLOPS_PER_BWD_OUTSIDE_SAMPLE.  Per ray as K4.
+# volume as K4 (bwd_outside_ops), with a0 the alpha of classify(0 /
+# cal_max), a sum of sigmoids, which is not 0.  Per ray as K4.
 FLOPS_PER_SMOOTH_BWD_SAMPLE = 67
 FLOPS_PER_SMOOTH_BWD_SAMPLE_PER_INTERVAL = 38
 FLOPS_PER_SMOOTH_SPLAT_SAMPLE = 29
@@ -633,6 +662,13 @@ def tf_with_alpha(P, tf, k: int, alpha: float):
     return P.TransferFunction(tf.lower, tf.upper, colors, tf.hg_g)
 
 
+def away_camera(P, position):
+    """A camera at ``position`` that looks away from the volume: every ray
+    misses the box."""
+    c = P.Camera.initial(position=position)
+    return P.Camera(c.position, -c.front, c.right, c.up, c.top_left)
+
+
 def cotangents(a, rng):
     """One seeded cotangent pair (g_rgb [W, H, 3], g_t [W, H]) on the card,
     N(0, 1) / (W * H): the scale of a mean-squared-error cotangent."""
@@ -702,6 +738,26 @@ def read_bytes(grid_bytes: float, reads: float) -> float:
     """Bytes of a grid that the samples read: one read each, at most the
     whole grid (the work follows the data: count what it needs)."""
     return min(grid_bytes, reads)
+
+
+def bwd_outside_ops(outside: float, rays: int, a0: float) -> float:
+    """Float operations dL/dcolors needs for ``outside`` samples off the
+    volume on ``rays`` rays, where those samples' alpha is ``a0``: each
+    sample's chain where a0 != 0 (FLOPS_PER_BWD_OUTSIDE_SAMPLE), else one
+    dL/da a run of them (FLOPS_PER_BWD_OUTSIDE_RUN), at most two a ray."""
+    if a0 != 0.0:
+        return outside * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+    return min(outside, 2 * rays) * FLOPS_PER_BWD_OUTSIDE_RUN
+
+
+def bwd_alpha0(a, s_id0: int) -> float:
+    """The alpha of march input ``a``'s samples off the volume (density
+    folded in): the colour of id0's interval, through the LUT's interval
+    table where there is one; ``s_id0`` is id0's slot in ``a.scal``."""
+    k0 = int(a.scal[s_id0])
+    if getattr(a, "itv", None) is not None:
+        k0 = int(a.itv[k0])
+    return float(a.colors[k0, 3])
 
 
 def bound(ops: float, nbytes: float):
@@ -1017,7 +1073,8 @@ def a5_kernel_phases(P, a5, a5_vjp, volumes, tf, edge, rng, per_volume):
                   + k * 16 + a5_vjp.num_blocks(A5_W, A5_H) * k * 16)
         ops = (inside * (FLOPS_PER_A5_BWD_SAMPLE
                          + min(8, k) * FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL)
-               + (rays * A5_SPR - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+               + bwd_outside_ops(rays * A5_SPR - inside, rays,
+                                 bwd_alpha0(a, a5.S_ID0))
                + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
                          + FLOPS_PER_A5_BWD_RAY))
         bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
@@ -1501,13 +1558,23 @@ def smooth_bwd_vs_plain(smooth_vjp, label, a, g) -> dict:
     return errs
 
 
+def smooth_alpha0(smooth, a) -> float:
+    """The alpha of smooth march input ``a``'s samples off the volume:
+    that of classify(0 / cal_max), as the kernels take it."""
+    import torch
+
+    zero = torch.zeros((), dtype=torch.float32, device=a.scal.device)
+    return float(smooth.smooth_classify(a, zero)[0][3])
+
+
 def smooth_bwd_ops(k: int, inside: float, total: float, rays: int,
-                   splat: bool) -> float:
-    """Float operations K9 needs (FLOPS_PER_SMOOTH_BWD_*)."""
+                   splat: bool, a0: float) -> float:
+    """Float operations K9 needs (FLOPS_PER_SMOOTH_BWD_*), where the
+    samples off the volume have alpha ``a0``."""
     per = (FLOPS_PER_SMOOTH_BWD_SAMPLE
            + (k - 1) * FLOPS_PER_SMOOTH_BWD_SAMPLE_PER_INTERVAL
            + (FLOPS_PER_SMOOTH_SPLAT_SAMPLE if splat else 0))
-    return (inside * per + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+    return (inside * per + bwd_outside_ops(total - inside, rays, a0)
             + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL + FLOPS_PER_BWD_RAY))
 
 
@@ -1579,11 +1646,130 @@ def range_share(smooth, a, touching: int, label: str) -> int:
     return in_range
 
 
-TREE_SMOOTH = ("smooth", "smooth_bwd")  # the sources timed against a tree
+def k4_span_check(march, march_vjp, a, g, label) -> dict:
+    """K4's spans of march input ``a`` (``march_vjp.sample_range``, the
+    kernel's float order) against the chain on the card: no sample whose
+    chain gives a voxel outside the chain's span, no sample the unit owns
+    outside the samples K4 visits, every constant sample owned and off the
+    volume; logs the samples in the chain's span against those that touch
+    the volume.  Then what the kernel's own spans give: its per-block
+    partials under cotangents ``g`` within TOL_SPAN_F64 of the float64
+    sums of march_bwd_plain's terms over each block's rays (exactly 0
+    where those are) -> the counts and that error."""
+    import torch
+
+    r = march_vjp.sample_range(a)
+    o, d = march._rays(a, a.x_offset, a.full_width)
+    ids_at = march._sample_ids(a, o, d)
+    keys = ("touch", "chain", "full", "visited", "touch_out", "owned_out",
+            "const_bad")
+    n = {k: torch.zeros((), dtype=torch.int64, device=a.scal.device)
+         for k in keys}
+    for i in range(a.s_start, a.s_start + a.spr):
+        _, valid, _, ijk = ids_at(i)
+        owned = (march.owned_by(a, ijk) if a.slab_x
+                 else torch.ones_like(valid))
+        vis, full = r.visits(i), r.full(i)
+        chain = vis & (i >= r.chain_lo) & (i <= r.chain_hi)
+        for k, m in (("touch", valid), ("chain", chain), ("full", full),
+                     ("visited", vis), ("touch_out", valid & ~chain),
+                     ("owned_out", owned & ~vis),
+                     ("const_bad", vis & ~full & (valid | ~owned))):
+            n[k] += m.sum()
+    n = {k: int(v) for k, v in n.items()}
+    total = a.width * a.height * a.spr
+    log(f"{label}: K4 samples in the chain's span {n['chain']} of {total} "
+        f"({n['chain'] / total:.4f}), run in full {n['full']}, visited "
+        f"{n['visited']}, touching the volume {n['touch']} "
+        f"({n['touch'] / total:.4f}); span over touching "
+        f"{n['chain'] / max(n['touch'], 1):.4f}; touching outside the span "
+        f"{n['touch_out']}, owned outside the visited {n['owned_out']}, "
+        f"constant but touching or not owned {n['const_bad']} (each must be "
+        "0)")
+    check(n["touch_out"] == 0 and n["owned_out"] == 0
+          and n["const_bad"] == 0, f"{label}: K4's spans leave out samples")
+    got = march_vjp.march_bwd_kernel(a, *g, per_block=True).double()
+    exact = march_vjp.block_sums(
+        march_vjp.march_bwd_plain(a, *g, per_ray=True), a.width, a.height)
+    scale = float(exact.abs().max())
+    e_abs = float((got - exact).abs().max())
+    e_rel = e_abs / scale if scale > 0.0 else (0.0 if e_abs == 0.0
+                                               else math.inf)
+    log(f"{label}: K4's {got.shape[0]} block partials vs the float64 sums of "
+        f"the plain terms, max err {e_abs:.3e}, {e_rel:.3e} of their largest "
+        f"(tol {TOL_SPAN_F64:g})")
+    check(e_rel <= TOL_SPAN_F64, f"{label}: K4's block partials off the "
+          f"float64 sums by {e_rel} of their largest")
+    n["f64_rel"] = e_rel
+    return n
+
+
+def near_parallel_args(march, a, face: int, side: int, d_face: float):
+    """March input ``a`` (a whole-volume render) recast as 64x8 ortho rays
+    that run within ``d_face`` of parallel to face ``face`` (side 0: the
+    low face, 1: the high one) of the volume's box, inwards, and cross its
+    plane between t = -0.8 and 1.2 (z = 0 at 1.2), sampled to t = 2: there the
+    position's last bit moves the crossing by ulp / d_face in t, 0.6 at
+    1e-7, some ten samples (tests/test_torch_march_bwd_range.py)."""
+    import torch
+
+    L = float(max(a.dims))
+    n = float(2 ** a.depth)
+    hg = L / 2 - a.dims[face] / 2
+    edge = hg + (0 if side == 0 else a.dims[face])
+    plane = np.ceil(edge / L * n) / n - 0.5  # the leaf boundary at the edge
+    d = np.array([0.0, 0.0, -1.0])
+    d[face] = d_face if side == 0 else -d_face
+    d = d / np.linalg.norm(d)
+    tl = [0.01, -0.02, 1.2]
+    tl[face] = plane - d[face] * 1.2
+    right = np.zeros(3)
+    right[face] = d[face] * 2.0 / 64
+    up = np.zeros(3)
+    up[1 - face] = -1e-3
+    s = a.scal.clone()
+    for slot, v in ((march.S_TL, tl), (march.S_FRONT, d),
+                    (march.S_RIGHT, right), (march.S_UP, up)):
+        s[slot:slot + 3] = torch.tensor(v, dtype=torch.float32)
+    s[march.S_RSW], s[march.S_RSH] = 64.0, 8.0
+    spr = int(2.0 / float(s[march.S_DS])) + 2
+    return a._replace(scal=s, width=64, height=8, spr=spr, conic=False,
+                      x_offset=0, full_width=0, s_start=0)
+
+
+def k4_in_turns(march_vjp, libs, units, label) -> dict:
+    """K4 over ``units`` ([(march input, (g_rgb, g_t))]) of every tree of
+    ``libs`` ({tree: {source: library}}), launched straight through its C
+    function with this tree's arguments (the C signature is the same) into
+    partials that fit any block shape, timed in turns -> {tree: ms a
+    unit}."""
+    import torch
+
+    a = units[0][0]
+    dev = a.scal.device
+    rows = max(u.width * u.height for u, _ in units)
+    partials = torch.empty((rows, a.colors.shape[0], 4), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def runs(lib):
+        fn = march_vjp.bind(lib["march_bwd"]).vrp_march_bwd_a1
+
+        def run():
+            for u, g in units:
+                check(fn(*march_vjp.kernel_args(u, *g, partials), stream)
+                      == 0, f"{label}: K4 launch failed")
+        return {f"K4 x{len(units)}": run}
+
+    means = time_in_turns({t: runs(lib) for t, lib in libs.items()}, label)
+    return {t: next(iter(m.values())) / len(units) for t, m in means.items()}
+
+
+# the sources timed against another checkout's
+TREE_SOURCES = ("smooth", "smooth_bwd", "march_bwd")
 
 
 def start_tree_build(_build, tree: str):
-    """Start ``nvcc`` on the smooth kernels of checkout ``tree`` (a directory
+    """Start ``nvcc`` on the TREE_SOURCES of checkout ``tree`` (a directory
     holding ``volumerenderingproject_tpu_torch/csrc/``), one process a
     source, into ``build/trees/<tree's name>/`` -> {source: (process,
     library)}."""
@@ -1592,7 +1778,7 @@ def start_tree_build(_build, tree: str):
     out.mkdir(parents=True, exist_ok=True)
     csrc = os.path.join(tree, "volumerenderingproject_tpu_torch", "csrc")
     procs = {}
-    for name in TREE_SMOOTH:
+    for name in TREE_SOURCES:
         lib = str(out / f"lib{name}.so")
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib,
@@ -1602,8 +1788,8 @@ def start_tree_build(_build, tree: str):
 
 
 def tree_libs(build) -> dict:
-    """A tree's smooth libraries, once ``start_tree_build``'s processes
-    have ended -> {source: ctypes.CDLL}."""
+    """A tree's libraries, once ``start_tree_build``'s processes have ended
+    -> {source: ctypes.CDLL}."""
     import ctypes
 
     libs = {}
@@ -1677,19 +1863,14 @@ def time_in_turns(runs: dict, label: str) -> dict:
 
 
 def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
-                         per_volume, parent=None) -> dict:
+                         per_volume, libs=None) -> dict:
     """Phases 3g (K8 against march_smooth_plain) and 3h (K9 against
     march_smooth_bwd_plain + splat_volume_grad_plain, the samples in range
     and the central differences) -> the errors; times and bounds go into
-    ``per_volume``; with ``parent`` (``start_tree_build`` of another
-    checkout) K8 and K9 of both trees are timed in turns."""
+    ``per_volume``; with ``libs`` ({tree: {source: library}}, this tree's
+    and another checkout's) K8 and K9 of both trees are timed in turns."""
     import torch
 
-    from volumerenderingproject_tpu_torch.ops import _build
-
-    libs = None if parent is None else {
-        "parent": tree_libs(parent),
-        "this tree": {n: _build.load(n) for n in TREE_SMOOTH}}
     orbits = {}  # each volume's K8 orbit, for the timing in turns
 
     cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR,
@@ -1830,10 +2011,11 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             nbytes = (read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
                       + rays * 16 + k * 24
                       + smooth_vjp.num_blocks(W, H) * k * 24)
-            b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False),
-                      nbytes)
-            bs = bound(smooth_bwd_ops(k, stats["inside"], total, rays, True),
-                       nbytes + vol.data.numel() * 4)
+            a0 = smooth_alpha0(smooth, a)
+            b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False,
+                                     a0), nbytes)
+            bs = bound(smooth_bwd_ops(k, stats["inside"], total, rays, True,
+                                      a0), nbytes + vol.data.numel() * 4)
             per_volume[vname]["smooth"].update(
                 bwd_ms=ms, bwd_splat_ms=splat_ms, bwd_plain_ms=plain_ms,
                 bwd_plain_splat_ms=plain_splat_ms, fwd_eps0_ms=fwd_ms,
@@ -2084,13 +2266,16 @@ def plain_fwd_a1(march, march_vjp):
 
 
 def k4_variant_phases(P, march, march_vjp, volumes, tf, from_text, rng,
-                      per_volume) -> dict:
+                      per_volume, libs=None) -> dict:
     """Phase 3j: K4's baked, LUT and LUT + baked variants against
     ``march_bwd_plain`` on edge inputs (K = 2, 4, 16; an interval of alpha
-    1; TF(0).alpha 0.05; a front clip; LUT sizes 64, 256, 1024) and at
-    each variant's main config on both volumes (K4_VARIANT_CONFIGS); each
-    variant's time, the plain version's and the bound at those shapes ->
-    {variant: [max abs err, max err relative to max |dplain|]}."""
+    1; TF(0).alpha 0.05 and 1; a front clip; LUT sizes 64, 256, 1024; rays
+    that miss the box; a step longer than a voxel) and at each variant's
+    main config on both volumes (K4_VARIANT_CONFIGS); each variant's time,
+    the plain version's and the bound
+    at those shapes, and with ``libs`` ({tree: {source: library}}) the
+    times of this tree and another checkout in turns -> {variant: [max abs
+    err, max err relative to max |dplain|]}."""
     import torch
 
     errs = {v: [0.0, 0.0] for v in K4_VARIANT_CONFIGS}
@@ -2101,21 +2286,28 @@ def k4_variant_phases(P, march, march_vjp, volumes, tf, from_text, rng,
     small = P.RenderConfig(width=61, height=37, samples_per_ray=37)
     near = P.Camera.initial(position=(0.35, 0.45, 0.85))
     two = from_text("low 0 0.4 0.2 0.3 0.4 0.3\nhigh 0.4 1 0.9 0.8 0.7 0.6\n")
+    away = away_camera(P, (0.9, 0.5, 1.0))
     tfs = [("k2", two), ("k4", tf), ("k16", tf16(P, tf.colors.device)),
            ("alpha_one", tf_with_alpha(P, tf, 3, 1.0)),
-           ("alpha0_0.05", tf_with_alpha(P, tf, 0, 0.05))]
+           ("alpha0_0.05", tf_with_alpha(P, tf, 0, 0.05)),
+           ("alpha0_one", tf_with_alpha(P, tf, 0, 1.0))]
     edges = []
     for var, kw in (("baked", dict(lighting=True)),
                     ("lut", dict(tf_lut=256)),
                     ("lut_baked", dict(tf_lut=256, lighting=True))):
-        edges += [(var, name, tfx, small.replace(**kw)) for name, tfx in tfs]
-        edges.append((var, "front_clip", tf,
+        edges += [(var, name, tfx, near, small.replace(**kw))
+                  for name, tfx in tfs]
+        edges.append((var, "front_clip", tf, near,
                       small.replace(front_clip=0.5, **kw)))
+        edges.append((var, "all_rays_miss", tf, away, small.replace(**kw)))
+        edges.append((var, "step_longer_than_a_voxel", tf, near,
+                      small.replace(samples_per_ray=6, **kw)))
         if var != "baked":
-            edges += [(var, f"lut{n}", tf, small.replace(**dict(kw, tf_lut=n)))
+            edges += [(var, f"lut{n}", tf, near,
+                       small.replace(**dict(kw, tf_lut=n)))
                       for n in (64, 1024)]
-    for var, name, tfx, c in edges:
-        a, _ = march_vjp.prepare_diff(odd, tfx, near, c)
+    for var, name, tfx, cam, c in edges:
+        a, _ = march_vjp.prepare_diff(odd, tfx, cam, c)
         check(march.variant(a) == var, f"{name}: variant {march.variant(a)}")
         e_abs, e_rel = bwd_vs_plain(
             march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain,
@@ -2136,6 +2328,8 @@ def k4_variant_phases(P, march, march_vjp, volumes, tf, from_text, rng,
             errs[var] = [max(errs[var][0], e_abs), max(errs[var][1], e_rel)]
             ms = timed_ms(lambda: march_vjp.march_bwd_kernel(a, *g), 5,
                           prefill=True, label=label)
+            in_turns = (None if libs is None else
+                        k4_in_turns(march_vjp, libs, [(a, g)], label))
             plain_ms = time_plain(lambda: march_vjp.march_bwd_plain(a, *g))
             rays = cfg.width * cfg.height
             samples = rays * cfg.samples_per_ray  # every sample: no skip
@@ -2154,14 +2348,15 @@ def k4_variant_phases(P, march, march_vjp, volumes, tf, from_text, rng,
                 nbytes += 8 * min(inside, a.mgrid.numel())
             ops = (inside * (FLOPS_PER_BWD_SAMPLE
                              + (FLOPS_PER_BWD_BAKED_SAMPLE if baked else 0))
-                   + (samples - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                   + bwd_outside_ops(samples - inside, rays,
+                                     bwd_alpha0(a, march.S_ID0))
                    + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
                              + FLOPS_PER_BWD_RAY))
             bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
             per_volume[vname][f"k4_{var}"] = dict(
                 config=cname, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, inside=inside, err_abs=e_abs,
-                err_rel=e_rel)
+                err_rel=e_rel, in_turns=in_turns)
             log(f"{label}: K4 {var} {ms:.4f} ms, plain {plain_ms:.2f} ms, "
                 f"samples inside the volume {inside} of {samples}, bound "
                 f"{ops_ms:.4f} ms (operations) / {bytes_ms:.4f} ms (bytes)")
@@ -2455,7 +2650,7 @@ def dense_volume(P, n: int):
 
 
 def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
-                        phong, large, tf, rng) -> dict:
+                        phong, large, tf, rng, libs=None) -> dict:
     """Phase 3k: at bench.py's streamed rows (304x304 pixels, 300 samples)
     on the dense 320^3 and 512^3 volumes, K1 plain and baked and K3 unlit
     and baked against their plain versions (bit-exact at eps 0; eps 1e-3
@@ -2463,8 +2658,10 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
     TOL_GRAD of max |dplain|), K8 (TOL_SMOOTH) and K9 (with the volume
     gradient, TOL_GRAD); each kernel's ms per launch at eps 1e-3 (forward)
     or 0 (backward, K8 and K9 at eps 0), its plain version's, its bound and
-    the peak memory of prep + kernel, and K8's and K9's samples in range ->
-    {volume: {kernel: numbers}}."""
+    the peak memory of prep + kernel, and K8's and K9's samples in range;
+    K4's spans checked and counted, K4 plain with TF(0).alpha 1 against its
+    plain version, and with ``libs`` K4 of this tree and another checkout
+    in turns -> {volume: {kernel: numbers}}."""
     import torch
 
     res = {}
@@ -2531,6 +2728,18 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
             peak, own = peak_mb(m0)
             e_abs, e_rel = bwd_vs_plain(kernel, plain, label, a, g)
             plain_ms = time_plain(lambda: plain(a, *g))
+            spans = in_turns = None
+            if not is_a5:
+                spans = k4_span_check(march, march_vjp, a, g, label)
+                if libs is not None:
+                    in_turns = k4_in_turns(march_vjp, libs, [(a, g)], label)
+            if key == "k4":  # every sample off the volume opaque
+                a1, _ = march_vjp.prepare_diff(
+                    vol, tf_with_alpha(P, tf, 0, 1.0), cam, cfg)
+                ea, er = bwd_vs_plain(kernel, plain, f"{label}_alpha0_one",
+                                      a1, cotangents(a1, grad_rng))
+                e_abs, e_rel = max(e_abs, ea), max(e_rel, er)
+                del a1
             k = a.colors.shape[0]
             total = rays * cfg.samples_per_ray
             fwd_plain = a5.march_a5_plain if is_a5 else march.march_plain
@@ -2541,7 +2750,8 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
             if is_a5:
                 ops = (inside * (FLOPS_PER_A5_BWD_SAMPLE + min(8, k)
                                  * FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL)
-                       + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                       + bwd_outside_ops(total - inside, rays,
+                                         bwd_alpha0(a, a5.S_ID0))
                        + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
                                  + FLOPS_PER_A5_BWD_RAY))
             else:
@@ -2550,13 +2760,15 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
                     nbytes += 8 * min(inside, a.mgrid.numel())
                 ops = (inside * (FLOPS_PER_BWD_SAMPLE + (
                     FLOPS_PER_BWD_BAKED_SAMPLE if baked else 0))
-                       + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                       + bwd_outside_ops(total - inside, rays,
+                                         bwd_alpha0(a, march.S_ID0))
                        + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
                                  + FLOPS_PER_BWD_RAY))
             b = bound(ops, nbytes)
             r[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0],
                           bound_by=b[1], inside=inside, err=e_abs,
-                          err_rel=e_rel, peak_mb=peak, own_mb=own)
+                          err_rel=e_rel, peak_mb=peak, own_mb=own,
+                          spans=spans, in_turns=in_turns)
             log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
                 f"samples inside {inside} of {total}, bound {b[2]:.4f} ms "
                 f"(operations) / {b[3]:.4f} ms (bytes), peak memory "
@@ -2609,7 +2821,8 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
             lambda: smooth_vjp.march_smooth_bwd_plain(a, *g),
             warm=True) if timed else None
         total = rays * cfg.samples_per_ray
-        b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False),
+        b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False,
+                                 smooth_alpha0(smooth, a)),
                   read_bytes(vol.data.numel() * 4, stats["inside"] * 32)
                   + rays * 16 + k * 24
                   + smooth_vjp.num_blocks(cfg.width, cfg.height) * k * 24)
@@ -3100,6 +3313,27 @@ def mc_kernel_phases(P, march, march_vjp, mc_vols, seeded, tf, rng,
         errs["k4_rel"] = max(errs["k4_rel"], e_rel)
         if vname not in mc_vols:
             continue
+        # K4's spans at a small shape: an id0 interval of alpha 1,
+        # TF(0).alpha 0.05, rays that miss the box, a step longer than a
+        # voxel
+        small = P.RenderConfig(width=61, height=37, samples_per_ray=37)
+        near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+        for name, tfx, cam_e, c in (
+                ("alpha0_one", tf_with_alpha(P, tf, 0, 1.0), near, small),
+                ("alpha0_0.05", tf_with_alpha(P, tf, 0, 0.05), near, small),
+                ("all_rays_miss", tf, away_camera(P, (0.9, 0.5, 1.0)), small),
+                ("step_longer_than_a_voxel", tf, near,
+                 small.replace(samples_per_ray=6))):
+            # c' off a 4-D volume is 0: with TF(0).alpha 1 a ray from
+            # outside has no gradient, and K4's must be exactly 0 too
+            ae, _ = march_vjp.prepare_diff(vol, tfx, cam_e, c)
+            ea, er = unit_bwd_vs_plain(march_vjp.march_bwd_kernel,
+                                       march_vjp.march_bwd_plain,
+                                       f"K4 mc {vname}/{name}", ae,
+                                       cotangents(ae, rng))
+            errs["k4_abs"] = max(errs["k4_abs"], ea)
+            errs["k4_rel"] = max(errs["k4_rel"], er)
+        k4_span_check(march, march_vjp, a, g, f"K4 mc {vname}")
         # times, bounds and memory at the render path's inputs (eps 1e-3)
         main_cfg = cfg.replace(early_termination=1e-3)
         cams = orbit_cameras(P, rng)
@@ -3138,7 +3372,8 @@ def mc_kernel_phases(P, march, march_vjp, mc_vols, seeded, tf, rng,
                      + rays * 16 + k * 16
                      + march_vjp.num_blocks(cfg.width, cfg.height) * k * 16)
         bwd_ops = (inside * FLOPS_PER_BWD_SAMPLE
-                   + (total - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                   + bwd_outside_ops(total - inside, rays,
+                                     bwd_alpha0(a, march.S_ID0))
                    + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
                              + FLOPS_PER_BWD_RAY))
         bwd_bound, bwd_by, _, _ = bound(bwd_ops, bwd_bytes)
@@ -3786,7 +4021,7 @@ def owned_samples(march, a) -> int:
 
 
 def shard_fit_kernel_phase(P, march, march_vjp, a5, a5_vjp, volumes, tf,
-                           rng, res) -> dict:
+                           rng, res, libs=None) -> dict:
     """Phase 3r: the work units of sharded fits at the main paths' shapes
     (a1 700x700x500, ``sobel_lit_700``, ``a5_500``; eps 0) on both volumes:
     K1 baked slab units bit-exact to ``march_plain``; K4 segment and slab
@@ -3797,7 +4032,12 @@ def shard_fit_kernel_phase(P, march, march_vjp, a5, a5_vjp, volumes, tf,
     K6 dcolors; each variant's ms per launch over a mesh's units, its plain
     version's and its bound -> max errors (``res`` gets the times).  The
     units against plain versions: every unit on MNI-dims, the first and the
-    last of each mesh on sphere100."""
+    last of each mesh on sphere100.  K4's spans are checked on the plain
+    slab units on MNI-dims; K4's edges of units (on MNI-dims): the
+    first and the last sample window of (1, 4, 1) and the first and the
+    last slab of (1, 2, 2) under an ortho camera along x, whose slabs own
+    the samples off the volume on their outer side.  With ``libs`` the K4 units of this tree and another
+    checkout are timed in turns."""
     import torch
 
     from volumerenderingproject_tpu_torch.ops import composite as comp
@@ -3860,12 +4100,41 @@ def shard_fit_kernel_phase(P, march, march_vjp, a5, a5_vjp, volumes, tf,
                                                  a, g)
                 errs[key] = [max(errs[key][0], e_abs),
                              max(errs[key][1], e_rel)]
+                if key == "k4_slab" and vname == "mni_dims_182x218x182":
+                    k4_span_check(march, march_vjp, a, g,  # ownership
+                                  f"3r {vname}/{key}/{xyz}")
                 units.append((a, g))
             if vname == "mni_dims_182x218x182":
+                label = f"3r {key} units of {shape}, {vname}"
                 res[key] = bwd_unit_timing(march, march_vjp, a5, a5_vjp,
-                                           units, f"3r {key} units of "
-                                           f"{shape}, {vname}", a5_unit)
+                                           units, label, a5_unit)
+                if libs is not None and not a5_unit:
+                    res[key]["in_turns"] = k4_in_turns(march_vjp, libs,
+                                                       units, label)
             del units
+            torch.cuda.empty_cache()
+        # K4's edges of units (on MNI-dims): sample windows before or after
+        # many rays' spans, slabs that own samples off the volume on their
+        # outer side
+        along_x = P.Camera.initial(position=(1.3, 0.02, 0.03))
+        for key, c, cam_u, shape in (("k4_segment", cfg, cam, (1, 4, 1)),
+                                     ("k4_slab", cfg, along_x, (1, 2, 2))):
+            if vname != "mni_dims_182x218x182":
+                continue
+            coords = mesh_coords(shape)
+            for xyz in (coords[0], coords[-1]):
+                a, _ = march_vjp.prepare_diff(
+                    vol, tf, cam_u, c, **unit_kwargs(vol, c, shape, xyz))
+                g = cotangents(a, grad_rng)
+                label = f"3r {vname}/{key} edge/{shape}/{xyz}"
+                if a.slab_x:
+                    k4_span_check(march, march_vjp, a, g, label)
+                e_abs, e_rel = unit_bwd_vs_plain(
+                    march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain,
+                    label, a, g)
+                errs[key] = [max(errs[key][0], e_abs),
+                             max(errs[key][1], e_rel)]
+                del a, g
             torch.cuda.empty_cache()
         # the units' dcolors summed through the fold's cotangents against
         # the whole render's
@@ -3963,8 +4232,8 @@ def bwd_unit_timing(march, march_vjp, a5, a5_vjp, units, label,
         per_inside = FLOPS_PER_BWD_SAMPLE + (
             FLOPS_PER_BWD_BAKED_SAMPLE if baked else 0)
         per_ray = FLOPS_PER_BWD_RAY
-    ops = (inside * per_inside
-           + (owned - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+    a0 = bwd_alpha0(a, a5.S_ID0 if a5_unit else march.S_ID0)
+    ops = (inside * per_inside + bwd_outside_ops(owned - inside, rays, a0)
            + rays * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL + per_ray))
     bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
     log(f"{label}: {ms:.4f} ms a unit, plain {plain_ms:.2f} ms, samples a "
@@ -4162,7 +4431,7 @@ def main(argv) -> int:
     # ---- 2. build -----------------------------------------------------------
     t0 = time.time()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    # the parent's smooth kernels build beside this tree's
+    # the parent's smooth kernels and K4 build beside this tree's
     parent_build = (None if parent is None
                     else start_tree_build(_build, parent))
     _build.build(sources)
@@ -4172,6 +4441,9 @@ def main(argv) -> int:
     a5_vjp._kernel_lib()
     smooth._kernel_lib()
     smooth_vjp._kernel_lib()
+    libs = None if parent is None else {
+        "parent": tree_libs(parent_build),
+        "this tree": {n: _build.load(n) for n in TREE_SOURCES}}
     log(f"built {sources} in {time.time() - t0:.2f} s")
     clock("1-2 card and build")
 
@@ -4219,6 +4491,13 @@ def main(argv) -> int:
             ("negative_alpha0_eps0", tf_neg, near, small, 0.0)]:
         kernel_vs_plain(f"edge/{name}", march.prepare(odd, tfx, cam, c, eps),
                         c.conic)
+    # rays within 1e-7 of parallel to a face, which the clip lost samples
+    # of before it took the pad
+    for face, side in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        kernel_vs_plain(f"edge/near_parallel_face{face}_{side}_eps0",
+                        near_parallel_args(march, march.prepare(
+                            odd, tf, near, small, 0.0), face, side, 1e-7),
+                        False)
     for vname, vol in volumes.items():
         orbit_cam = orbit_cameras(P, rng, 1)[0]
         cases = [
@@ -4279,16 +4558,65 @@ def main(argv) -> int:
     # ---- 3b. the backward kernel vs plain on the card ------------------------
     grad_rng = np.random.default_rng(2)
     bwd_abs = bwd_rel = 0.0
+    away = away_camera(P, (0.9, 0.5, 1.0))
     for name, tfx, cam, c, _ in edge_cases + [
             ("alpha_one", tf_with_alpha(P, tf, 3, 1.0), near, small, 0.0),
             ("negative_alpha0", tf_neg, near, small, 0.0),
             ("k16", tf16(P, tf.colors.device), near, small, 0.0),
-            ("density_0.45", tf, near, small.replace(density_scale=0.45), 0.0)]:
+            ("density_0.45", tf, near, small.replace(density_scale=0.45), 0.0),
+            # K4's spans: an id0 interval of alpha 1, rays that miss
+            # the box, a step longer than a voxel
+            ("alpha0_one", tf_with_alpha(P, tf, 0, 1.0), near, small, 0.0),
+            ("alpha0_0.05", tf_with_alpha(P, tf, 0, 0.05), near, small, 0.0),
+            ("all_rays_miss", tf, away, small, 0.0),
+            ("all_rays_miss_alpha0_0.3", tf_with_alpha(P, tf, 0, 0.3), away,
+             small, 0.0),
+            ("step_longer_than_a_voxel", tf, near,
+             small.replace(samples_per_ray=6), 0.0)]:
         a, _ = march_vjp.prepare_diff(odd, tfx, cam, c)
         e_abs, e_rel = bwd_vs_plain(
             march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain,
             f"edge/{name}", a, cotangents(a, grad_rng))
         bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
+    for face, side in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        for tfx in (tf, tf_with_alpha(P, tf, 0, 0.05)):
+            a = near_parallel_args(
+                march, march_vjp.prepare_diff(odd, tfx, near, small)[0],
+                face, side, 1e-7)
+            label = (f"edge/near_parallel_face{face}_{side}"
+                     f"{'_alpha0_0.05' if tfx is not tf else ''}")
+            g = cotangents(a, grad_rng)
+            k4_span_check(march, march_vjp, a, g, label)
+            e_abs, e_rel = bwd_vs_plain(
+                march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain,
+                label, a, g)
+            bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
+    # work units of the edge volume (13 x-planes): the sample windows of a
+    # (1, 4, 1) split, some wholly before or after a ray's span, and the
+    # first and the last slab of (1, 1, 2) under rays along x, which own
+    # the samples off the volume on their outer side
+    along_x = P.Camera.initial(position=(1.3, 0.02, 0.03))
+    c36 = small.replace(samples_per_ray=36)
+    units = [(f"segment_{s0}", near, c36,
+              dict(s_start=s0, s_count=9, segment=True))
+             for s0 in (0, 9, 18, 27)]
+    units += [(f"slab_{x0}_{nx}{'_along_x' if cam is along_x else ''}", cam,
+               small, dict(x0=x0, slab_x=nx, segment=True))
+              for cam in (along_x, near) for x0, nx in ((0, 6), (6, 7))]
+    tf_a0 = tf_with_alpha(P, tf, 0, 0.05)
+    for name, cam, c, kw in units:
+        tfs = [("", tf)]
+        if name not in ("segment_9", "segment_18"):
+            tfs.append(("_alpha0_0.05", tf_a0))
+        for tname, tfx in tfs:
+            a, _ = march_vjp.prepare_diff(odd, tfx, cam, c, **kw)
+            label = f"edge/unit_{name}{tname}"
+            g = cotangents(a, grad_rng)
+            k4_span_check(march, march_vjp, a, g, label)
+            e_abs, e_rel = unit_bwd_vs_plain(
+                march_vjp.march_bwd_kernel, march_vjp.march_bwd_plain, label,
+                a, g)
+            bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
     bwd_cam = orbit_cameras(P, np.random.default_rng(3), 1)[0]
     for vname, vol in volumes.items():
         for name, cam, c in (
@@ -4303,10 +4631,15 @@ def main(argv) -> int:
             bwd_abs, bwd_rel = max(bwd_abs, e_abs), max(bwd_rel, e_rel)
             if c.conic:
                 continue
+            spans = k4_span_check(march, march_vjp, a, g,
+                                  f"{vname}/{name}")
             # times and the bound at the fit path's shapes
             bwd_ms = timed_ms(lambda: march_vjp.march_bwd_kernel(a, *g), 5,
                               prefill=True,
                               label=f"{vname}: backward kernel")
+            if libs is not None:
+                per_volume[vname]["k4_in_turns"] = k4_in_turns(
+                    march_vjp, libs, [(a, g)], f"K4 plain {vname}")
             bwd_plain_ms = time_plain(
                 lambda: march_vjp.march_bwd_plain(a, *g))
             fwd_eps0_ms = timed_ms(lambda: march.march_kernel(a), 5,
@@ -4319,14 +4652,15 @@ def main(argv) -> int:
                       + k * 16
                       + march_vjp.num_blocks(W, H) * k * 16)
             ops = (inside * FLOPS_PER_BWD_SAMPLE
-                   + (samples - inside) * FLOPS_PER_BWD_OUTSIDE_SAMPLE
+                   + bwd_outside_ops(samples - inside, W * H,
+                                     bwd_alpha0(a, march.S_ID0))
                    + W * H * (k * FLOPS_PER_BWD_RAY_PER_INTERVAL
                               + FLOPS_PER_BWD_RAY))
             bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
             per_volume[vname].update(
                 bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
                 fwd_eps0_ms=fwd_eps0_ms, bwd_bound_ms=bound_ms,
-                bwd_bound_by=bound_by, bwd_inside=inside)
+                bwd_bound_by=bound_by, bwd_inside=inside, bwd_spans=spans)
             log(f"{vname}: backward kernel {bwd_ms:.4f} ms, plain "
                 f"{bwd_plain_ms:.2f} ms, forward kernel at eps 0 "
                 f"{fwd_eps0_ms:.4f} ms, samples inside the volume {inside} "
@@ -4352,7 +4686,7 @@ def main(argv) -> int:
     smooth_rng = np.random.default_rng(17)
     smooth_errs = smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf,
                                        from_text, smooth_rng, per_volume,
-                                       parent_build)
+                                       libs)
     clock("3g-3h K8, K9 vs plain")
 
     # ---- 3i. F1: alphas above 1, T < 0 ----------------------------------------
@@ -4362,14 +4696,14 @@ def main(argv) -> int:
 
     # ---- 3j. K4's baked, LUT and LUT + baked variants vs plain --------------
     k4_errs = k4_variant_phases(P, march, march_vjp, volumes, tf, from_text,
-                                np.random.default_rng(21), per_volume)
+                                np.random.default_rng(21), per_volume, libs)
     clock("3j K4 variants vs plain")
 
     # ---- 3k. volumes beyond the TPU's resident budget: 320^3 and 512^3 -----
     large = {f"dense_{n}": dense_volume(P, n) for n in LARGE_SIZES}
     large_k = large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth,
                                   smooth_vjp, phong, large, tf,
-                                  np.random.default_rng(30))
+                                  np.random.default_rng(30), libs)
     clock("3k kernels vs plain at 320^3 and 512^3")
 
     # ---- 3l. scattered renders: K1 and K3 baked vs plain; the sweep --------
@@ -4406,7 +4740,7 @@ def main(argv) -> int:
     shard_fit_res = {}
     shard_fit_errs = shard_fit_kernel_phase(
         P, march, march_vjp, a5, a5_vjp, volumes, tf,
-        np.random.default_rng(54), shard_fit_res)
+        np.random.default_rng(54), shard_fit_res, libs)
     clock("3r K1 baked slab, K4 segment and slab, K6 segment vs plain")
 
     # ---- 4. the render path -------------------------------------------------

@@ -50,7 +50,10 @@
 //     slab's faces.  In-kernel lighting on a slab is not here.
 //
 // One thread marches one ray:
-//   ray setup -> clip of the sample range to the dataset box (+-1 sample)
+//   ray setup -> clip of the sample range to the dataset box, widened by
+//      kRangePad (max |o| + |clip| + 2) and one sample at each end
+//      (box_span, march_common.cuh; without the pad a ray within 1e-7 of
+//      parallel to a face lost samples that have a voxel)
 //   -> for each run of kChunk samples, skip it when every 8^3 brick its
 //      voxel box touches is transparent
 //   -> per sample: modelAux (+0.5) -> octree nearest voxel -> colour id ->
@@ -92,11 +95,6 @@ constexpr int kChunk = 8;          // samples per brick-occupancy test
 constexpr int kBrick = 8;          // brick edge in voxels
 constexpr int kMaxIntervals = 256;  // uint8 interval ids
 constexpr int kMaxLut = 1024;       // uint16 LUT indices (tf_lut <= 1024)
-
-// float -> int for values that may be +-inf or huge
-__device__ __forceinline__ int to_int_clamped(float v) {
-  return (int)fminf(fmaxf(v, -1.0e9f), 1.0e9f);
-}
 
 // Conservative test of samples [i0, i1] of one ray: does the voxel box they
 // can reach touch any brick with an alpha != 0 voxel?  Every step below is
@@ -243,29 +241,20 @@ march_a1_kernel(const float* __restrict__ scal,
     hinv = 1.0f / fmaxf(sqrtf((hx * hx + hy * hy) + hz * hz), 1e-8f);
   }
 
-  // ---- the unit's samples, inside the dataset box, +-1 sample of slop ----
+  // ---- the unit's samples that may lie in the dataset box -----------------
   int s_lo = g.s_start, s_hi = g.s_start + g.spr - 1;
-  if (!full) {
-    float t_lo = -INFINITY, t_hi = INFINITY;
+  const float pad = span_pad(o, d, ds, clip);
+  if (!full && pad >= 0.0f) {
+    float blo[3], bhi[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float lo = scal[S_BOX_LO + c], hi = scal[S_BOX_HI + c];
-      const bool safe = fabsf(d[c]) > 1e-12f;
-      const float dv = safe ? d[c] : 1.0f;
-      const float ta = (lo - o[c]) / dv;
-      const float tb = (hi - o[c]) / dv;
-      const bool in_c = (o[c] >= lo) && (o[c] <= hi);
-      const float lo_c = safe ? fminf(ta, tb) : (in_c ? -INFINITY : INFINITY);
-      const float hi_c = safe ? fmaxf(ta, tb) : (in_c ? INFINITY : -INFINITY);
-      t_lo = fmaxf(t_lo, lo_c);
-      t_hi = fminf(t_hi, hi_c);
+      blo[c] = scal[S_BOX_LO + c];
+      bhi[c] = scal[S_BOX_HI + c];
     }
-    if (t_hi >= t_lo) {
-      s_lo = max(s_lo, to_int_clamped(floorf((t_lo - clip) / ds)) - 1);
-      s_hi = min(s_hi, to_int_clamped(ceilf((t_hi - clip) / ds)) + 1);
-    } else {
-      s_hi = -1;
-    }
+    int a, b;
+    box_span(o, d, blo, bhi, pad, ds, clip, false, a, b);
+    s_lo = max(s_lo, a);
+    s_hi = min(s_hi, b);
   }
 
   // ---- march ---------------------------------------------------------------

@@ -59,33 +59,73 @@
 // again and keeps the prefix P_s in pass A's float order (the shaded c' by
 // the same expression in both passes), so S_{>s} = total - P_s needs no
 // per-sample storage.  Where 1 - a_s == 0 the division term is 0, as in the
-// TPU kernel.  Every sample of the ray is marched: a sample of alpha 0 still
-// has an alpha gradient, so the forward's box clip and brick skip do not
-// apply here.  Off the volume a sample takes id0 and scatters into id0's
-// interval.
+// TPU kernel.
+//
+// Every sample of the ray has a gradient (a sample of alpha 0 still has an
+// alpha gradient), but most lie off the volume, and there each is one
+// constant of the launch: interval k0 (of id0, through the LUT's interval
+// table with a LUT), alpha a0 and c'0 (M = 1 and S = 0 when baked, so c'0
+// = c0; 0 with channel grids), taken once a block in shared memory, and
+// gd0 = g . c'0 once a ray by the expression of every other g . c'.  So
+// each ray takes, before pass A, three spans of its samples (box_span,
+// march_common.cuh; ops/march_vjp.sample_range mirrors them):
+//   * the chain's span: K1's dataset box (S_BOX_LO/HI, tightened to the
+//     slab's x planes on a slab), widened by kRangePad (max |o| + |clip|
+//     + 2) and one sample at each end: every sample whose chain gives a
+//     voxel lies in it.  Its samples run the full bounds-checked chain
+//     (bwd_sample), so a span too wide costs time, never a value.
+//   * on a slab (kSlab), the ownership span: the samples whose x-clamped
+//     voxel index the slab may hold, from the slab's x planes alone
+//     (Geom's x0, nx, dim; unbounded on the outer side of the first and the
+//     last slab), widened the same way, and inside it the samples that the
+//     slab surely owns (the planes narrowed by a leaf, 1/n, and the pad).
+//     A sample outside the ownership span is another slab's: the over
+//     identity (alpha 0, T and the sums unchanged, no interval), skipped.
+//     One in the ownership span but not surely owned runs the full chain,
+//     which decides alone.  Off a slab every sample of the unit is owned.
+//   * the unit's window [s_start, s_start + spr), which bounds both.
+// A sample that is owned and outside the chain's span is the constant.  In
+// pass A it adds (T a0) gd0 and multiplies T by 1 - a0, the full
+// evaluation's operations, so T_N, the total and pass B's prefix are the
+// full evaluation's to the bit.  In pass B it keeps its own w_s, T_s and
+// numerator S_{>s} + T_N g_t, but runs no chain, no load and no interval
+// loop: its dL/da = T_s gd0 - num_s / (1 - a0) is linear in T_s and num_s
+// with constant coefficients, so the ray sums w_s, T_s and num_s and folds
+// them into interval k0 once, at the end of the ray (K9's fold, with the
+// division taken once, gated as a sample's).  Where a0 == 0 (the TF's
+// usual interval 0), such a sample leaves T and the prefix as they are and
+// every sample of a run of them has the same dL/da: pass A skips the run,
+// pass B adds its length times that dL/da.  The folds regroup float sums,
+// so K4 is not bit-exact to march_bwd_plain (chip_smoke.py holds it to
+// TOL_GRAD of max |dplain|).  Dividing each sample instead was 19 % slower
+// with a0 = 0.05 (harness/ab_march.py; PERF.md).
 //
 // Per-interval sums stay in registers: the kernel is instantiated for
-// K <= 4, 8 and 16, and a sample adds its four terms to interval k through
-// a select in the unrolled k loop (adding 0 to the other intervals is
-// exact).  At the end each block reduces its rays' [K, 4] sums, by
-// shuffles within each warp and then over the warps in shared memory in a
-// fixed order (block_reduce.cuh), and writes one partial to partials
-// [nblocks, K, 4]; the caller sums the partials with torch.sum.  No
-// atomics, so every run gives the same bits.
+// K <= 4, 8 and 16, and a sample adds its w_s M_s and dL/da to interval k
+// through a select in the unrolled k loop (adding 0 to the other intervals
+// is exact); the rgb columns are g times the w M sum, taken once a ray.  At
+// the end each block reduces its rays' [K, 4] sums, by shuffles within each
+// warp and then over the warps in shared memory in a fixed order
+// (block_reduce.cuh), and writes one partial to partials [nblocks, K, 4];
+// the caller sums the partials with torch.sum.  No atomics, so every run
+// gives the same bits.
 //
-// What bounds it on an H100: operations.  Each sample costs some 45 float
-// operations per pass and a dependent one-byte load from the id grid, which
-// the 50 MB L2 holds whole (7.2 MB at 182x218x182); the bytes it must move
-// (ids, 16 bytes of cotangent per ray, the partials) are far fewer.  The
-// design keeps all per-ray state in registers, the colours (and the LUT's
-// interval table, at most 1 KB) in shared memory, and uses K1's 16x16
-// pixel blocks so that a warp's loads share cache lines.  The baked
-// variants add two f32 loads per sample inside the volume, at the id's
-// voxel, in each pass (M and S are 58 MB at 182x218x182, more than L2
-// holds) and 6 operations for the shade; the LUT variants read a two-byte
-// index and one shared-memory byte more; the channel variant reads 1 or 3
-// f32 channel values per sample inside the volume, like M and S.  Ray setup and the sample -> voxel
-// -> id chain are K1's (march_common.cuh).
+// What bounds it on an H100: operations, those of the samples in the
+// chain's span (some 40 float operations a pass, the dependent one-byte id
+// load, which the 50 MB L2 holds whole, 7.2 MB at 182x218x182, and the
+// interval selects), which the launch's bound counts, beside the constant
+// samples' few operations (none where a0 == 0); a warp runs the chain for
+// the union of its rays' spans.  The
+// bytes it must move (ids, 16 bytes of cotangent per ray, the partials)
+// are far fewer.  The baked variants add two f32 loads per sample inside
+// the volume, at the id's voxel, in each pass (M and S are 58 MB at
+// 182x218x182, more than L2 holds) and 6 operations for the shade; the LUT
+// variants read a two-byte index and one shared-memory byte more; the
+// channel variant reads 1 or 3 f32 channel values per sample inside the
+// volume.  All per-ray state stays in registers, the colours (and the
+// LUT's interval table, at most 1 KB) in shared memory.  Ray setup and the
+// sample -> voxel -> id chain are K1's (march_common.cuh).  Tensor cores,
+// TMA and clusters do not serve this walk: its loads depend on the ray.
 
 #include "march_common.cuh"
 #include "block_reduce.cuh"
@@ -94,8 +134,13 @@ namespace {
 
 constexpr int kMaxIntervals = 16;  // the JAX kernel's limit
 constexpr int kMaxLut = 1024;      // uint16 LUT indices (tf_lut <= 1024)
-constexpr int kBlock = 16;         // pixels per block edge
-constexpr int kWarps = kBlock * kBlock / 32;
+// a block's pixels along y (threadIdx.x) and x (threadIdx.y): a warp is 4 x
+// 8 neighbouring rays, whose spans overlap more than a 16 x 2 warp's; 4-15 %
+// faster than 16 x 16 blocks in every variant and unit on the MNI-dims
+// volume on the H100 (harness/ab_march.py; PERF.md)
+constexpr int kBlockY = 4, kBlockX = 64;
+constexpr int kThreads = kBlockY * kBlockX;
+constexpr int kWarps = kThreads / 32;
 
 // What sample i of a ray contributes: its interval, its alpha, its shaded
 // colour's g . c' and the factor M of its rgb terms (1 unlit or off the
@@ -173,8 +218,62 @@ __device__ __forceinline__ Sample bwd_sample(
   return s;
 }
 
+// The spans of the ray (o, d) that K4 takes (the header above): its samples
+// [lo, hi] (the unit's window; on a slab, within the ownership span), the
+// chain's span [c_lo, c_hi] and the surely owned samples [in_lo, in_hi],
+// all clamped to [lo, hi].  Sample i in [lo, hi] runs the full chain where
+// c_lo <= i <= c_hi or i < in_lo or i > in_hi, else it is the constant.
+// A ray, step or clip that is not finite runs the chain on every sample of
+// the window (span_pad).  ops/march_vjp.sample_range mirrors this
+// function.
+template <bool kSlab>
+__device__ __forceinline__ void bwd_spans(const float* __restrict__ scal,
+                                          const float o[3], const float d[3],
+                                          float ds, float clip, const Geom& g,
+                                          int& lo, int& hi, int& c_lo,
+                                          int& c_hi, int& in_lo, int& in_hi) {
+  lo = g.s_start;
+  hi = g.s_start + g.spr - 1;
+  c_lo = lo;
+  c_hi = hi;
+  in_lo = lo;
+  in_hi = hi;
+  const float pad = span_pad(o, d, ds, clip);
+  if (pad < 0.0f) return;
+  float blo[3], bhi[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    blo[c] = scal[S_BOX_LO + c];
+    bhi[c] = scal[S_BOX_HI + c];
+  }
+  int a, b;
+  if constexpr (kSlab) {
+    // the slab owns the samples whose x-clamped voxel index lies in
+    // [x0, x0 + nx): x in ray space in [(hg + x0) / L, (hg + x0 + nx) / L +
+    // 1/n) - 0.5 up to the leaf's rounding, unbounded on an outer face
+    float olo[3] = {-INFINITY, -INFINITY, -INFINITY};
+    float ohi[3] = {INFINITY, INFINITY, INFINITY};
+    const float hx = g.hg[0] + (float)g.x0;
+    const float leaf = 1.0f / g.n;
+    if (g.x0 > 0) olo[0] = hx / g.L - 0.5f;
+    if (g.x0 + g.nx < g.dim[0])
+      ohi[0] = ((hx + (float)g.nx) / g.L + leaf) - 0.5f;
+    box_span(o, d, olo, ohi, pad, ds, clip, false, a, b);
+    lo = max(lo, a);
+    hi = min(hi, b);
+    olo[0] = olo[0] + leaf;  // owned for sure: a leaf inside each plane
+    ohi[0] = ohi[0] - leaf;
+    box_span(o, d, olo, ohi, pad, ds, clip, true, a, b);
+    in_lo = max(a, lo);
+    in_hi = min(b, hi);
+  }
+  box_span(o, d, blo, bhi, pad, ds, clip, false, a, b);
+  c_lo = max(a, lo);
+  c_hi = min(b, hi);
+}
+
 template <int KMAX, typename Id, bool kBaked, int kMc, bool kSlab>
-__global__ void __launch_bounds__(kBlock * kBlock)
+__global__ void __launch_bounds__(kThreads)
 march_bwd_a1_kernel(const float* __restrict__ scal,
                     const float* __restrict__ colors, int num_intervals,
                     const Id* __restrict__ ids,
@@ -187,6 +286,8 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
                     float* __restrict__ partials) {
   __shared__ float4 s_col[KMAX];
   __shared__ uint8_t s_itv[sizeof(Id) == 1 ? 1 : kMaxLut];
+  __shared__ float4 s_c0;  // c'0 and a0: every owned sample off the volume
+  __shared__ int s_k0;     // and its interval
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < KMAX) {
     s_col[tid] = tid < num_intervals
@@ -199,13 +300,28 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
       s_itv[j] = itv[j];
   }
   __syncthreads();
-
-  float acc[KMAX][4];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[k][c] = 0.0f;
+  const int id0 = (int)scal[S_ID0];
+  if (tid == 0) {  // bwd_sample's colour of a sample off the volume
+    const int k0 = sizeof(Id) == 1 ? id0 : (int)s_itv[id0];
+    float4 c0 = s_col[k0];
+    if constexpr (kBaked) {  // M = 1, S = 0
+      c0.x = c0.x * 1.0f + 0.0f;
+      c0.y = c0.y * 1.0f + 0.0f;
+      c0.z = c0.z * 1.0f + 0.0f;
+    } else if constexpr (kMc > 0) {
+      c0.x = c0.y = c0.z = 0.0f;
+    }
+    s_c0 = c0;
+    s_k0 = k0;
   }
+  __syncthreads();
+
+  // per interval: the sum of w M (the rgb columns, times g at the end) and
+  // of dL/da
+  float sw[KMAX], sa[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) sw[k] = sa[k] = 0.0f;
+  float gr = 0.0f, gg = 0.0f, gb = 0.0f;
 
   // threadIdx.x runs along y, as in K1; threads off the image take part in
   // the reduction with zero sums
@@ -216,57 +332,117 @@ march_bwd_a1_kernel(const float* __restrict__ scal,
     ray_setup(scal, g, px, py, conic, o, d);
     const float ds = scal[S_DS];
     const float clip = scal[S_CLIP];
-    const int id0 = (int)scal[S_ID0];
     const long long ray = (long long)px * g.height + py;
-    const float gr = g_rgb[3 * ray];
-    const float gg = g_rgb[3 * ray + 1];
-    const float gb = g_rgb[3 * ray + 2];
+    gr = g_rgb[3 * ray];
+    gg = g_rgb[3 * ray + 1];
+    gb = g_rgb[3 * ray + 2];
     const long long nvox = (long long)g.dim[0] * g.dim[1] * g.dim[2];
+    const float4 c0 = s_c0;
+    const float a0 = c0.w;
+    const float gd0 = (gr * c0.x + gg * c0.y) + gb * c0.z;
+    const float denom0 = 1.0f - a0;
+    const bool a0_zero = a0 == 0.0f;
+    int lo, hi, c_lo, c_hi, in_lo, in_hi;
+    bwd_spans<kSlab>(scal, o, d, ds, clip, g, lo, hi, c_lo, c_hi, in_lo,
+                     in_hi);
 
     // ---- pass A: total of w (g . c') and the final transmittance ---------
     // (the unit's samples; its T starts at 1)
     float t = 1.0f;
     float total = 0.0f;
-    for (int i = g.s_start; i < g.s_start + g.spr; ++i) {
-      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc, kSlab>(
-          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
-          s_itv, gr, gg, gb);
-      const float w = t * s.a;
-      total = total + w * s.gd;
-      t = t * (1.0f - s.a);
+    for (int i = lo; i <= hi;) {
+      if ((i >= c_lo && i <= c_hi) || i < in_lo || i > in_hi) {
+        const Sample s = bwd_sample<KMAX, Id, kBaked, kMc, kSlab>(
+            i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
+            s_itv, gr, gg, gb);
+        const float w = t * s.a;
+        total = total + w * s.gd;
+        t = t * (1.0f - s.a);
+        ++i;
+        continue;
+      }
+      // a run of constant samples, [i, j)
+      const int j = min(in_hi + 1, c_lo > i ? c_lo : hi + 1);
+      if (!a0_zero) {
+        for (; i < j; ++i) {
+          const float w = t * a0;
+          total = total + w * gd0;
+          t = t * denom0;
+        }
+      }
+      i = j;
     }
     const float bg_term = t * g_t[ray];  // T_N * dL/dT_N
 
     // ---- pass B: prefix re-march and the per-interval terms --------------
     t = 1.0f;
     float pfx = 0.0f;
-    for (int i = g.s_start; i < g.s_start + g.spr; ++i) {
-      const Sample s = bwd_sample<KMAX, Id, kBaked, kMc, kSlab>(
-          i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
-          s_itv, gr, gg, gb);
-      const float w = t * s.a;
-      pfx = pfx + w * s.gd;  // pass A's order: total - pfx is exact at the end
-      const float suffix = total - pfx;
-      const float denom = 1.0f - s.a;
-      const float num = suffix + bg_term;
-      const float da = t * s.gd - (denom != 0.0f ? num / denom : 0.0f);
-      t = t * denom;
-      const float wm = kBaked ? w * s.m : w;  // dC/dc = w M
-      // channel rgb is data: no rgb terms, the rgb columns stay 0
-      const float dr = kMc ? 0.0f : wm * gr;
-      const float dg = kMc ? 0.0f : wm * gg;
-      const float db = kMc ? 0.0f : wm * gb;
+    // the constant samples' sums: w, dL/da, and where a0 != 0 T and the
+    // numerator of the division, which is folded once a ray
+    float ow = 0.0f, oda = 0.0f, ot = 0.0f, onum = 0.0f;
+    for (int i = lo; i <= hi;) {
+      if ((i >= c_lo && i <= c_hi) || i < in_lo || i > in_hi) {
+        const Sample s = bwd_sample<KMAX, Id, kBaked, kMc, kSlab>(
+            i, o, d, ds, clip, g, ids, id0, mgrid, sgrid, chans, nvox, s_col,
+            s_itv, gr, gg, gb);
+        const float w = t * s.a;
+        pfx = pfx + w * s.gd;  // pass A's order: total - pfx is exact at the end
+        const float suffix = total - pfx;
+        const float denom = 1.0f - s.a;
+        const float num = suffix + bg_term;
+        const float da = t * s.gd - (denom != 0.0f ? num / denom : 0.0f);
+        t = t * denom;
+        const float wm = kBaked ? w * s.m : w;  // dC/dc = w M
 #pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        const bool sel = s.k == k;
-        acc[k][0] += sel ? dr : 0.0f;
-        acc[k][1] += sel ? dg : 0.0f;
-        acc[k][2] += sel ? db : 0.0f;
-        acc[k][3] += sel ? da : 0.0f;
+        for (int k = 0; k < KMAX; ++k) {
+          const bool sel = s.k == k;
+          if constexpr (kMc == 0) sw[k] += sel ? wm : 0.0f;
+          sa[k] += sel ? da : 0.0f;
+        }
+        ++i;
+        continue;
       }
+      const int j = min(in_hi + 1, c_lo > i ? c_lo : hi + 1);
+      if (a0_zero) {
+        // w = 0: T and the prefix stay, so every sample of the run has the
+        // dL/da of its first (1 - a0 == 1 divides exactly)
+        const float num = (total - pfx) + bg_term;
+        const float da = t * gd0 - num;
+        oda = oda + (float)(j - i) * da;
+        i = j;
+        continue;
+      }
+      for (; i < j; ++i) {
+        const float w = t * a0;
+        pfx = pfx + w * gd0;
+        ow = ow + w;
+        ot = ot + t;
+        onum = onum + ((total - pfx) + bg_term);
+        t = t * denom0;
+      }
+    }
+    // sum_s T_s gd0 - num_s / (1 - a0), the division gated as a sample's
+    oda = oda + (gd0 * ot - (denom0 != 0.0f ? onum / denom0 : 0.0f));
+
+    // ---- the constant samples' terms, folded once ------------------------
+    const int k0 = s_k0;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const bool sel = k0 == k;
+      sw[k] += sel ? ow : 0.0f;
+      sa[k] += sel ? oda : 0.0f;
     }
   }
 
+  // channel rgb is data: no rgb terms, the rgb columns stay 0
+  float acc[KMAX][4];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    acc[k][0] = kMc ? 0.0f : gr * sw[k];
+    acc[k][1] = kMc ? 0.0f : gg * sw[k];
+    acc[k][2] = kMc ? 0.0f : gb * sw[k];
+    acc[k][3] = sa[k];
+  }
   write_block_partial<KMAX, kWarps>(acc, num_intervals, partials);
 }
 
@@ -282,9 +458,9 @@ struct Inputs {
 
 template <typename Id, bool kBaked, int kMc, bool kSlab = false>
 void launch(const Inputs& in, const Geom& g, int conic, cudaStream_t s) {
-  const dim3 block(kBlock, kBlock);
-  const dim3 grid((g.height + kBlock - 1) / kBlock,
-                  (g.width + kBlock - 1) / kBlock);
+  const dim3 block(kBlockY, kBlockX);
+  const dim3 grid((g.height + kBlockY - 1) / kBlockY,
+                  (g.width + kBlockX - 1) / kBlockX);
   const Id* id = static_cast<const Id*>(in.ids);
   if (in.K <= 4) {
     march_bwd_a1_kernel<4, Id, kBaked, kMc, kSlab><<<grid, block, 0, s>>>(
@@ -311,8 +487,8 @@ void launch(const Inputs& in, const Geom& g, int conic, cudaStream_t s) {
 // [d1, d2, d3] f32, both null unlit; chans: [n_chans, d1, d2, d3] f32
 // (n_chans 1 or 3, uint8 ids, unlit) for a 4-D volume, else null; g_rgb:
 // [width, height, 3] f32; g_t: [width, height] f32; partials:
-// [ceil(width/16) * ceil(height/16), K, 4] f32, one [K, 4] sum per 16x16
-// pixel block.  The work unit: columns [x_offset, x_offset + width) of a
+// [ceil(width/kBlockX) * ceil(height/kBlockY), K, 4] f32, one [K, 4] sum
+// per block of kBlockX x kBlockY pixels.  The work unit: columns [x_offset, x_offset + width) of a
 // full_width-wide image, samples [s_start, s_start + spr) of the d1-deep
 // geometry's rays, and with slab_x > 0 (interval ids, plain or baked) the
 // grids' x-planes [x0, x0 + slab_x): ids, mgrid and sgrid are then

@@ -15,6 +15,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -23,6 +24,12 @@ namespace {
 constexpr int S_DS = 0, S_CLIP = 1, S_EPS = 3, S_FULL = 4, S_POS = 5,
               S_FRONT = 8, S_RIGHT = 11, S_UP = 14, S_TL = 17, S_RSW = 20,
               S_RSH = 21, S_BOX_LO = 22, S_BOX_HI = 25, S_ID0 = 28, S_BG = 29;
+
+// a range's box is widened (or narrowed) by this times (max |o_c| + |clip| +
+// 2), in ray space: about a hundred times what the float chain rounds there
+constexpr float kRangePad = 1.0f / 16384.0f;
+// an index beyond every sample: an empty span is [kNoSample, -kNoSample]
+constexpr int kNoSample = 1000000000;
 
 struct Geom {
   int dim[3];
@@ -93,6 +100,73 @@ __device__ __forceinline__ void ray_setup(const float* __restrict__ scal,
       o[c] = (scal[S_TL + c] + xt) + yt;
       d[c] = scal[S_FRONT + c];
     }
+  }
+}
+
+// float -> int for values that may be +-inf or huge (NaN -> -1e9)
+__device__ __forceinline__ int to_int_clamped(float v) {
+  return (int)fminf(fmaxf(v, -1.0e9f), 1.0e9f);
+}
+
+// The pad of the ray (o, d)'s spans (box_span): kRangePad (max |o_c| +
+// |clip| + 2), which bounds every term the chain rounds near the box (there
+// |ti d| is at most |o| + 1); -1 where the ray, the step or the clip is
+// not finite or the step is not positive: a span then holds every sample.
+__device__ __forceinline__ float span_pad(const float o[3], const float d[3],
+                                          float ds, float clip) {
+  bool finite = ds > 0.0f && isfinite(ds) && isfinite(clip);
+  float mag = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    finite = finite && isfinite(o[c]) && isfinite(d[c]);
+    mag = fmaxf(mag, fabsf(o[c]));
+  }
+  return finite ? kRangePad * ((mag + fabsf(clip)) + 2.0f) : -1.0f;
+}
+
+// Samples [i_lo, i_hi] of the ray (o, d) whose position o + ti d may lie in
+// the box [lo, hi] (ray space, per axis; an infinite bound bounds nothing),
+// or with `inward` those whose position surely lies in it.  The box is
+// widened (narrowed) by `pad`, which bounds the float chain's rounding of
+// the position, and the span by one sample at each end, which bounds the
+// rounding of ti and of the quotients below.  A direction component of
+// magnitude at most 1e-12 is not divided by: the ray is then inside or
+// outside that axis's slab for every sample (K1's `safe`).  An empty span
+// is [kNoSample, -kNoSample].  `pad` comes from span_pad, which checks
+// that the inputs are finite.  ops/march.box_span mirrors it in its float
+// order.
+__device__ __forceinline__ void box_span(const float o[3], const float d[3],
+                                         const float lo[3], const float hi[3],
+                                         float pad, float ds, float clip,
+                                         bool inward, int& i_lo, int& i_hi) {
+  float t_lo = -INFINITY, t_hi = INFINITY;
+  bool empty = false;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float l = inward ? lo[c] + pad : lo[c] - pad;
+    const float h = inward ? hi[c] - pad : hi[c] + pad;
+    empty = empty || !(h >= l);
+    const bool safe = fabsf(d[c]) > 1e-12f;
+    const float dv = safe ? d[c] : 1.0f;
+    const float ta = (l - o[c]) / dv;
+    const float tb = (h - o[c]) / dv;
+    const bool in_c = (o[c] >= l) && (o[c] <= h);
+    t_lo = fmaxf(t_lo, safe ? fminf(ta, tb) : (in_c ? -INFINITY : INFINITY));
+    t_hi = fminf(t_hi, safe ? fmaxf(ta, tb) : (in_c ? INFINITY : -INFINITY));
+  }
+  if (empty || !(t_hi >= t_lo)) {
+    i_lo = kNoSample;
+    i_hi = -kNoSample;
+    return;
+  }
+  const float f_lo = (t_lo - clip) / ds;
+  const float f_hi = (t_hi - clip) / ds;
+  if (inward) {
+    i_lo = to_int_clamped(ceilf(f_lo)) + 1;
+    i_hi = to_int_clamped(floorf(f_hi)) - 1;
+  } else {
+    i_lo = to_int_clamped(floorf(f_lo)) - 1;
+    i_hi = to_int_clamped(ceilf(f_hi)) + 1;
   }
 }
 

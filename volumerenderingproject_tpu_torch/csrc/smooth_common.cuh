@@ -51,9 +51,7 @@ constexpr int kSmoothMaxIntervals = 16;  // the JAX kernels' limit
 // (harness/ab_smooth.py; PERF.md).
 constexpr int kSmoothBlockY = 4, kSmoothBlockX = 64;
 constexpr int kSmoothThreads = kSmoothBlockY * kSmoothBlockX;
-// the range's box is widened by this times (max |o_c| + |clip| + 2), in
-// ray space: about a hundred times what the float chain rounds there
-constexpr float kRangePad = 1.0f / 16384.0f;
+// the range's box is widened by kRangePad (march_common.cuh)
 
 // The smooth scalars of one march, read once per thread.
 struct SmoothScalars {
@@ -213,14 +211,11 @@ __device__ __forceinline__ void load_tf(SmoothTF<KMAX>& tf,
 // Samples [i_lo, i_hi] of the ray (o, d), clamped to [0, spr): those that
 // may have a corner in the volume; i_lo > i_hi where there is none.  The
 // box vox_c in [-1, dim_c) is, in ray space (p = (vox - voff) / L - 0.5),
-// [(-1 - voff_c) / L - 0.5, (dim_c - voff_c) / L - 0.5], widened by
-// kRangePad (max |o_c| + |clip| + 2); near the box |ti d| is at most
-// |o| + 1, so that bounds every term the chain rounds.  A direction
-// component of magnitude at most 1e-12 is not divided by: the ray is then
-// inside or outside that axis's slab for every sample (K1's `safe`).  A ray
-// or scalar that is not finite, or a step that is not positive, takes every
-// sample: its chain then decides alone.  ops/smooth.sample_range mirrors
-// this function in the same float order.
+// [(-1 - voff_c) / L - 0.5, (dim_c - voff_c) / L - 0.5], and box_span
+// (march_common.cuh) widens it by span_pad and a sample at each end.  A
+// ray or scalar that is not finite, or a step that is not positive, takes
+// every sample: its chain then decides alone.  ops/smooth.sample_range
+// mirrors this function in the same float order.
 __device__ __forceinline__ void smooth_sample_range(const float o[3],
                                                     const float d[3],
                                                     const SmoothScalars& s,
@@ -228,41 +223,20 @@ __device__ __forceinline__ void smooth_sample_range(const float o[3],
                                                     int& i_hi) {
   i_lo = 0;
   i_hi = g.spr - 1;
-  bool finite = s.ds > 0.0f && isfinite(s.ds) && isfinite(s.clip) &&
-                isfinite(s.L);
-  float mag = 0.0f;
+  const float pad = span_pad(o, d, s.ds, s.clip);
+  bool finite = pad >= 0.0f && isfinite(s.L);
+  float lo[3], hi[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    finite = finite && isfinite(o[c]) && isfinite(d[c]) &&
-             isfinite(s.voff[c]);
-    mag = fmaxf(mag, fabsf(o[c]));
+    finite = finite && isfinite(s.voff[c]);
+    lo[c] = (-1.0f - s.voff[c]) / s.L - 0.5f;
+    hi[c] = ((float)g.dim[c] - s.voff[c]) / s.L - 0.5f;
   }
   if (!finite) return;
-  const float pad = kRangePad * ((mag + fabsf(s.clip)) + 2.0f);
-  float t_lo = -INFINITY, t_hi = INFINITY;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float lo = ((-1.0f - s.voff[c]) / s.L - 0.5f) - pad;
-    const float hi = (((float)g.dim[c] - s.voff[c]) / s.L - 0.5f) + pad;
-    const bool safe = fabsf(d[c]) > 1e-12f;
-    const float dv = safe ? d[c] : 1.0f;
-    const float ta = (lo - o[c]) / dv;
-    const float tb = (hi - o[c]) / dv;
-    const bool in_c = (o[c] >= lo) && (o[c] <= hi);
-    const float lo_c = safe ? fminf(ta, tb) : (in_c ? -INFINITY : INFINITY);
-    const float hi_c = safe ? fmaxf(ta, tb) : (in_c ? INFINITY : -INFINITY);
-    t_lo = fmaxf(t_lo, lo_c);
-    t_hi = fminf(t_hi, hi_c);
-  }
-  if (!(t_hi >= t_lo)) {  // the ray misses the box
-    i_lo = g.spr;
-    i_hi = -1;
-    return;
-  }
-  const float f_lo = floorf((t_lo - s.clip) / s.ds);
-  const float f_hi = ceilf((t_hi - s.clip) / s.ds);
-  i_lo = max(i_lo, (int)fminf(fmaxf(f_lo, -1.0e9f), 1.0e9f) - 1);
-  i_hi = min(i_hi, (int)fminf(fmaxf(f_hi, -1.0e9f), 1.0e9f) + 1);
+  int a, b;
+  box_span(o, d, lo, hi, pad, s.ds, s.clip, false, a, b);
+  i_lo = max(i_lo, a);
+  i_hi = min(i_hi, b);
 }
 
 }  // namespace

@@ -14,8 +14,13 @@ sources is compared within one machine and one call.  Needs one CUDA GPU.
 Each process times, on chip_smoke.py's inputs (an 8-frame orbit at
 700x700, 500 samples per ray, eps 1e-3, on ``centered_sphere(100)`` and on
 the seeded 182x218x182 volume), K1 per frame; on the latter, K4 at the fit
-path's ortho orbit; and where the tree has them, K1's LUT variant at
-``lut_300`` and its baked variant at ``sobel_lit_700``.  Times are
+path's ortho orbit (eps 0): plain, with TF(0).alpha 0.05 (a fit's steps
+after the first, where every sample off the volume has alpha), and where
+the tree has them LUT (``tf_lut=256``), baked (``sobel_lit_700``), and per
+unit over the segment units of a (2, 2, 1) mesh and the slab units of a
+(1, 2, 2) one; and where the tree has them, K1's LUT variant at
+``lut_300`` and its baked variant at ``sobel_lit_700``.  A tree's K4
+blocks are its own (its wrapper sizes the partials).  Times are
 chip_smoke.py's: CUDA events behind a GPU spin, each window's ms per call.
 It prints one JSON line per process and, last, each tree's windows pooled
 over its runs and their median.
@@ -105,11 +110,33 @@ def measure(tree: str) -> dict:
         out[f"k1_plain/{vname}"] = per_frame(cfg, vol)
     vol = volumes["mni_dims"]
     cam = S.orbit_cameras(P, np.random.default_rng(3), 1)[0]
-    a, _ = march_vjp.prepare_diff(vol, tf, cam, P.RenderConfig(
-        width=S.W, height=S.H, samples_per_ray=S.SPR))
-    g = S.cotangents(a, np.random.default_rng(2))
-    out["k4/mni_dims"] = timed_windows(
-        S, lambda: march_vjp.march_bwd_kernel(a, *g), 5)
+    fit_cfg = P.RenderConfig(width=S.W, height=S.H, samples_per_ray=S.SPR)
+
+    def k4(name, tfx, cfg, shape=None):
+        """Windows of K4 at ``cfg`` (per unit over a mesh of ``shape``)."""
+        kws = [{}] if shape is None else [
+            S.unit_kwargs(vol, cfg, shape, xyz) for xyz in
+            S.mesh_coords(shape)]
+        units = []
+        for kw in kws:
+            a, _ = march_vjp.prepare_diff(vol, tfx, cam, cfg, **kw)
+            units.append((a, S.cotangents(a, np.random.default_rng(2))))
+
+        def run():
+            for a, g in units:
+                march_vjp.march_bwd_kernel(a, *g)
+
+        out[name] = [w / len(units) for w in timed_windows(S, run, 5)]
+
+    k4("k4/mni_dims", tf, fit_cfg)
+    k4("k4_alpha0_0.05/mni_dims", S.tf_with_alpha(P, tf, 0, 0.05), fit_cfg)
+    if hasattr(march, "variant"):  # trees with the LUT and baked variants
+        k4("k4_lut/mni_dims", tf, fit_cfg.replace(tf_lut=256))
+        k4("k4_baked/sobel_lit_700/mni_dims", tf,
+           P.RenderConfig(**S.LIT_CONFIGS["sobel_lit_700"]))
+    if "slab_x" in march.MarchArgs._fields:  # trees with work units
+        k4("k4_segment/(2, 2, 1)/mni_dims", tf, fit_cfg, (2, 2, 1))
+        k4("k4_slab/(1, 2, 2)/mni_dims", tf, fit_cfg, (1, 2, 2))
     if hasattr(march, "variant"):  # trees with the LUT and baked variants
         for cname, var in (("lut_300", "lut"), ("sobel_lit_700", "baked")):
             c = P.RenderConfig(**S.LIT_CONFIGS[cname]).replace(

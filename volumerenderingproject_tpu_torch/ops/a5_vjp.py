@@ -43,10 +43,10 @@ from ..utils.config import RenderConfig
 from ..utils.device import resolve_device
 from . import _build, a5
 from .a5 import S_BG, S_ID0, A5Args
-from .march_vjp import num_blocks
 
 _f32 = torch.float32
 MAX_INTERVALS = 16  # the JAX kernel's limit (a5_diff_config_ok)
+BLOCK = 16  # pixels per edge of the kernel's blocks; one partial per block
 
 # launches of the CUDA kernel since import (or since a caller reset them),
 # and the launches that took a sharded fit's work unit
@@ -168,6 +168,11 @@ def march_a5_bwd_plain(a: A5Args, g_rgb: torch.Tensor,
         acc = acc + torch.cat([cw * g4, (coef * da[..., None])[..., None]],
                               dim=-1)
     return acc.sum(dim=(0, 1))
+
+
+def num_blocks(width: int, height: int) -> int:
+    """Rows of the kernel's partials: one per 16x16 pixel block."""
+    return -(-width // BLOCK) * -(-height // BLOCK)
 
 
 def _kernel_lib() -> ctypes.CDLL:

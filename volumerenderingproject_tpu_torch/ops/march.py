@@ -250,6 +250,71 @@ def _box(dims, depth, x0: int = 0, slab_x: int = 0):
     return lo, hi
 
 
+# the spans' pad (csrc/march_common.cuh kRangePad) and empty span; the
+# kernel's clip is box_span of the box in scal (K4's chain span off a slab)
+RANGE_PAD = 2.0 ** -14
+NO_SAMPLE = 1_000_000_000
+
+
+def span_pad(o: torch.Tensor, d: torch.Tensor, ds: torch.Tensor,
+             clip: torch.Tensor) -> torch.Tensor:
+    """``span_pad`` (csrc/march_common.cuh) of rays ``o``, ``d`` [W, H, 3]
+    -> [W, H] f32: RANGE_PAD (max |o_c| + |clip| + 2), or -1 where the ray,
+    the step or the clip is not finite or the step is not positive."""
+    finite = (torch.isfinite(o).all(-1) & torch.isfinite(d).all(-1)
+              & bool(ds > 0.0 and torch.isfinite(ds)
+                     and torch.isfinite(clip)))
+    pad = RANGE_PAD * ((o.abs().amax(-1) + clip.abs()) + 2.0)
+    return torch.where(finite, pad, -1.0)
+
+
+def box_span(o: torch.Tensor, d: torch.Tensor, lo, hi, pad: torch.Tensor,
+              ds: torch.Tensor, clip: torch.Tensor, inward: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``box_span`` (csrc/march_common.cuh) in its float order: the samples
+    [i_lo, i_hi] of rays ``o``, ``d`` [W, H, 3] that may lie in (``inward``:
+    surely lie in) the box ``lo``, ``hi`` [3] (f32, an infinite bound
+    bounds nothing), widened (narrowed) by ``pad`` [W, H] (:func:`span_pad`)
+    and one sample at each end -> (i_lo, i_hi) int64 [W, H], [NO_SAMPLE,
+    -NO_SAMPLE] where empty."""
+    pad = pad[..., None]
+    lo = lo + pad if inward else lo - pad
+    hi = hi - pad if inward else hi + pad
+    empty = ~(hi >= lo).all(-1)
+    safe = d.abs() > 1e-12
+    dv = torch.where(safe, d, torch.ones_like(d))
+    ta = (lo - o) / dv
+    tb = (hi - o) / dv
+    in_c = (o >= lo) & (o <= hi)
+    inf = torch.full_like(d, float("inf"))
+    lo_c = torch.where(safe, torch.minimum(ta, tb),
+                       torch.where(in_c, -inf, inf))
+    hi_c = torch.where(safe, torch.maximum(ta, tb),
+                       torch.where(in_c, inf, -inf))
+    # fmaxf / fminf: a NaN operand gives the other
+    t_lo = -inf[..., 0]
+    t_hi = inf[..., 0]
+    for c in range(3):
+        t_lo = torch.fmax(t_lo, lo_c[..., c])
+        t_hi = torch.fmin(t_hi, hi_c[..., c])
+    f_lo = (t_lo - clip) / ds
+    f_hi = (t_hi - clip) / ds
+
+    def index(v):  # to_int_clamped
+        return torch.fmin(torch.fmax(v, v.new_tensor(-1e9)),
+                          v.new_tensor(1e9)).to(torch.int64)
+
+    if inward:
+        i_lo = index(torch.ceil(f_lo)) + 1
+        i_hi = index(torch.floor(f_hi)) - 1
+    else:
+        i_lo = index(torch.floor(f_lo)) - 1
+        i_hi = index(torch.ceil(f_hi)) + 1
+    miss = empty | ~(t_hi >= t_lo)
+    return (torch.where(miss, NO_SAMPLE, i_lo),
+            torch.where(miss, -NO_SAMPLE, i_hi))
+
+
 def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
                 early_eps: float, full_march: torch.Tensor,
                 id0: torch.Tensor, x0: int = 0, slab_x: int = 0

@@ -79,7 +79,7 @@ bricks, the baked grids of a fixed light and the scalars are built under
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -93,7 +93,9 @@ from .phong import clip01
 
 _f32 = torch.float32
 MAX_INTERVALS = 16  # the JAX kernel's limit (pallas_march_vjp.py:1538)
-BLOCK = 16  # pixels per edge of the kernel's blocks; one partial per block
+# a block's pixels along y and x (csrc/march_bwd.cu kBlockY, kBlockX); one
+# partial per block
+BLOCK_Y, BLOCK_X = 4, 64
 
 # launches of the CUDA kernel since import (or since a caller reset them),
 # in all and by variant (``march.variant``: plain, lut, baked, lut_baked)
@@ -316,7 +318,7 @@ def _fwd_args(a: MarchArgs) -> MarchArgs:
 
 
 def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
-                    g_t: torch.Tensor) -> torch.Tensor:
+                    g_t: torch.Tensor, per_ray: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel -> dL/dcolors [K, 4]:
     the kernel's two passes with its float order, as a loop over samples
     vectorised over rays, in every variant (interval ids or LUT indices,
@@ -324,7 +326,10 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
     unit's columns, samples and x-slab, where ``g_t`` is the cotangent of
     the unit's own final T and a sample that another slab owns is the over
     identity, in no interval's sums.  Each ray sums its terms per interval
-    in sample order; the rays' sums are added last."""
+    in sample order; the rays' sums are added last.  With ``per_ray`` the
+    same float32 terms are summed per ray in float64 and not over the rays
+    -> [W * H, K, 4] float64 (ray px * H + py): the sums that any float
+    order of the terms approximates."""
     if a.density_scale != 1.0:
         raise ValueError("fold density_scale into the colours first "
                          "(prepare_diff)")
@@ -380,7 +385,8 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
         t = t * (1.0 - alpha)
     bg_term = t * g_t
 
-    acc = torch.zeros((a.width * a.height, k, 4), dtype=_f32, device=dev)
+    acc = torch.zeros((a.width * a.height, k, 4),
+                      dtype=torch.float64 if per_ray else _f32, device=dev)
     zero = torch.zeros((), dtype=_f32, device=dev)
     t = torch.ones(shape, dtype=_f32, device=dev)
     pfx = torch.zeros(shape, dtype=_f32, device=dev)
@@ -401,17 +407,111 @@ def march_bwd_plain(a: MarchArgs, g_rgb: torch.Tensor,
         if owned is not None:  # another slab's sample: no interval's
             terms = torch.where(owned[..., None], terms, zero)
         acc.scatter_add_(1, mid.reshape(-1, 1, 1).expand(-1, 1, 4),
-                         terms.reshape(-1, 1, 4))
-    return acc.sum(dim=0)
+                         terms.reshape(-1, 1, 4).to(acc.dtype))
+    return acc if per_ray else acc.sum(dim=0)
 
 
 def num_blocks(width: int, height: int) -> int:
-    """Rows of the kernel's partials: one per 16x16 pixel block."""
-    return -(-width // BLOCK) * -(-height // BLOCK)
+    """Rows of the kernel's partials: one per block of BLOCK_X x BLOCK_Y
+    pixels."""
+    return -(-width // BLOCK_X) * -(-height // BLOCK_Y)
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("march_bwd")
+def block_sums(per_ray: torch.Tensor, width: int, height: int
+               ) -> torch.Tensor:
+    """Per-ray sums [W * H, K, 4] (ray px * H + py) summed over the
+    kernel's blocks -> [num_blocks, K, 4] in the rows of its partials
+    (block (px // BLOCK_X) * ceil(H / BLOCK_Y) + py // BLOCK_Y)."""
+    k = per_ray.shape[1]
+    x = per_ray.reshape(width, height, k, 4)
+    pw, ph = -width % BLOCK_X, -height % BLOCK_Y
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, ph, 0, pw))
+    return x.reshape((width + pw) // BLOCK_X, BLOCK_X,
+                     (height + ph) // BLOCK_Y, BLOCK_Y, k, 4
+                     ).sum(dim=(1, 3)).reshape(-1, k, 4)
+
+
+class SampleRange(NamedTuple):
+    """Each ray's samples as K4 takes them (``bwd_spans``, csrc/march_bwd.cu),
+    int64 [W, H] each.  The ray visits samples [lo, hi]: the unit's window,
+    on an x-slab within the samples the slab may own (another slab's
+    sample is the over identity, skipped).  Sample i there runs the full
+    chain where ``chain_lo <= i <= chain_hi`` (every sample whose chain
+    gives a voxel) or where it is not surely owned (``i < own_lo`` or
+    ``i > own_hi``; off a slab every sample is owned); every other sample
+    is owned and off the volume: the constant of id0.  The spans are
+    clamped to [lo, hi]; an empty one has lo > hi."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+    chain_lo: torch.Tensor
+    chain_hi: torch.Tensor
+    own_lo: torch.Tensor
+    own_hi: torch.Tensor
+
+    def full(self, i: int) -> torch.Tensor:
+        """bool [W, H]: whether sample i runs the full chain."""
+        return (self.visits(i)
+                & (((i >= self.chain_lo) & (i <= self.chain_hi))
+                   | (i < self.own_lo) | (i > self.own_hi)))
+
+    def visits(self, i: int) -> torch.Tensor:
+        """bool [W, H]: whether the ray takes sample i at all."""
+        return (i >= self.lo) & (i <= self.hi)
+
+
+def sample_range(a: MarchArgs) -> SampleRange:
+    """K4's spans of every ray of march input ``a``, as the kernel computes
+    them in its float order (``bwd_spans`` in csrc/march_bwd.cu, on
+    ``box_span`` in csrc/march_common.cuh).  Used to check and count the
+    spans; :func:`march_bwd_plain` evaluates every sample."""
+    s = a.scal
+    dev = s.device
+    o, d = march._rays(a, a.x_offset, a.full_width)
+    ds, clip = s[march.S_DS], s[march.S_CLIP]
+    shape = (a.width, a.height)
+    lo = torch.full(shape, a.s_start, dtype=torch.int64, device=dev)
+    hi = torch.full(shape, a.s_start + a.spr - 1, dtype=torch.int64,
+                    device=dev)
+    pad = march.span_pad(o, d, ds, clip)
+    finite = pad >= 0.0
+    in_lo, in_hi = lo, hi
+    if a.slab_x:
+        # the slab owns the samples whose x-clamped voxel index lies in
+        # [x0, x0 + slab_x), unbounded on an outer face
+        f = np.float32
+        L = f(max(a.dims))
+        hx = (f(L / 2) - f(a.dims[0] / 2)) + f(a.x0)  # Geom's hg[0] + x0
+        leaf = f(1.0) / f(2 ** a.depth)
+        inf = f(np.inf)
+        olo = [hx / L - f(0.5) if a.x0 > 0 else -inf, -inf, -inf]
+        ohi = [((hx + f(a.slab_x)) / L + leaf) - f(0.5)
+               if a.x0 + a.slab_x < a.dims[0] else inf, inf, inf]
+
+        def span(inward):
+            return march.box_span(o, d,
+                                  torch.tensor(olo, dtype=_f32, device=dev),
+                                  torch.tensor(ohi, dtype=_f32, device=dev),
+                                  pad, ds, clip, inward)
+
+        a_, b_ = span(False)
+        lo = torch.where(finite, torch.maximum(lo, a_), lo)
+        hi = torch.where(finite, torch.minimum(hi, b_), hi)
+        olo[0], ohi[0] = olo[0] + leaf, ohi[0] - leaf  # owned for sure
+        a_, b_ = span(True)
+        in_lo = torch.where(finite, torch.maximum(a_, lo), lo)
+        in_hi = torch.where(finite, torch.minimum(b_, hi), hi)
+    a_, b_ = march.box_span(o, d, s[march.S_BOX_LO:march.S_BOX_LO + 3],
+                            s[march.S_BOX_HI:march.S_BOX_HI + 3], pad, ds,
+                            clip, False)
+    c_lo = torch.where(finite, torch.maximum(a_, lo), lo)
+    c_hi = torch.where(finite, torch.minimum(b_, hi), hi)
+    return SampleRange(lo, hi, c_lo, c_hi, in_lo, in_hi)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of csrc/march_bwd.cu (this tree's or another
+    checkout's), with the C signature of ``vrp_march_bwd_a1`` set."""
     fn = lib.vrp_march_bwd_a1
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -424,10 +524,36 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def _kernel_lib() -> ctypes.CDLL:
+    return bind(_build.load("march_bwd"))
+
+
+def kernel_args(a: MarchArgs, g_rgb: torch.Tensor, g_t: torch.Tensor,
+                partials: torch.Tensor) -> tuple:
+    """The arguments of ``vrp_march_bwd_a1`` but the stream, for march input
+    ``a`` (checked by :func:`march_bwd_kernel`), its cotangents and a
+    partials buffer of at least :func:`num_blocks` rows."""
+    lut = a.itv is not None
+    baked = a.mgrid is not None
+    mc = a.chans is not None
+    return (a.scal.data_ptr(), a.colors.data_ptr(), a.colors.shape[0],
+            a.ids.data_ptr(), a.ids.element_size(),
+            a.itv.data_ptr() if lut else None, a.itv.numel() if lut else 0,
+            a.mgrid.data_ptr() if baked else None,
+            a.sgrid.data_ptr() if baked else None,
+            a.chans.data_ptr() if mc else None,
+            a.chans.shape[0] if mc else 0,
+            *a.dims, a.depth, a.width, a.height, a.spr, int(a.conic),
+            a.x_offset, a.full_width or a.width, a.s_start, a.x0, a.slab_x,
+            g_rgb.data_ptr(), g_t.data_ptr(), partials.data_ptr())
+
+
 def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
-                     g_t: torch.Tensor) -> torch.Tensor:
+                     g_t: torch.Tensor, per_block: bool = False
+                     ) -> torch.Tensor:
     """Launch ``csrc/march_bwd.cu`` on the current stream and sum its
-    per-block partials -> dL/dcolors [K, 4].  The variant follows the args
+    per-block partials -> dL/dcolors [K, 4] (with ``per_block`` the
+    partials themselves, [num_blocks, K, 4]).  The variant follows the args
     (``march.variant``): uint8 interval ids or uint16 LUT indices with
     ``itv``, with baked (M, S) grids or without, or with a 4-D volume's
     channel grids; over a work unit's columns and samples, and an x-slab
@@ -484,15 +610,7 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
                            device=dev)
     with torch.cuda.device(dev):
         err = lib.vrp_march_bwd_a1(
-            a.scal.data_ptr(), a.colors.data_ptr(), k, a.ids.data_ptr(),
-            a.ids.element_size(), a.itv.data_ptr() if lut else None, lut_n,
-            a.mgrid.data_ptr() if baked else None,
-            a.sgrid.data_ptr() if baked else None,
-            a.chans.data_ptr() if mc else None,
-            a.chans.shape[0] if mc else 0,
-            *a.dims, a.depth, a.width, a.height, a.spr, int(a.conic),
-            a.x_offset, a.full_width or a.width, a.s_start, a.x0, a.slab_x,
-            g_rgb.data_ptr(), g_t.data_ptr(), partials.data_ptr(),
+            *kernel_args(a, g_rgb, g_t, partials),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"backward march kernel launch failed: CUDA error "
@@ -501,7 +619,7 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
     variant_launches[march.variant(a)] += 1
     if a.segment:
         shard_launches["slab" if a.slab_x else "segment"] += 1
-    return partials.sum(dim=0)
+    return partials if per_block else partials.sum(dim=0)
 
 
 def _forward(a: MarchArgs):

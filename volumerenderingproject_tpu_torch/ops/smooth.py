@@ -34,7 +34,6 @@ in ``mode="scan"`` (:func:`check_smooth_supported`).
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -210,51 +209,25 @@ def touches_volume(vox: torch.Tensor, dims) -> torch.Tensor:
     return ((vox >= -1.0) & (vox < dimv)).all(dim=-1)
 
 
-RANGE_PAD = 2.0 ** -14  # csrc/smooth_common.cuh kRangePad
-
-
 def sample_range(a: SmoothArgs) -> Tuple[torch.Tensor, torch.Tensor]:
     """(i_lo, i_hi), int64 [W, H]: each ray's samples that may have a
     corner in the volume, as the kernels compute them
-    (``smooth_sample_range``, csrc/smooth_common.cuh), in their float
-    order; i_lo > i_hi where there is none.  The kernels give every sample
-    outside it the RGBA of intensity 0.  Used to check and count that
-    range; the plain versions evaluate every sample."""
+    (``smooth_sample_range``, csrc/smooth_common.cuh, on ``box_span``), in
+    their float order; i_lo > i_hi where there is none.  The kernels give
+    every sample outside it the RGBA of intensity 0.  Used to check and
+    count that range; the plain versions evaluate every sample."""
     s = a.scal
     o, d = march._rays(a)
     ds, clip, L = s[S_DS], s[S_CLIP], s[S_L]
     voff = s[S_VOFF:S_VOFF + 3]
     dims = torch.tensor(a.dims, dtype=_f32, device=s.device)
-    scalars = torch.cat([s[[S_DS, S_CLIP, S_L]], voff])
-    finite = (torch.isfinite(o).all(-1) & torch.isfinite(d).all(-1)
-              & bool(torch.isfinite(scalars).all() and ds > 0.0))
-    mag = o.abs().amax(-1)
-    pad = (RANGE_PAD * ((mag + clip.abs()) + 2.0))[..., None]
-    lo = ((-1.0 - voff) / L - 0.5) - pad
-    hi = ((dims - voff) / L - 0.5) + pad
-    safe = d.abs() > 1e-12
-    dv = torch.where(safe, d, torch.ones_like(d))
-    ta = (lo - o) / dv
-    tb = (hi - o) / dv
-    in_c = (o >= lo) & (o <= hi)
-    inf = torch.full_like(d, math.inf)
-    lo_c = torch.where(safe, torch.minimum(ta, tb),
-                       torch.where(in_c, -inf, inf))
-    hi_c = torch.where(safe, torch.maximum(ta, tb),
-                       torch.where(in_c, inf, -inf))
-    t_lo = lo_c.amax(-1)
-    t_hi = hi_c.amin(-1)
-
-    def index(v):
-        return v.clamp(-1e9, 1e9).to(torch.int64)
-
-    i_lo = (index(torch.floor((t_lo - clip) / ds)) - 1).clamp_min(0)
-    i_hi = (index(torch.ceil((t_hi - clip) / ds)) + 1).clamp_max(a.spr - 1)
-    hit = t_hi >= t_lo  # else the ray misses the box
-    i_lo = torch.where(hit, i_lo, a.spr)
-    i_hi = torch.where(hit, i_hi, -1)
-    return (torch.where(finite, i_lo, 0),
-            torch.where(finite, i_hi, a.spr - 1))
+    pad = march.span_pad(o, d, ds, clip)
+    finite = (pad >= 0.0) & bool(torch.isfinite(L)
+                                 and torch.isfinite(voff).all())
+    i_lo, i_hi = march.box_span(o, d, (-1.0 - voff) / L - 0.5,
+                                (dims - voff) / L - 0.5, pad, ds, clip, False)
+    return (torch.where(finite, i_lo.clamp_min(0), 0),
+            torch.where(finite, i_hi.clamp_max(a.spr - 1), a.spr - 1))
 
 
 def march_smooth_plain(a: SmoothArgs, stats: dict | None = None
