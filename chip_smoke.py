@@ -301,9 +301,29 @@ their own seeds:
      takes 2 ``fit_transfer_function`` steps, after which every rank's
      parameters must be bit-equal, then one step whose gradients, summed
      over the mesh, must lie within TOL_SHARD_SUM of the single-device
-     kernel fit's (of the largest component), then 5 timed steps with each
+     kernel fit's (of the largest component), then 3 timed steps with each
      rank's K1/K3 and K4/K6 launches by work unit set to 0 just before and
      read just after (rank 0's ms/step); then 1 rank through NCCL.
+
+K1's chunks and index width (the brick test's runs of 8 samples; with
+channel grids the march computes the voxels of 8 samples and issues their
+loads together, then composites them in order; 32-bit voxel indices below
+2^31 elements, 64-bit beyond), with its own seeds:
+
+  3s. K1 against ``march_plain``, bit-exact at the same eps: at
+     700x700x500 on both volumes and at ``multichannel_304`` on the
+     3-channel MNI-dims volume, eps 1e-3 under the default TF and eps 0.5
+     with intervals 1-3 at alphas 0.9-0.95, where rays stop on the first,
+     the last and an inner sample of a chunk and spans are not a whole
+     number of chunks (counted from the plain chain on every 4th ray each
+     way, and required to occur); a segment unit whose s_start lies inside
+     a chunk of the whole ray; slabs whose chunks straddle the ownership plane (plain, LUT 256,
+     mc, baked); lit and lut_lit at 500 samples a ray on
+     ``centered_sphere(100)`` at eps 1e-3, where most shaded samples repeat
+     the voxel before them, and lit rays within 1e-7 of parallel to each
+     face of a volume dense on its faces; the kernel's index-width rule
+     against ``march.index32`` at the 2^31 edge, and the plain, lit and mc
+     variants on grids past it.
 
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
@@ -512,7 +532,7 @@ TOL_SHARD_SUM = 1e-4
 # then one step whose gradients are held against the single-device fit's
 # (of the largest component) and timed steps
 SHARD_FIT_STEPS = 2
-SHARD_FIT_TIMED = 5
+SHARD_FIT_TIMED = 3
 TOL_PNG_LEVELS = 1  # sharded vs whole CLI PNG, levels of 8 bits
 PNG_SHARE = 0.01  # and the share of channels that may differ at all
 # timed windows per measurement; the median is reported
@@ -1129,10 +1149,9 @@ def a5_render_phase(P, a5, volumes, tf, rng, per_volume) -> int:
 
 
 def a1_cli_phase(tmp: str, tf, from_text) -> None:
-    """Phases 5 and 5b: the CLI ``render`` must write a valid 700x700 PNG,
-    and ``fit`` against that PNG a TF file that parses."""
-    import torch
-
+    """Phases 5, 5b and 5j: the CLI ``render`` must write a valid 700x700
+    PNG; then, at the same time, ``fit`` against that PNG a TF file that
+    parses, and the sharded render (5j) a PNG that matches it."""
     out = os.path.join(tmp, "sphere.png")
     proc = subprocess.run(
         [sys.executable, "-m", "volumerenderingproject_tpu_torch",
@@ -1143,12 +1162,23 @@ def a1_cli_phase(tmp: str, tf, from_text) -> None:
         f"{proc.stderr.strip()[-2000:]}")
     check(proc.returncode == 0, "cli render failed")
     check_png(out, W, H)
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(a1_cli_fit, tmp, out, tf, from_text),
+                pool.submit(shard_cli_phase, tmp, out)]
+        for job in jobs:
+            job.result()
+
+
+def a1_cli_fit(tmp: str, target: str, tf, from_text) -> None:
+    """Phase 5b: the CLI ``fit`` against the PNG ``target`` must write a TF
+    file that parses."""
+    import torch
 
     out_tf = os.path.join(tmp, "fitted.txt")
     proc = subprocess.run(
         [sys.executable, "-m", "volumerenderingproject_tpu_torch",
          "fit", "--data", "sphere", "--width", str(W), "--height",
-         str(H), "--spr", str(SPR), "--target", out, "--steps", "3",
+         str(H), "--spr", str(SPR), "--target", target, "--steps", "3",
          "--out-tf", out_tf],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     log(f"cli fit exit {proc.returncode}: {proc.stdout.strip()} "
@@ -3950,25 +3980,23 @@ def shard_render_phase(P, launch, shard_worker, volumes, tf, rng, res
     return totals
 
 
-def shard_cli_phase(tmp: str) -> None:
+def shard_cli_phase(tmp: str, whole: str) -> None:
     """Phase 5j: the CLI ``render --mesh rays=2,samples=2 --backend gloo``
-    (4 ranks on the one card) against the whole render's PNG."""
+    (4 ranks on the one card) against ``whole``, the PNG of the same render
+    on one device (phase 5's)."""
     from volumerenderingproject_tpu_torch.utils import imageio
 
-    outs = {}
-    for name, extra in (("whole", []),
-                        ("sharded", ["--mesh", "rays=2,samples=2",
-                                     "--backend", "gloo"])):
-        outs[name] = os.path.join(tmp, f"mesh_{name}.png")
-        proc = subprocess.run(
-            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
-             "render", "--data", "sphere", "--width", str(W), "--height",
-             str(H), "--spr", str(SPR), "--out", outs[name], *extra],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        log(f"cli render {name} exit {proc.returncode}: "
-            f"{proc.stdout.strip()} {proc.stderr.strip()[-2000:]}")
-        check(proc.returncode == 0, f"cli render {name} failed")
-        check_png(outs[name], W, H)
+    outs = {"whole": whole, "sharded": os.path.join(tmp, "mesh_sharded.png")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch",
+         "render", "--data", "sphere", "--width", str(W), "--height",
+         str(H), "--spr", str(SPR), "--out", outs["sharded"], "--mesh",
+         "rays=2,samples=2", "--backend", "gloo"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"cli render sharded exit {proc.returncode}: "
+        f"{proc.stdout.strip()} {proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli render sharded failed")
+    check_png(outs["sharded"], W, H)
     a, b = (np.round(imageio.load_png(outs[k]) * 255.0).astype(np.int32)
             for k in ("whole", "sharded"))
     worst = int(np.abs(a - b).max())
@@ -4380,6 +4408,310 @@ def shard_fit_phase(P, fit, phong, launch, shard_worker, volumes, tf, rng,
     return totals
 
 
+# K1's chunks (csrc/march.cu kChunk): the brick test's grain, and with
+# channel grids the batch of samples whose loads are issued together
+# (kMcBatch) before they are composited in order
+K1_CHUNK = 8
+
+
+def k1_clip(march, a):
+    """K1's clipped window of march input ``a``, per ray: (s_lo, s_hi)
+    int64 [W, H], the unit's samples that may lie in the dataset box
+    (``box_span`` of the box in scal, where the march is not full and the
+    pad is finite), as the kernel takes it; its chunks start at s_lo."""
+    import torch
+
+    s = a.scal
+    o, d = march._rays(a, a.x_offset, a.full_width)
+    shape = (a.width, a.height)
+    lo = torch.full(shape, a.s_start, dtype=torch.int64, device=s.device)
+    hi = torch.full(shape, a.s_start + a.spr - 1, dtype=torch.int64,
+                    device=s.device)
+    if bool(s[march.S_FULL] > 0):
+        return lo, hi
+    ds, clip = s[march.S_DS], s[march.S_CLIP]
+    pad = march.span_pad(o, d, ds, clip)
+    b_lo, b_hi = march.box_span(o, d, s[march.S_BOX_LO:march.S_BOX_LO + 3],
+                                s[march.S_BOX_HI:march.S_BOX_HI + 3], pad,
+                                ds, clip, False)
+    ok = pad >= 0.0
+    return (torch.where(ok, torch.maximum(lo, b_lo), lo),
+            torch.where(ok, torch.minimum(hi, b_hi), hi))
+
+
+def k1_chunk_counts(march, a, stride: int = 4) -> dict:
+    """Where K1's chunks fall on march input ``a``, on every ``stride``-th
+    ray along each image axis, from the plain version's chain and
+    transmittance (march_plain's float order): rays
+    that stop (|T| <= eps) on the first sample of a chunk, on its last and
+    inside it; rays whose clipped span is not a whole number of chunks; on
+    a slab, rays with a chunk that holds samples of this slab and another;
+    the samples inside the volume that a ray composites and those whose
+    voxel is the one it composited last inside the volume (whose shade
+    the in-kernel light computes again)."""
+    import torch
+
+    s = a.scal
+    dev = s.device
+    o, d = (x[::stride, ::stride] for x in march._rays(a, a.x_offset,
+                                                        a.full_width))
+    w, h = o.shape[:2]
+    ids_at = march._sample_ids(a, o, d)
+    alpha = march._effective_colors(a)[:, 3]
+    eps = s[march.S_EPS].clamp_min(0.0)
+    s_lo, s_hi = (x[::stride, ::stride] for x in k1_clip(march, a))
+    t = torch.ones((w, h), dtype=torch.float32, device=dev)
+    stop = torch.full((w, h), -1, dtype=torch.int64, device=dev)
+    straddle = torch.zeros((w, h), dtype=torch.bool, device=dev)
+    last_voxel = torch.full((w, h, 3), -1, dtype=torch.int64, device=dev)
+    owned_prev = None
+    inside = repeats = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(a.s_start, a.s_start + a.spr):
+        active = t.abs() > eps
+        mid, valid, _, ijk = ids_at(i)
+        if a.slab_x:
+            owned = march.owned_by(a, ijk)
+            if owned_prev is not None:  # samples i - 1 and i in one chunk
+                one_chunk = (i > s_lo) & (i <= s_hi) & ((i - s_lo)
+                                                        % K1_CHUNK != 0)
+                straddle |= one_chunk & (owned != owned_prev)
+            owned_prev = owned
+            active = active & owned
+        shaded = active & valid
+        inside = inside + shaded.sum()
+        repeats = repeats + (shaded & (ijk == last_voxel).all(-1)).sum()
+        last_voxel = torch.where(shaded[..., None], ijk, last_voxel)
+        t_next = torch.where(active, t * (1.0 - alpha[mid]), t)
+        stop = torch.where(active & ~(t_next.abs() > eps) & (stop < 0), i,
+                           stop)
+        t = t_next
+    at = (stop - s_lo) % K1_CHUNK
+    ended = stop >= 0
+    span = s_hi - s_lo + 1
+    return dict(
+        stop_first=int((ended & (at == 0)).sum()),
+        stop_last=int((ended & (at == K1_CHUNK - 1)).sum()),
+        stop_inside=int((ended & (at > 0) & (at < K1_CHUNK - 1)).sum()),
+        ragged_spans=int(((span > 0) & (span % K1_CHUNK != 0)).sum()),
+        straddling=int(straddle.sum()), inside=int(inside),
+        repeats=int(repeats))
+
+
+# K1's index width at the edge of 2^31 (tests/test_torch_march_chain.py
+# holds ops/march.index32 there): (dims, slab_x, channel grids, lit)
+INDEX32_EDGES = (
+    ((2**31 - 3, 1, 1), 0, 0, False), ((2**31 - 2, 1, 1), 0, 0, False),
+    ((2**31 - 2, 1, 1), 0, 0, True), ((1289, 1290, 1290), 0, 0, False),
+    ((1290, 1290, 1290), 0, 0, False), ((1290, 1290, 1290), 645, 0, False),
+    ((1290, 1290, 1290), 0, 0, True), ((716, 1000, 1000), 0, 1, False),
+    ((716, 1000, 1000), 0, 3, False), ((715, 1000, 1000), 0, 3, False),
+    ((1000, 1000, 1000), 500, 3, False))
+
+
+def index32_check(march, a) -> int:
+    """The kernel's index-width rule (``vrp_march_a1_index32``) against its
+    mirror ``march.index32`` on INDEX32_EDGES -> the cases that take 64
+    bits.  ``a`` is any march input (the rule reads the shapes only)."""
+    import ctypes
+
+    import torch
+
+    fn = march._kernel_lib().vrp_march_a1_index32
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    wide = 0
+    for dims, slab_x, chans, lit in INDEX32_EDGES:
+        b = a._replace(dims=dims, slab_x=slab_x,
+                       chans=torch.zeros((chans, 1, 1, 1)) if chans else None,
+                       vol=torch.zeros(1) if lit else None)
+        got = bool(fn(*dims, slab_x, chans, int(lit)))
+        check(got == march.index32(b), f"3s index width of {dims} slab "
+              f"{slab_x} chans {chans} lit {lit}: kernel {got}")
+        wide += not got
+    log(f"3s index width: the kernel's rule equals ops/march.index32 on "
+        f"{len(INDEX32_EDGES)} cases at the 2^31 edge ({wide} take 64 bits)")
+    return wide
+
+
+def wide_grid_args(P, march, variant: str, dims):
+    """A march input on a grid past 32-bit indices: seeded random interval
+    ids of the default TF, every brick occupied, 64x48 rays of 64 samples
+    across the whole grid at eps 0; ``variant`` "plain", "mc" (3 seeded
+    channel grids) or "lit" (conic rays, a seeded raw volume)."""
+    import torch
+
+    from volumerenderingproject_tpu_torch.ops.phong import default_light
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(71)
+    tf = P.default_transfer_function()
+    ids = torch.randint(0, tf.num_intervals, dims, generator=gen,
+                        dtype=torch.uint8, device=dev)
+    nb = tuple(-(-n // march.BRICK) for n in dims)
+    occ = torch.ones(math.prod(nb), dtype=torch.int32, device=dev)
+    depth = 0  # Volume.octree_depth
+    while 2**depth < max(dims):
+        depth += 1
+    cfg = P.RenderConfig(width=64, height=48, samples_per_ray=64,
+                         conic=variant == "lit")
+    cam = P.Camera.initial(position=(0.9, 0.5, 1.0))
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    scal = march.scal_vector(cam, cfg, dims, depth,
+                             torch.tensor(255.0, device=dev), 0.0,
+                             zero.bool(), zero)
+    a = march.MarchArgs(scal=scal, colors=tf.colors.contiguous(), ids=ids,
+                        occ=occ, nbricks=nb, dims=dims, depth=depth,
+                        width=cfg.width, height=cfg.height,
+                        spr=cfg.samples_per_ray, conic=cfg.conic,
+                        density_scale=1.0)
+    if variant == "mc":
+        a = a._replace(chans=torch.rand((3,) + dims, generator=gen,
+                                        device=dev))
+    elif variant == "lit":
+        a = a._replace(vol=torch.rand(dims, generator=gen, device=dev),
+                       lvec=march.light_vector(default_light(dev)))
+    return a
+
+
+def k1_chunk_phase(P, march, march_vjp, phong, volumes, mc_vols, tf
+                   ) -> None:
+    """Phase 3s: K1 against march_plain, bit-exact at the same eps, where
+    its chunks (the brick test's runs, and with channel grids the batches
+    of loads) could go wrong: rays that stop on the first, the last and an
+    inner sample of a chunk (eps 1e-3 under the default TF, eps 0.5 with
+    the alphas of intervals 1-3 at 0.9, 0.95 and 0.9, at 700x700x500 on
+    both volumes and at ``multichannel_304`` on the 3-channel MNI-dims
+    volume), spans that are not a whole number of chunks, a segment unit
+    (350 columns, up to 150 samples) whose s_start, 3 samples past the
+    median ray's first, lies inside a chunk of many rays, slabs (planes
+    91-181 and 60-119) whose chunks straddle the ownership plane (plain,
+    LUT 256 and mc at eps 1e-3, baked at ``sobel_lit_700`` and eps 0), the
+    in-kernel light at 500 samples a ray on ``centered_sphere(100)`` at
+    eps 1e-3 (phase 3o holds it at eps 0), where a ray's samples repeat a
+    voxel, and at the volume's faces (rays within 1e-7 of parallel to each
+    face of a volume dense on its faces).  Each kind of case must occur
+    (``k1_chunk_counts``, on every 4th ray each way).  Then the index width: the kernel's rule against
+    ``march.index32`` at the 2^31 edge, and the plain, lit and mc variants
+    on grids past it (1300^3 ids and volume; 3 x 800e6 channel voxels),
+    whose rays read at indices past 2^31, bit-exact at eps 0."""
+    import torch
+
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR)
+    lit = P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"])
+    high = tf
+    for k, alpha in ((1, 0.9), (2, 0.95), (3, 0.9)):  # TF(0).alpha stays 0
+        high = tf_with_alpha(P, high, k, alpha)
+    cam = orbit_cameras(P, np.random.default_rng(60), 1)[0]
+    total = {}
+
+    def add(label, a, counts=True):
+        if a.segment:
+            seg_exact(march.march_kernel, march.march_plain, label, a)
+        else:
+            exact_vs_plain(march.march_kernel, march.march_plain, label, a)
+        if not counts:
+            return {}
+        n = k1_chunk_counts(march, a)
+        log(f"{label}: chunk counts {n}")
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        return n
+
+    for vname, vol in volumes.items():
+        for tname, tfx, eps in (("default", tf, 1e-3),
+                                ("high_alpha", high, 0.5)):
+            add(f"3s {vname}/{tname} eps {eps:g}", march.prepare(
+                vol, tfx, cam, cfg.replace(early_termination=eps), eps))
+    # the channel grids' batches of K1_CHUNK samples, on a slab too
+    mc = P.RenderConfig(**MC_SHAPE)
+    mni3 = mc_vols["mni3_182x218x182"]
+    for tname, tfx, eps in (("default", tf, 1e-3), ("high_alpha", high, 0.5)):
+        add(f"3s mni3/mc {tname} eps {eps:g}", march.prepare(
+            mni3, tfx, cam, mc.replace(early_termination=eps), eps))
+    for name in ("stop_first", "stop_last", "stop_inside", "ragged_spans"):
+        check(total.get(name, 0) > 0, f"3s: no ray with {name}")
+
+    vol = volumes["mni_dims_182x218x182"]
+    whole = march.prepare(vol, tf, cam, cfg, 1e-3)
+    half = W // 2
+    lo_whole, hi_whole = (x[half:] for x in k1_clip(march, whole))
+    # a window that starts 3 samples past the median ray's first sample
+    s0 = int(lo_whole[hi_whole >= lo_whole].median()) + 3
+    count = min(SPR - s0, SPR * 3 // 10)
+    mid_chunk = int(((lo_whole < s0) & ((s0 - lo_whole) % K1_CHUNK != 0))
+                    .sum())
+    log(f"3s segment unit s_start {s0}: {mid_chunk} of {lo_whole.numel()} "
+        f"rays have it inside a chunk of the whole ray")
+    check(mid_chunk > 0, "3s: no ray with s_start inside a chunk")
+    for eps in (1e-3, 0.0):
+        add(f"3s mni/segment s_start {s0} eps {eps:g}", march.prepare(
+            vol, tf, cam, cfg.replace(early_termination=eps), eps,
+            x_offset=half, local_width=W - half, s_start=s0, s_count=count,
+            segment=True), counts=False)
+
+    def slabs(d1):  # from the middle plane, and the middle third
+        return ((d1 // 2, d1 - d1 // 2), (d1 // 3, d1 // 3))
+
+    straddling = 0
+    for (x0, nx), (m0, mx) in zip(slabs(vol.dims[0]), slabs(mni3.dims[0])):
+        name = f"slab_{x0}_{nx}"
+        for tname, c in (("", cfg), ("_lut256", cfg.replace(tf_lut=256))):
+            straddling += add(f"3s mni/{name}{tname} eps 1e-3",
+                              march.prepare(vol, tf, cam, c, 1e-3, x0=x0,
+                                            slab_x=nx, segment=True)
+                              )["straddling"]
+        a = march_vjp.prepare_diff(vol, tf, cam, lit, x0=x0, slab_x=nx,
+                                   segment=True)[0]
+        straddling += add(f"3s mni/baked {name} eps 0", a)["straddling"]
+        straddling += add(f"3s mni3/mc slab_{m0}_{mx} eps 1e-3", march.prepare(
+            mni3, tf, cam, mc, 1e-3, x0=m0, slab_x=mx, segment=True)
+        )["straddling"]
+    check(straddling > 0, "3s: no chunk straddles a slab's plane")
+
+    sphere = volumes["sphere100"]
+    conic = P.RenderConfig(**CONIC_LIT)
+    light = colour_light(phong)
+    repeats = inside = 0
+    # phase 3o holds them at eps 0, and ortho rays under a light colour
+    for name, c in (("conic", conic), ("conic_lut256",
+                                       conic.replace(tf_lut=256))):
+        n = add(f"3s sphere100/lit {name} eps 1e-3", march.prepare(
+            sphere, tf, cam, c.replace(early_termination=1e-3), 1e-3))
+        repeats, inside = repeats + n["repeats"], inside + n["inside"]
+    log(f"3s sphere100 lit: {repeats} of {inside} shaded samples repeat "
+        f"the voxel shaded before them ({repeats / max(inside, 1):.3f})")
+    check(repeats > 0, "3s: no lit sample repeats a voxel")
+    faces = faces_volume(P)
+    near = P.Camera.initial(position=(0.35, 0.45, 0.85))
+    small = P.RenderConfig(width=61, height=37, samples_per_ray=37,
+                           lighting=True, conic=True)
+    for face, side in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        a = march.prepare(faces, tf, near, small, 0.0, light=light)
+        add(f"3s faces/lit near_parallel_face{face}_{side}",
+            near_parallel_args(march, a, face, side, 1e-7), counts=False)
+
+    # the index width: the rule at the 2^31 edge, then grids past it
+    check(index32_check(march, whole) > 0, "3s: no case takes 64 bits")
+    for variant, dims in (("plain", (1300, 1300, 1300)),
+                          ("lit", (1300, 1300, 1300)),
+                          ("mc", (800, 1000, 1000))):
+        a = wide_grid_args(P, march, variant, dims)
+        check(not march.index32(a), f"3s {variant} {dims}: 32-bit")
+        o, d = march._rays(a)
+        ids_at = march._sample_ids(a, o, d)
+        # the last channel grid starts (channels - 1) grids in
+        edge = 2**31 - (2 if variant == "mc" else 0) * math.prod(dims)
+        past = sum(int((v & (f >= edge)).sum()) for v, f in (
+            ids_at(i)[1:3] for i in range(a.spr)))
+        log(f"3s {variant} {dims}: {past} samples read at indices past 2^31")
+        check(past > 0, f"3s {variant} {dims}: no sample past 2^31")
+        del ids_at
+        add(f"3s {variant} {dims} (64-bit indices) eps 0", a, counts=False)
+        del a
+        torch.cuda.empty_cache()
+
+
 class PhaseClock:
     """Prints each phase's seconds on a line of its own."""
 
@@ -4743,6 +5075,10 @@ def main(argv) -> int:
         np.random.default_rng(54), shard_fit_res, libs)
     clock("3r K1 baked slab, K4 segment and slab, K6 segment vs plain")
 
+    # ---- 3s. K1's chunks and index width vs plain ----------------------------
+    k1_chunk_phase(P, march, march_vjp, phong, volumes, mc_vols, tf)
+    clock("3s K1's chunks and index width vs plain")
+
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)
     frames = 0
@@ -4817,7 +5153,7 @@ def main(argv) -> int:
     # ---- 5-5g. the CLI: its chains of processes run together, since each
     # process spends most of its time starting up ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        chains = [lambda: a1_cli_phase(tmp, tf, from_text),  # 5, 5b
+        chains = [lambda: a1_cli_phase(tmp, tf, from_text),  # 5, 5b, 5j
                   lambda: a5_cli_phase(tmp, tf, from_text),  # 5c, 5d
                   lambda: lit_cli_phase(tmp),  # 5e
                   lambda: smooth_cli_phase(tmp, tf, from_text),  # 5f
@@ -4825,8 +5161,7 @@ def main(argv) -> int:
                   lambda: scatter_cli_phase(tmp, from_text),  # 5h
                   lambda: mc_cli_phase(  # 5i
                       tmp, mc_vols["bench3_91"].data.cpu().numpy(),
-                      from_text),
-                  lambda: shard_cli_phase(tmp)]  # 5j
+                      from_text)]
         with ThreadPoolExecutor(len(chains)) as pool:
             for job in [pool.submit(c) for c in chains]:
                 job.result()

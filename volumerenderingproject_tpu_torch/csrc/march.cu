@@ -25,7 +25,7 @@
 // LUT composes with baked or in-kernel light.  The same kernel takes the
 // volumes that the TPU kernel's streamed modes (K2: HBM->VMEM x-blocks, u8
 // (M, S)) stage block by block: here the whole volume stays in device
-// memory and voxel indices are 64-bit.
+// memory, and grids past 2^31 elements take 64-bit voxel indices.
 //
 // A sharded render (parallel/render_dist.py) launches it once per rank on
 // that rank's work unit (`render_vrc_pallas_segment`, pallas_march.py:1837):
@@ -56,33 +56,49 @@
 //      parallel to a face lost samples that have a voxel)
 //   -> for each run of kChunk samples, skip it when every 8^3 brick its
 //      voxel box touches is transparent
-//   -> per sample: modelAux (+0.5) -> octree nearest voxel -> colour id ->
-//      RGBA from shared memory [-> rgb * M + S] -> C += T*a*rgb,
-//      T *= 1 - a
+//   -> in batches of kBatch samples: each sample's voxel, modelAux (+0.5)
+//      -> octree nearest voxel, and its loads (id [, M and S] [, the
+//      channels]), issued together; then in order per sample: RGBA from
+//      shared memory [-> rgb * M + S | the channels | the shade] ->
+//      C += T*a*rgb, T *= 1 - a
 //   -> stop before the first sample with |T| <= eps (a sample of alpha
 //      > 1 makes T negative, and the ray goes on compositing)
 //   -> out = (C + T * background, 1).
 // Every skip is exact (a skipped sample has alpha 0; shading never touches
 // alpha); all of them turn off when the alpha of id0 is not 0 (scal[4]
-// set), since samples off the volume then change (C, T).
+// set), since samples off the volume then change (C, T).  A batch loads
+// samples past the one where the ray stops and drops them, so the result
+// is the per-sample loop's, bit for bit.
 //
-// What bounds it on an H100: operations, not bytes.  The id grid takes one
+// What bounds it on an H100: issuing instructions.  The id grid takes one
 // byte per voxel (7.2 MB at 182x218x182) and stays in the 50 MB L2; the
-// image is 16 bytes per ray.  Each sample costs some forty float and integer
-// operations and one dependent byte load, so the time goes to issuing those
-// operations and to the latency of the load chain.  The design answers
-// with 16x16 pixel blocks (neighbouring rays read neighbouring voxels, so a
-// warp's loads share cache lines), colours in shared memory, a one-byte grid
-// that the caches hold whole, and the box clip, brick skip and early
-// termination, which drop samples that cannot change the image.  The baked
-// variants are bound by bytes instead: M and S take 8 bytes per voxel (58 MB
-// at 182x218x182, more than L2 holds), read per sample inside the volume
-// beside the id; neighbouring rays read neighbouring voxels of them too.
-// The LUT variants' uint16 grid takes two bytes a voxel.  The in-kernel
-// light reads the f32 volume (29 MB at 182x218x182) at six neighbours of
-// each sample inside the volume and spends some 50 float operations and a
-// powf on its shade; the channel grids take 4 bytes a voxel each, read at
-// the sample's voxel like M and S.
+// image is 16 bytes per ray.  Each visited sample issues the 38 float
+// operations the bound counts, the comparisons, conversions, index
+// arithmetic and loop control around them, and one byte load, and at
+// 32-48 registers enough warps share an SM to hide the loads' latency:
+// the time is the instructions of every sample a warp visits, which is
+// the union of its rays' spans.  So the design cuts instructions and the
+// union: the chain multiplies by the exact 1 / 2^depth where the
+// reference divides (march_common.cuh; without the three IEEE division
+// routines a sample K1 took a quarter less time), voxel indices are
+// 32-bit wherever the grids allow (vrp_march_a1_index32; 64-bit beyond),
+// a block is 4 x 64 pixels (a warp 4 x 8, whose rays' spans differ less
+// than a 16 x 2 warp's), colours sit in shared memory, and the box clip,
+// brick skip and early termination drop samples that cannot change the
+// image.  Batching a sample's loads ahead of compositing pays only where a
+// sample issues several loads, so kBatch is 8 with the channel grids
+// (three or four loads a sample) and 1 elsewhere: a batch holds its
+// samples' ids and operands in registers, and at 8 for every variant the
+// registers (60-100) cut the warps an SM holds and K1 ran slower
+// (PERF.md, PR 13).  The baked
+// variants also move bytes: M and S take 8 bytes per voxel (58 MB at
+// 182x218x182, more than L2 holds), read per sample inside the volume
+// beside the id.  The in-kernel light reads the f32 volume (29 MB at
+// 182x218x182) at six neighbours of each sample inside the volume, loads
+// issued together, and spends some 50 float operations and a powf on its
+// shade; reusing the shade of a repeated voxel ran slower, since a
+// warp's other rays shade on (SIMT).  The channel grids take 4 bytes a
+// voxel each, read at the sample's voxel like M and S.
 //
 // Ray setup and the sample -> voxel -> id chain are in march_common.cuh,
 // shared with the backward march (march_bwd.cu).
@@ -91,7 +107,11 @@
 
 namespace {
 
-constexpr int kChunk = 8;          // samples per brick-occupancy test
+constexpr int kChunk = 8;  // samples per brick-occupancy test
+// pixels a block, y x x (threadIdx.x runs along y)
+constexpr int kBlockY = 4, kBlockX = 64;
+constexpr int kThreads = kBlockY * kBlockX;
+constexpr int kMcBatch = 8;  // samples a batch of loads with channel grids
 constexpr int kBrick = 8;          // brick edge in voxels
 constexpr int kMaxIntervals = 256;  // uint8 interval ids
 constexpr int kMaxLut = 1024;       // uint16 LUT indices (tf_lut <= 1024)
@@ -118,8 +138,8 @@ __device__ bool chunk_occupied(int i0, int i1, const float o[3],
     const float alo = fmaxf(plo, 0.0f);
     const float ahi = fminf(phi, 1.0f - 5.9604645e-8f);  // 1 - 2^-24
     if (!(alo <= ahi)) return false;
-    const float rlo = fmaxf((floorf(alo * g.n) / g.n) * g.L, g.hg[c]);
-    const float rhi = fminf((floorf(ahi * g.n) / g.n) * g.L, g.hg_hi[c]);
+    const float rlo = fmaxf((floorf(alo * g.n) * g.inv_n) * g.L, g.hg[c]);
+    const float rhi = fminf((floorf(ahi * g.n) * g.inv_n) * g.L, g.hg_hi[c]);
     if (!(rlo < g.hg_hi[c]) || !(rhi >= g.hg[c])) return false;
     int ilo = (int)truncf((rlo + g.halfd[c]) - g.halfL);
     int ihi = (int)truncf((rhi + g.halfd[c]) - g.halfL);
@@ -142,34 +162,41 @@ __device__ bool chunk_occupied(int i0, int i1, const float o[3],
 
 // The zero-padded neighbour of a sample's voxel `flat` along one axis: the
 // voxel `step` away in flat order when its index `idx` on that axis lies in
-// [0, dim), else 0 (conv3d's zero padding, pallas_march.py:524-546).
+// [0, dim), else 0 (conv3d's zero padding, pallas_march.py:524-546).  The
+// load is unconditional (the address is clamped into the volume), so the
+// six loads of a shade are in flight together.
+template <typename Idx>
 __device__ __forceinline__ float neighbour(const float* __restrict__ vol,
-                                           long long flat, long long step,
-                                           int idx, int dim, long long last) {
-  if (idx < 0 || idx >= dim) return 0.0f;
-  long long f = flat + step;
+                                           Idx flat, Idx step, int idx,
+                                           int dim, Idx last) {
+  Idx f = flat + step;
   f = f < 0 ? 0 : (f > last ? last : f);
-  return __ldg(vol + f);
+  const float v = __ldg(vol + f);
+  return (idx < 0 || idx >= dim) ? 0.0f : v;
 }
 
 // Blinn-Phong of a sample inside the volume, in the TPU kernel's float
 // order (pallas_march.py:594-620): l = light[0:3] (unit), colour
 // light[3:6], ambient, diffuse, specular, shininess light[6:10]; (hx, hy,
 // hz) = l - d and hinv = 1 / max(|h|, 1e-8) are the ray's.
+template <typename Idx>
 __device__ __forceinline__ void shade(float4& col,
                                       const float* __restrict__ vol,
-                                      long long flat, const int ijk[3],
-                                      const Geom& g, long long last,
+                                      Idx flat, const int ijk[3],
+                                      const Geom& g, Idx last,
                                       const float* s_light, float hx,
                                       float hy, float hz, float hinv) {
-  const long long sx = (long long)g.dim[1] * g.dim[2];
-  const long long sy = g.dim[2];
-  const float gx = 0.5f * (neighbour(vol, flat, sx, ijk[0] + 1, g.dim[0], last) -
-                           neighbour(vol, flat, -sx, ijk[0] - 1, g.dim[0], last));
-  const float gy = 0.5f * (neighbour(vol, flat, sy, ijk[1] + 1, g.dim[1], last) -
-                           neighbour(vol, flat, -sy, ijk[1] - 1, g.dim[1], last));
-  const float gz = 0.5f * (neighbour(vol, flat, 1, ijk[2] + 1, g.dim[2], last) -
-                           neighbour(vol, flat, -1, ijk[2] - 1, g.dim[2], last));
+  const Idx sx = (Idx)g.dim[1] * g.dim[2];
+  const Idx sy = g.dim[2];
+  const float xp = neighbour(vol, flat, sx, ijk[0] + 1, g.dim[0], last);
+  const float xm = neighbour(vol, flat, -sx, ijk[0] - 1, g.dim[0], last);
+  const float yp = neighbour(vol, flat, sy, ijk[1] + 1, g.dim[1], last);
+  const float ym = neighbour(vol, flat, -sy, ijk[1] - 1, g.dim[1], last);
+  const float zp = neighbour(vol, flat, (Idx)1, ijk[2] + 1, g.dim[2], last);
+  const float zm = neighbour(vol, flat, (Idx)-1, ijk[2] - 1, g.dim[2], last);
+  const float gx = 0.5f * (xp - xm);
+  const float gy = 0.5f * (yp - ym);
+  const float gz = 0.5f * (zp - zm);
   const float nn = sqrtf((gx * gx + gy * gy) + gz * gz);
   const float ninv = 1.0f / fmaxf(nn, 1e-8f);
   const float nx = gx * ninv, ny = gy * ninv, nz = gz * ninv;
@@ -190,8 +217,9 @@ __device__ __forceinline__ void shade(float4& col,
 
 // kMc: the number of channel grids (0: none; 1: grey; 3: rgb); kSlab: the
 // grids hold an x-slab (no in-kernel light)
-template <typename Id, bool kBaked, bool kLit, int kMc, bool kSlab>
-__global__ void __launch_bounds__(256)
+template <typename Id, bool kBaked, bool kLit, int kMc, bool kSlab,
+          typename Idx>
+__global__ void __launch_bounds__(kThreads)
 march_a1_kernel(const float* __restrict__ scal,
                 const float* __restrict__ colors, int num_colors,
                 const Id* __restrict__ ids, const int32_t* __restrict__ occ,
@@ -203,6 +231,11 @@ march_a1_kernel(const float* __restrict__ scal,
                 int scale_alpha, float density_scale, int segment,
                 float* __restrict__ out) {
   static_assert(!kSlab || !kLit, "a slab takes no in-kernel light");
+  // samples whose loads are issued together: the channel grids' (three or
+  // four loads a sample); one elsewhere
+  constexpr int kBatch = kMc > 0 ? kMcBatch : 1;
+  // plain and LUT: a sample reads its id alone
+  constexpr bool kIdOnly = !kBaked && !kLit && kMc == 0 && !kSlab;
   __shared__ float4 s_col[sizeof(Id) == 1 ? kMaxIntervals : kMaxLut];
   __shared__ float s_light[kLit ? 10 : 1];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -218,8 +251,8 @@ march_a1_kernel(const float* __restrict__ scal,
   __syncthreads();
 
   // threadIdx.x runs along y: out is [W, H, 4], y fastest
-  const int py = blockIdx.x * blockDim.x + threadIdx.x;
-  const int px = blockIdx.y * blockDim.y + threadIdx.y;
+  const int py = blockIdx.x * kBlockY + threadIdx.x;
+  const int px = blockIdx.y * kBlockX + threadIdx.y;
   if (px >= g.width || py >= g.height) return;
 
   float o[3], d[3];
@@ -230,7 +263,8 @@ march_a1_kernel(const float* __restrict__ scal,
   const float eps = fmaxf(scal[S_EPS], 0.0f);
   const bool full = scal[S_FULL] > 0.0f;
   const int id0 = (int)scal[S_ID0];
-  const long long nvox = (long long)g.dim[0] * g.dim[1] * g.dim[2];
+  // voxels a grid holds (the slab's planes on a slab): the channel stride
+  const Idx nvox = (Idx)(kSlab ? g.nx : g.dim[0]) * g.dim[1] * g.dim[2];
 
   // the in-kernel light's half vector h = l - d (the view direction is -d)
   float hx = 0.0f, hy = 0.0f, hz = 0.0f, hinv = 0.0f;
@@ -263,63 +297,76 @@ march_a1_kernel(const float* __restrict__ scal,
     const int s1 = min(s0 + kChunk - 1, s_hi);
     if (!full && !chunk_occupied<kSlab>(s0, s1, o, d, ds, clip, g, occ))
       continue;
-    for (int i = s0; i <= s1; ++i) {
-      if (!(fabsf(t) > eps)) break;
-      float4 col;
-      if constexpr (kSlab) {
-        const long long flat = sample_voxel_slab(i, o, d, ds, clip, g);
-        if (flat == -2) continue;  // another slab's sample
-        col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
-        if constexpr (kBaked) {  // the slab's planes of the whole bake
-          const float m = flat < 0 ? 1.0f : __ldg(mgrid + flat);
-          const float sh = flat < 0 ? 0.0f : __ldg(sgrid + flat);
-          col.x = col.x * m + sh;
-          col.y = col.y * m + sh;
-          col.z = col.z * m + sh;
-        }
-        if constexpr (kMc > 0) {
-          const long long nslab = (long long)g.nx * g.dim[1] * g.dim[2];
-          col.x = flat < 0 ? 0.0f : __ldg(chans + flat);
-          if constexpr (kMc == 1) {
-            col.y = col.z = col.x;
+    for (int b0 = s0; b0 <= s1 && fabsf(t) > eps; b0 += kBatch) {
+      // 1. the voxels of kBatch samples, and their loads, in flight
+      // together: the id (-1 for a sample that another slab owns), and M
+      // and S, or the channels, or the voxel's indices for the light
+      int id[kBatch];
+      float m[kBaked ? kBatch : 1], sh[kBaked ? kBatch : 1];
+      float ch[kMc > 0 ? kMc : 1][kBatch];
+      Idx lflat[kLit ? kBatch : 1];
+      int vox[kLit ? kBatch : 1][3];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = b0 + j;
+        if (i > s1) break;
+        if constexpr (kIdOnly) {  // the chain returns the id itself
+          id[j] = sample_id<Id, Idx>(i, o, d, ds, clip, g, ids, id0);
+        } else {
+          Idx flat;
+          if constexpr (kSlab) {
+            flat = sample_voxel_slab<Idx>(i, o, d, ds, clip, g);
+          } else if constexpr (kLit) {
+            flat = sample_voxel_ijk<Idx>(i, o, d, ds, clip, g, vox[j]);
+            lflat[j] = flat;
           } else {
-            col.y = flat < 0 ? 0.0f : __ldg(chans + nslab + flat);
-            col.z = flat < 0 ? 0.0f : __ldg(chans + 2 * nslab + flat);
+            flat = sample_voxel<Idx>(i, o, d, ds, clip, g);
+          }
+          id[j] = flat == -2 ? -1 : id0;
+          if (flat >= 0) id[j] = (int)__ldg(ids + flat);
+          if constexpr (kBaked) {  // M = 1, S = 0 off the volume
+            m[j] = flat < 0 ? 1.0f : __ldg(mgrid + flat);
+            sh[j] = flat < 0 ? 0.0f : __ldg(sgrid + flat);
+          }
+          if constexpr (kMc > 0) {  // rgb 0 off the volume
+#pragma unroll
+            for (int c = 0; c < kMc; ++c)
+              ch[c][j] = flat < 0 ? 0.0f : __ldg(chans + c * nvox + flat);
           }
         }
-      } else if constexpr (kBaked) {
-        const long long flat = sample_voxel(i, o, d, ds, clip, g);
-        col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
-        const float m = flat < 0 ? 1.0f : __ldg(mgrid + flat);
-        const float sh = flat < 0 ? 0.0f : __ldg(sgrid + flat);
-        col.x = col.x * m + sh;
-        col.y = col.y * m + sh;
-        col.z = col.z * m + sh;
-      } else if constexpr (kLit) {
-        int ijk[3];
-        const long long flat = sample_voxel_ijk(i, o, d, ds, clip, g, ijk);
-        col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
-        // off the volume the normal is 0, so w = 0 and rgb stays
-        if (flat >= 0)
-          shade(col, vol, flat, ijk, g, nvox - 1, s_light, hx, hy, hz, hinv);
-      } else if constexpr (kMc > 0) {
-        const long long flat = sample_voxel(i, o, d, ds, clip, g);
-        col = s_col[flat < 0 ? id0 : (int)__ldg(ids + flat)];
-        col.x = flat < 0 ? 0.0f : __ldg(chans + flat);
-        if constexpr (kMc == 1) {
-          col.y = col.z = col.x;
-        } else {
-          col.y = flat < 0 ? 0.0f : __ldg(chans + nvox + flat);
-          col.z = flat < 0 ? 0.0f : __ldg(chans + 2 * nvox + flat);
-        }
-      } else {
-        col = s_col[sample_id(i, o, d, ds, clip, g, ids, id0)];
       }
-      const float w = t * col.w;
-      cr = cr + w * col.x;
-      cg = cg + w * col.y;
-      cb = cb + w * col.z;
-      t = t * (1.0f - col.w);
+      // 2. composite them in order, up to the first sample with |T| <= eps
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (b0 + j > s1 || !(fabsf(t) > eps)) break;
+        if constexpr (kSlab) {
+          if (id[j] < 0) continue;  // another slab's sample
+        }
+        float4 col = s_col[id[j]];
+        if constexpr (kBaked) {
+          col.x = col.x * m[j] + sh[j];
+          col.y = col.y * m[j] + sh[j];
+          col.z = col.z * m[j] + sh[j];
+        }
+        if constexpr (kMc == 1) {
+          col.x = col.y = col.z = ch[0][j];
+        } else if constexpr (kMc == 3) {
+          col.x = ch[0][j];
+          col.y = ch[1][j];
+          col.z = ch[2][j];
+        }
+        if constexpr (kLit) {
+          // off the volume the normal is 0, so w = 0 and rgb stays
+          if (lflat[j] >= 0)
+            shade(col, vol, lflat[j], vox[j], g, nvox - 1, s_light, hx, hy,
+                  hz, hinv);
+        }
+        const float w = t * col.w;
+        cr = cr + w * col.x;
+        cg = cg + w * col.y;
+        cb = cb + w * col.z;
+        t = t * (1.0f - col.w);
+      }
     }
   }
 
@@ -345,16 +392,40 @@ struct Inputs {
 
 template <typename Id, bool kBaked, bool kLit, int kMc, bool kSlab = false>
 void launch(const Inputs& in, const Geom& g, int conic, float density_scale,
-            int segment, float* out, cudaStream_t stream) {
-  const dim3 block(16, 16);
-  const dim3 grid((g.height + 15) / 16, (g.width + 15) / 16);
-  march_a1_kernel<Id, kBaked, kLit, kMc, kSlab><<<grid, block, 0, stream>>>(
-      in.scal, in.colors, in.K, static_cast<const Id*>(in.ids), in.occ,
-      in.mgrid, in.sgrid, in.vol, in.lvec, in.chans, g, conic,
-      density_scale != 1.0f ? 1 : 0, density_scale, segment, out);
+            int segment, float* out, cudaStream_t stream, bool index32) {
+  const dim3 block(kBlockY, kBlockX);
+  const dim3 grid((g.height + kBlockY - 1) / kBlockY,
+                  (g.width + kBlockX - 1) / kBlockX);
+  if (index32)
+    march_a1_kernel<Id, kBaked, kLit, kMc, kSlab, int>
+        <<<grid, block, 0, stream>>>(
+            in.scal, in.colors, in.K, static_cast<const Id*>(in.ids), in.occ,
+            in.mgrid, in.sgrid, in.vol, in.lvec, in.chans, g, conic,
+            density_scale != 1.0f ? 1 : 0, density_scale, segment, out);
+  else
+    march_a1_kernel<Id, kBaked, kLit, kMc, kSlab, long long>
+        <<<grid, block, 0, stream>>>(
+            in.scal, in.colors, in.K, static_cast<const Id*>(in.ids), in.occ,
+            in.mgrid, in.sgrid, in.vol, in.lvec, in.chans, g, conic,
+            density_scale != 1.0f ? 1 : 0, density_scale, segment, out);
 }
 
 }  // namespace
+
+// Whether the march takes 32-bit voxel indices: where every flat index it
+// forms stays below 2^31.  The largest grid it reads, times its channels
+// (the ids and M, S: slab_x or d1 planes; the channel grids: n_chans of
+// them; the in-kernel light's volume: d1 planes), plus one plane and one
+// row (a voxel index one past a face, or a neighbour's step), below 2^31.
+// ops/march.index32 mirrors it.
+extern "C" int vrp_march_a1_index32(int d1, int d2, int d3, int slab_x,
+                                    int n_chans, int lit) {
+  long long elems = (long long)(slab_x > 0 ? slab_x : d1) * d2 * d3 *
+                    (n_chans > 0 ? n_chans : 1);
+  const long long vol = (long long)d1 * d2 * d3;
+  if (lit && vol > elems) elems = vol;
+  return elems + (long long)d2 * d3 + d3 < (1LL << 31) ? 1 : 0;
+}
 
 // Launches the march on `stream`; returns cudaGetLastError() (0 = launched).
 // scal: [32] f32; colors: [K, 4] f32; ids: [nx, d2, d3] (C order; nx =
@@ -402,45 +473,47 @@ extern "C" int vrp_march_a1(const float* scal, const float* colors, int K,
     g.nx = slab_x;
   }
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool index32 =
+      vrp_march_a1_index32(d1, d2, d3, slab_x, mc ? n_chans : 0, lit ? 1 : 0);
   const Inputs in{scal, colors, K, ids, occ, mgrid, sgrid, vol, lvec, chans};
   if (slab && baked)
     launch<uint8_t, true, false, 0, true>(in, g, conic, density_scale,
-                                          segment, out, s);
+                                          segment, out, s, index32);
   else if (slab && mc && n_chans == 1)
     launch<uint8_t, false, false, 1, true>(in, g, conic, density_scale,
-                                           segment, out, s);
+                                           segment, out, s, index32);
   else if (slab && mc)
     launch<uint8_t, false, false, 3, true>(in, g, conic, density_scale,
-                                           segment, out, s);
+                                           segment, out, s, index32);
   else if (slab && id_bytes == 1)
     launch<uint8_t, false, false, 0, true>(in, g, conic, density_scale,
-                                           segment, out, s);
+                                           segment, out, s, index32);
   else if (slab)
     launch<uint16_t, false, false, 0, true>(in, g, conic, density_scale,
-                                            segment, out, s);
+                                            segment, out, s, index32);
   else if (mc && n_chans == 1)
     launch<uint8_t, false, false, 1>(in, g, conic, density_scale, segment,
-                                     out, s);
+                                     out, s, index32);
   else if (mc)
     launch<uint8_t, false, false, 3>(in, g, conic, density_scale, segment,
-                                     out, s);
+                                     out, s, index32);
   else if (lit && id_bytes == 1)
     launch<uint8_t, false, true, 0>(in, g, conic, density_scale, segment,
-                                    out, s);
+                                    out, s, index32);
   else if (lit)
     launch<uint16_t, false, true, 0>(in, g, conic, density_scale, segment,
-                                     out, s);
+                                     out, s, index32);
   else if (id_bytes == 1 && !baked)
     launch<uint8_t, false, false, 0>(in, g, conic, density_scale, segment,
-                                     out, s);
+                                     out, s, index32);
   else if (id_bytes == 1)
     launch<uint8_t, true, false, 0>(in, g, conic, density_scale, segment,
-                                    out, s);
+                                    out, s, index32);
   else if (!baked)
     launch<uint16_t, false, false, 0>(in, g, conic, density_scale, segment,
-                                      out, s);
+                                      out, s, index32);
   else
     launch<uint16_t, true, false, 0>(in, g, conic, density_scale, segment,
-                                     out, s);
+                                     out, s, index32);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,11 @@
 // Float order mirrors the JAX reference (models/raycast.py, ops/sampling.py)
 // expression by expression.  Build with -fmad=false: a contracted o + t*d
 // can move a sample into the next voxel and change its material.  Divisions
-// and the square root are the IEEE ones (no fast-math flags).
+// and the square root are the IEEE ones (no fast-math flags).  The one
+// place where the chain multiplies instead: floorf(p n) / n, n = 2^depth, is
+// floorf(p n) * (1 / n) (Geom::inv_n), bit for bit, since the quotient of an
+// integer-valued float (or of 0, inf, NaN) by a power of two is exact;
+// tests/test_torch_march_chain.py holds the two against each other.
 
 #pragma once
 
@@ -35,7 +39,7 @@ struct Geom {
   int dim[3];
   int nb[3];
   int width, height, spr;
-  float n, L, halfL;
+  float n, inv_n, L, halfL;  // n = 2^depth, inv_n = 1 / n (exact)
   float hg[3], hg_hi[3], halfd[3];
   int x_off, gwidth, s_start, x0, nx;
 };
@@ -55,6 +59,7 @@ Geom make_geom(int d1, int d2, int d3, int depth, int width, int height,
   const int longest = d1 > d2 ? (d1 > d3 ? d1 : d3) : (d2 > d3 ? d2 : d3);
   g.L = (float)longest;
   g.n = (float)(1LL << depth);
+  g.inv_n = 1.0f / g.n;
   g.halfL = g.L * 0.5f;  // exact half
   for (int c = 0; c < 3; ++c) {
     g.halfd[c] = (float)g.dim[c] * 0.5f;
@@ -172,7 +177,9 @@ __device__ __forceinline__ void box_span(const float o[3], const float d[3],
 
 // The chain from sample i to its voxel, written once for every a1 march:
 // modelAux (+0.5) -> octree nearest voxel -> flat index `flat`, clamped into
-// range; a sample off the volume makes the function `return off`.  It
+// range; a sample off the volume makes the function `return off`.  `flat`
+// has the function's index type Idx: 64-bit unless the caller takes 32
+// (K1 where vrp_march_a1_index32 allows it, march.cu).  It
 // expands inside the two functions below, whose parameters it reads.  A
 // macro, not a function: sample_id built on a function that returned a
 // validity flag compiled into slower code (K1 plain 5 % on the H100,
@@ -184,22 +191,22 @@ __device__ __forceinline__ void box_span(const float o[3], const float d[3],
   int ijk[3];                                                               \
   _Pragma("unroll") for (int c = 0; c < 3; ++c) {                           \
     const float p = (o[c] + ti * d[c]) + 0.5f; /* modelAux kernel.cu:1050 */ \
-    const float res = (floorf(p * g.n) / g.n) * g.L;                        \
+    const float res = (floorf(p * g.n) * g.inv_n) * g.L;                    \
     valid = valid && (p >= 0.0f) && (p < 1.0f) && (res >= g.hg[c]) &&       \
             (res < g.hg_hi[c]);                                             \
     ijk[c] = valid ? (int)truncf((res + g.halfd[c]) - g.halfL) : 0;         \
   }                                                                         \
   if (!valid) return off;                                                   \
-  long long flat =                                                          \
-      ((long long)ijk[0] * g.dim[1] + ijk[1]) * g.dim[2] + ijk[2];          \
-  const long long last = (long long)g.dim[0] * g.dim[1] * g.dim[2] - 1;     \
+  Idx flat = ((Idx)ijk[0] * g.dim[1] + ijk[1]) * g.dim[2] + ijk[2];         \
+  const Idx last = (Idx)g.dim[0] * g.dim[1] * g.dim[2] - 1;                 \
   flat = flat < 0 ? 0 : (flat > last ? last : flat)
 
 // Flat index of sample i's voxel; -1 when the sample lies off the volume.
 // The baked-light march reads the id, M and S there.
-__device__ __forceinline__ long long sample_voxel(int i, const float o[3],
-                                                  const float d[3], float ds,
-                                                  float clip, const Geom& g) {
+template <typename Idx = long long>
+__device__ __forceinline__ Idx sample_voxel(int i, const float o[3],
+                                            const float d[3], float ds,
+                                            float clip, const Geom& g) {
   VRP_SAMPLE_VOXEL(-1);
   return flat;
 }
@@ -207,11 +214,11 @@ __device__ __forceinline__ long long sample_voxel(int i, const float o[3],
 // Flat index of sample i's voxel as sample_voxel gives it, and the voxel's
 // indices as the chain computes them in `out`: the in-kernel lighting
 // variant reads the six neighbours there.
-__device__ __forceinline__ long long sample_voxel_ijk(int i, const float o[3],
-                                                      const float d[3],
-                                                      float ds, float clip,
-                                                      const Geom& g,
-                                                      int out[3]) {
+template <typename Idx = long long>
+__device__ __forceinline__ Idx sample_voxel_ijk(int i, const float o[3],
+                                                const float d[3], float ds,
+                                                float clip, const Geom& g,
+                                                int out[3]) {
   VRP_SAMPLE_VOXEL(-1);
   out[0] = ijk[0];
   out[1] = ijk[1];
@@ -221,7 +228,7 @@ __device__ __forceinline__ long long sample_voxel_ijk(int i, const float o[3],
 
 // Colour id of sample i (an interval id, uint8, or a LUT index, uint16); a
 // sample off the volume takes id0, the id of intensity 0.
-template <typename Id>
+template <typename Id, typename Idx = long long>
 __device__ __forceinline__ int sample_id(int i, const float o[3],
                                          const float d[3], float ds,
                                          float clip, const Geom& g,
@@ -239,17 +246,17 @@ __device__ __forceinline__ int sample_id(int i, const float o[3],
 // is composited by one slab.  Returns the slab-local flat index of an owned
 // sample inside the volume, -1 for an owned sample off it (it takes id0),
 // -2 for a sample that another slab owns (it leaves (C, T) as it is).
-__device__ __forceinline__ long long sample_voxel_slab(int i, const float o[3],
-                                                       const float d[3],
-                                                       float ds, float clip,
-                                                       const Geom& g) {
+template <typename Idx = long long>
+__device__ __forceinline__ Idx sample_voxel_slab(int i, const float o[3],
+                                                 const float d[3], float ds,
+                                                 float clip, const Geom& g) {
   const float ti = (float)i * ds + clip;  // kernel.cu:54,59
   bool valid = true;
   int ijk[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float p = (o[c] + ti * d[c]) + 0.5f;  // modelAux kernel.cu:1050
-    const float res = (floorf(p * g.n) / g.n) * g.L;
+    const float res = (floorf(p * g.n) * g.inv_n) * g.L;
     valid = valid && (p >= 0.0f) && (p < 1.0f) && (res >= g.hg[c]) &&
             (res < g.hg_hi[c]);
     ijk[c] = (int)truncf((res + g.halfd[c]) - g.halfL);
@@ -257,9 +264,8 @@ __device__ __forceinline__ long long sample_voxel_slab(int i, const float o[3],
   const int gx = min(max(ijk[0], 0), g.dim[0] - 1);
   if (gx < g.x0 || gx >= g.x0 + g.nx) return -2;
   if (!valid) return -1;
-  long long flat =
-      ((long long)(ijk[0] - g.x0) * g.dim[1] + ijk[1]) * g.dim[2] + ijk[2];
-  const long long last = (long long)g.nx * g.dim[1] * g.dim[2] - 1;
+  Idx flat = ((Idx)(ijk[0] - g.x0) * g.dim[1] + ijk[1]) * g.dim[2] + ijk[2];
+  const Idx last = (Idx)g.nx * g.dim[1] * g.dim[2] - 1;
   return flat < 0 ? 0 : (flat > last ? last : flat);
 }
 

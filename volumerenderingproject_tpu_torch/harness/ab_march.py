@@ -11,16 +11,23 @@ each in a process of its own that builds its kernels from its own
 ``csrc/`` into its own ``build/kernels/``, so a change of the kernel
 sources is compared within one machine and one call.  Needs one CUDA GPU.
 
-Each process times, on chip_smoke.py's inputs (an 8-frame orbit at
-700x700, 500 samples per ray, eps 1e-3, on ``centered_sphere(100)`` and on
-the seeded 182x218x182 volume), K1 per frame; on the latter, K4 at the fit
-path's ortho orbit (eps 0): plain, with TF(0).alpha 0.05 (a fit's steps
-after the first, where every sample off the volume has alpha), and where
-the tree has them LUT (``tf_lut=256``), baked (``sobel_lit_700``), and per
-unit over the segment units of a (2, 2, 1) mesh and the slab units of a
-(1, 2, 2) one; and where the tree has them, K1's LUT variant at
-``lut_300`` and its baked variant at ``sobel_lit_700``.  A tree's K4
-blocks are its own (its wrapper sizes the partials).  Times are
+Each process times K1, ms per launch, in every variant and unit mode, on
+chip_smoke.py's inputs, each on ``centered_sphere(100)`` and on the seeded
+182x218x182 volume (MNI-dims; for mc, bench.py's 3-channel 91^3 and the
+seeded 3-channel MNI-dims volume), over an 8-frame orbit at eps 1e-3:
+plain (700x700, 500 samples per ray), LUT (``lut_300``), baked
+(``sobel_lit_700``), LUT + baked (``lut_phong_300``), lit and lut_lit
+(conic 700x700x500, the latter at ``tf_lut=256``), mc
+(``multichannel_304``); the units of one orbit camera at eps 1e-3, per
+unit: segment (the (2, 2, 1) mesh of 700x700x500), slab (the (2, 2, 2)
+mesh) and baked slab (the (1, 2, 2) mesh at ``sobel_lit_700``, eps 0, the
+forward of a lit slab's fit unit); and bench.py's dense sphere at 320^3 and
+512^3 (304x304x300, 4 frames), plain and baked.  Then K4 on MNI-dims at
+the fit path's ortho orbit (eps 0): plain, with TF(0).alpha 0.05 (a fit's
+steps after the first, where every sample off the volume has alpha), LUT
+(``tf_lut=256``), baked (``sobel_lit_700``), and per unit over the segment
+units of a (2, 2, 1) mesh and the slab units of a (1, 2, 2) one.  A tree's
+K4 blocks are its own (its wrapper sizes the partials).  Times are
 chip_smoke.py's: CUDA events behind a GPU spin, each window's ms per call.
 It prints one JSON line per process and, last, each tree's windows pooled
 over its runs and their median.
@@ -87,16 +94,35 @@ def measure(tree: str) -> dict:
     from volumerenderingproject_tpu_torch.ingest import synthetic
     from volumerenderingproject_tpu_torch.ops import march, march_vjp
 
-    def per_frame(cfg, vol, seed=0):
-        """Windows of K1 over an 8-frame orbit, in ms per frame."""
-        xs = [march.prepare(vol, tf, cam, cfg, 1e-3) for cam in
-              S.orbit_cameras(P, np.random.default_rng(seed))]
-
-        def orbit():
+    def per_call(xs):
+        """Windows of K1 over the march inputs ``xs``, in ms per launch."""
+        def run():
             for x in xs:
                 march.march_kernel(x)
 
-        return [w / S.FRAMES for w in timed_windows(S, orbit, 5)]
+        return [w / len(xs) for w in timed_windows(S, run, 5)]
+
+    def per_frame(cfg, vol, frames=S.FRAMES, seed=0):
+        """Windows of K1 over an orbit of ``frames`` frames at eps 1e-3."""
+        cfg = cfg.replace(early_termination=1e-3)
+        return per_call([march.prepare(vol, tf, cam, cfg, 1e-3) for cam in
+                         S.orbit_cameras(P, np.random.default_rng(seed),
+                                         frames)])
+
+    def per_unit(cfg, vol, shape, diff=False):
+        """Windows of K1 over the units of a ``shape`` mesh under one orbit
+        camera, in ms per unit: at eps 1e-3, or at eps 0 as a fit's forward
+        (``diff``)."""
+        cam = S.orbit_cameras(P, np.random.default_rng(4), 1)[0]
+        kws = [S.unit_kwargs(vol, cfg, shape, xyz)
+               for xyz in S.mesh_coords(shape)]
+        if diff:
+            xs = [march_vjp.prepare_diff(vol, tf, cam, cfg, **kw)[0]
+                  for kw in kws]
+        else:
+            cfg = cfg.replace(early_termination=1e-3)
+            xs = [march.prepare(vol, tf, cam, cfg, 1e-3, **kw) for kw in kws]
+        return per_call(xs)
 
     out = {}
     tf = P.default_transfer_function()
@@ -104,10 +130,33 @@ def measure(tree: str) -> dict:
         "sphere100": synthetic.centered_sphere(100),
         "mni_dims": P.make_volume(S.mni_like_volume(0)),
     }
-    cfg = P.RenderConfig(width=S.W, height=S.H, samples_per_ray=S.SPR,
-                         early_termination=1e-3)
+    mc_vols = S.mc_volumes(P)
+    cfg = P.RenderConfig(width=S.W, height=S.H, samples_per_ray=S.SPR)
+    lit = P.RenderConfig(**S.LIT_CONFIGS["sobel_lit_700"])
+    k1 = {"plain": cfg,
+          "lut/lut_300": P.RenderConfig(**S.LIT_CONFIGS["lut_300"]),
+          "baked/sobel_lit_700": lit,
+          "lut_baked/lut_phong_300": P.RenderConfig(
+              **S.LIT_CONFIGS["lut_phong_300"]),
+          "lit/conic": P.RenderConfig(**S.CONIC_LIT),
+          "lut_lit/conic": P.RenderConfig(**S.CONIC_LIT, tf_lut=256)}
     for vname, vol in volumes.items():
-        out[f"k1_plain/{vname}"] = per_frame(cfg, vol)
+        for name, c in k1.items():
+            out[f"k1_{name}/{vname}"] = per_frame(c, vol)
+        out[f"k1_segment/(2, 2, 1)/{vname}"] = per_unit(cfg, vol, (2, 2, 1))
+        out[f"k1_slab/(2, 2, 2)/{vname}"] = per_unit(cfg, vol, (2, 2, 2))
+        out[f"k1_baked_slab/(1, 2, 2)/{vname}"] = per_unit(
+            lit, vol, (1, 2, 2), diff=True)
+    for vname, vol in zip(("bench3_91", "mni3"), mc_vols.values()):
+        out[f"k1_mc/multichannel_304/{vname}"] = per_frame(
+            P.RenderConfig(**S.MC_SHAPE), vol)
+    del mc_vols
+    for n in S.LARGE_SIZES:
+        dense = S.dense_volume(P, n)
+        for row in ("streamed", "streamed_lit"):
+            out[f"k1_{row}/dense_{n}"] = per_frame(
+                S.large_config(P, row), dense, frames=4)
+        del dense
     vol = volumes["mni_dims"]
     cam = S.orbit_cameras(P, np.random.default_rng(3), 1)[0]
     fit_cfg = P.RenderConfig(width=S.W, height=S.H, samples_per_ray=S.SPR)
@@ -130,18 +179,10 @@ def measure(tree: str) -> dict:
 
     k4("k4/mni_dims", tf, fit_cfg)
     k4("k4_alpha0_0.05/mni_dims", S.tf_with_alpha(P, tf, 0, 0.05), fit_cfg)
-    if hasattr(march, "variant"):  # trees with the LUT and baked variants
-        k4("k4_lut/mni_dims", tf, fit_cfg.replace(tf_lut=256))
-        k4("k4_baked/sobel_lit_700/mni_dims", tf,
-           P.RenderConfig(**S.LIT_CONFIGS["sobel_lit_700"]))
-    if "slab_x" in march.MarchArgs._fields:  # trees with work units
-        k4("k4_segment/(2, 2, 1)/mni_dims", tf, fit_cfg, (2, 2, 1))
-        k4("k4_slab/(1, 2, 2)/mni_dims", tf, fit_cfg, (1, 2, 2))
-    if hasattr(march, "variant"):  # trees with the LUT and baked variants
-        for cname, var in (("lut_300", "lut"), ("sobel_lit_700", "baked")):
-            c = P.RenderConfig(**S.LIT_CONFIGS[cname]).replace(
-                early_termination=1e-3)
-            out[f"k1_{var}/{cname}/mni_dims"] = per_frame(c, vol)
+    k4("k4_lut/mni_dims", tf, fit_cfg.replace(tf_lut=256))
+    k4("k4_baked/sobel_lit_700/mni_dims", tf, lit)
+    k4("k4_segment/(2, 2, 1)/mni_dims", tf, fit_cfg, (2, 2, 1))
+    k4("k4_slab/(1, 2, 2)/mni_dims", tf, fit_cfg, (1, 2, 2))
     return out
 
 

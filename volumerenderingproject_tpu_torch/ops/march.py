@@ -756,6 +756,22 @@ def variant(a: MarchArgs) -> str:
     return "lut_baked" if lut else "baked"
 
 
+def index32(a: MarchArgs) -> bool:
+    """Whether the kernel takes 32-bit voxel indices for march input ``a``
+    (``vrp_march_a1_index32`` in csrc/march.cu): where every flat index it
+    forms stays below 2^31, that is where the largest grid it reads times
+    its channels (the ids and baked (M, S): the slab's or the volume's
+    planes; the channel grids; the in-kernel light's volume), plus one
+    plane and one row (a voxel index one past a face, a neighbour's step),
+    is below 2^31.  Else 64-bit."""
+    d1, d2, d3 = a.dims
+    channels = 1 if a.chans is None else a.chans.shape[0]
+    elems = (a.slab_x or d1) * d2 * d3 * channels
+    if a.vol is not None:
+        elems = max(elems, d1 * d2 * d3)
+    return elems + d2 * d3 + d3 < 2**31
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("march")
     fn = lib.vrp_march_a1
