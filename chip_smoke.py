@@ -325,6 +325,22 @@ loads together, then composites them in order; 32-bit voxel indices below
      against ``march.index32`` at the 2^31 edge, and the plain, lit and mc
      variants on grids past it.
 
+The a5 marches' spans (K3 and K6 run the position chain only on each ray's
+samples that may lie in the volume; K3 skips or composites TF(0)'s colour
+outside, K6 folds the constant samples once a ray) and index width:
+
+  3t. K3 bit-exact to ``march_a5_plain`` and K6 within TOL_GRAD of
+     ``march_a5_bwd_plain``, its block partials within TOL_SPAN_F64 of the
+     float64 sums of the plain terms, on the CPU tests' span scenes
+     (tests/_torch_a5_scenes.py: odd dims, orbits, a camera inside the
+     volume, fronts along an axis, rays that miss, a step longer than a
+     voxel, a 512-deep volume, segment units, rays stepped an ulp at a time
+     across each face) at TF(0).alpha 0 and 0.05, eps 0 and 1e-3, baked;
+     ``a5_500`` on both volumes, MNI-dims' (2, 2, 1) units and a5 lit
+     300^3 at TF(0).alpha 0.05; no sample inside the volume outside a span;
+     the kernels' index-width rule against ``a5.index32`` at the 2^31
+     edge, and K3 and K6 on a 1300^3 id grid whose rays read past 2^31.
+
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
 of 3 windows; a plain version's time is one call after an untimed one, or
@@ -409,24 +425,32 @@ FLOPS_PER_BWD_RAY_PER_INTERVAL = 8
 FLOPS_PER_BWD_RAY = 1
 # a5 (Algorithm.TEST): bench.py's a5_500 row, 500x500 pixels, 500 samples
 A5_W = A5_H = A5_SPR = 500
-# float operations one a5 sample needs, each counted once however a kernel
-# schedules it (csrc/a5.cu): the three stage matrices 42 (the first stage's
-# x and y terms once per ray), inside test 6, corner truncations and
-# fractions 12, 1 - f 3, the y->x->z mix of 4 channels 84, compositing 9
-FLOPS_PER_A5_SAMPLE = 156
-FLOPS_PER_A5_RAY = 15  # first-stage x, y terms 9; C + T bg 6
+# float operations one a5 sample inside the volume needs, each counted once
+# however a kernel schedules it (csrc/a5.cu): the position 16 (the TPU
+# kernel's hoisted chain, csrc/a5_common.cuh: i s3 1, the inverse view's
+# front and translation terms 9, the scale and translation to voxels 6),
+# inside test 6, corner truncations and fractions 12, 1 - f 3, the y->x->z
+# mix of 4 channels 84, compositing 9
+FLOPS_PER_A5_SAMPLE = 130
+# per ray: the chain's q 13 (px s1 + o1, py s2 + o2, and their inverse-view
+# terms 9); C + T bg 6
+FLOPS_PER_A5_RAY = 19
+# a sample outside the volume on a live ray is TF(0)'s colour c0: where its
+# alpha is not 0 it is composited, w = T a0, C += w c0, T (1 - a0) 8; where
+# it is 0 it changes nothing and needs no operation (a5_fwd_ops)
+FLOPS_PER_A5_OUTSIDE_SAMPLE = 8
 # and what dL/dcolors needs per a5 sample inside the volume: position,
-# inside, corners, fractions and 1 - f as above 63, the 8 trilinear weights
+# inside, corners, fractions and 1 - f as above 37, the 8 trilinear weights
 # from 4 pair products 12, each corner's weight into its interval's
 # coefficient 8, the chain 9 (as a1's); then for each interval present (at
 # most min(8, K)): a and g . rgb from its coefficient 4 (g . c_k is per ray)
 # and coef w and coef da into its sums 4.  A sample off the volume costs
 # what a1's does (bwd_outside_ops): its coefficients are [id0 == k].
-FLOPS_PER_A5_BWD_SAMPLE = 92
+FLOPS_PER_A5_BWD_SAMPLE = 66
 FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL = 8
-# and per ray, besides the per-interval terms: T_N g_t 1 and the
-# first-stage x, y terms 9
-FLOPS_PER_A5_BWD_RAY = 10
+# and per ray, besides the per-interval terms: T_N g_t 1 and the chain's
+# q 13
+FLOPS_PER_A5_BWD_RAY = 14
 # the lit slice: bench.py's sobel_lit_700 and lut_phong_300 rows and the a5
 # mode of the latter; the baked variants add rgb * M + S, 6 operations, to
 # every sample inside the volume
@@ -743,15 +767,38 @@ def bwd_vs_plain(kernel, plain, label, a, g):
     return e_abs, e_rel
 
 
-def samples_needed(plain, args) -> float:
-    """Mean over ``args`` of the samples each march input needs (the plain
-    version's ``stats["samples"]``: inside the volume, on live rays)."""
-    total = 0
+def needed_stats(plain, args) -> dict:
+    """Means over ``args`` of the plain version's ``stats`` (every version
+    gives "samples", those inside the volume on live rays; the a5 version
+    also "outside", those outside it on live rays)."""
+    total = {}
     for a in args:
         stats = {}
         plain(a, stats)
-        total += stats["samples"]
-    return total / len(args)
+        for k, v in stats.items():
+            total[k] = total.get(k, 0) + v
+    return {k: v / len(args) for k, v in total.items()}
+
+
+def samples_needed(plain, args) -> float:
+    """Mean over ``args`` of the samples each march input needs (the plain
+    version's ``stats["samples"]``: inside the volume, on live rays)."""
+    return needed_stats(plain, args)["samples"]
+
+
+def a5_fwd_ops(a5, args, per_sample: int) -> tuple:
+    """-> (float operations, samples inside) that K3 needs on the mean of
+    the a5 march inputs ``args``: ``per_sample`` for each sample inside the
+    volume on a live ray, FLOPS_PER_A5_OUTSIDE_SAMPLE for each sample
+    outside it on a live ray where TF(0)'s alpha is not 0, and
+    FLOPS_PER_A5_RAY a ray."""
+    n = needed_stats(a5.march_a5_plain, args)
+    a = args[0]
+    a0 = float(a.colors[int(a.scal[a5.S_ID0]), 3])
+    ops = (n["samples"] * per_sample + a.width * a.height * FLOPS_PER_A5_RAY
+           + (n["outside"] * FLOPS_PER_A5_OUTSIDE_SAMPLE if a0 != 0.0
+              else 0.0))
+    return ops, n["samples"]
 
 
 def read_bytes(grid_bytes: float, reads: float) -> float:
@@ -1043,12 +1090,11 @@ def a5_kernel_phases(P, a5, a5_vjp, volumes, tf, edge, rng, per_volume):
                          label=f"a5 {vname}: K3 x{FRAMES}") / FRAMES
         prep_ms = timed_ms(lambda: a5.prepare_a5(vol, tf, cams[0], main_cfg,
                                                  1e-3), 5)
-        samples = samples_needed(a5.march_a5_plain, args)
+        ops, samples = a5_fwd_ops(a5, args, FLOPS_PER_A5_SAMPLE)
         plain_ms = time_plain(lambda: a5.march_a5_plain(args[0]))
         rays = A5_W * A5_H
         bound_ms, bound_by, ops_ms, bytes_ms = bound(
-            samples * FLOPS_PER_A5_SAMPLE + rays * FLOPS_PER_A5_RAY,
-            bound_bytes(args[0], rays, samples, 8))
+            ops, bound_bytes(args[0], rays, samples, 8))
         per_volume[vname].update(
             a5_ms=k3_ms, a5_plain_ms=plain_ms, a5_prep_ms=prep_ms,
             a5_bound_ms=bound_ms, a5_bound_by=bound_by, a5_samples=samples)
@@ -1403,12 +1449,12 @@ def lit_kernel_phases(P, march, a5, phong, volumes, tf, from_text, rng,
         light = phong.default_light()
         bake_ms = timed_ms(lambda: phong.bake_light_grids(
             vol.data, cfg, light, -cams[0].front), 3)
-        samples = samples_needed(a5.march_a5_plain, args)
+        ops, samples = a5_fwd_ops(
+            a5, args, FLOPS_PER_A5_SAMPLE + FLOPS_PER_BAKED_SAMPLE)
         plain_ms = time_plain(lambda: a5.march_a5_plain(args[0]))
         rays = cfg.width * cfg.height
         bound_ms, bound_by, ops_ms, bytes_ms = bound(
-            samples * (FLOPS_PER_A5_SAMPLE + FLOPS_PER_BAKED_SAMPLE)
-            + rays * FLOPS_PER_A5_RAY, bound_bytes(args[0], rays, samples, 8))
+            ops, bound_bytes(args[0], rays, samples, 8))
         per_volume[vname]["a5_lit_300"] = dict(
             variant="a5_baked", ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
             bake_ms=bake_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2723,13 +2769,15 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
             log(f"{label}: kernel at eps 1e-3 vs exact plain max err "
                 f"{e2:.3e} (tol {TOL_EPS:g})")
             check(e2 <= TOL_EPS, f"{label}: eps error {e2}")
-            samples = samples_needed(plain, [a])
             plain_ms = time_plain(lambda: plain(a))
             per = (FLOPS_PER_A5_SAMPLE if is_a5 else FLOPS_PER_SAMPLE) + (
                 FLOPS_PER_BAKED_SAMPLE if cfg.lighting else 0)
-            b = bound(samples * per + (rays * FLOPS_PER_A5_RAY if is_a5
-                                       else 0),
-                      bound_bytes(a, rays, samples, 8 if is_a5 else 1))
+            if is_a5:
+                ops, samples = a5_fwd_ops(a5, [a], per)
+            else:
+                samples = samples_needed(plain, [a])
+                ops = samples * per
+            b = bound(ops, bound_bytes(a, rays, samples, 8 if is_a5 else 1))
             r[key] = dict(ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
                           bound_ms=b[0], bound_by=b[1], samples=samples,
                           err=e, err_eps=e2, peak_mb=peak, own_mb=own)
@@ -2774,9 +2822,10 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
             total = rays * cfg.samples_per_ray
             fwd_plain = a5.march_a5_plain if is_a5 else march.march_plain
             inside = samples_needed(fwd_plain, [a])
+            blocks = (a5_vjp if is_a5 else march_vjp).num_blocks(
+                cfg.width, cfg.height)
             nbytes = (read_bytes(a.ids.numel(), inside * (8 if is_a5 else 1))
-                      + rays * 16 + k * 16
-                      + march_vjp.num_blocks(cfg.width, cfg.height) * k * 16)
+                      + rays * 16 + k * 16 + blocks * k * 16)
             if is_a5:
                 ops = (inside * (FLOPS_PER_A5_BWD_SAMPLE + min(8, k)
                                  * FLOPS_PER_A5_BWD_SAMPLE_PER_INTERVAL)
@@ -3713,17 +3762,24 @@ def seg_exact(kernel, plain, label, a) -> float:
 
 
 def unit_timing(P, kernel, plain, args, label, rays, grid_bytes,
-                flops_per_sample, flops_per_ray, id_reads=1) -> dict:
+                flops_per_sample, flops_per_ray, id_reads=1,
+                ops_fn=None) -> dict:
     """ms per launch over every work unit in ``args``, the plain version's
     ms on the first, the mean samples a unit needs and the bound of the
-    mean unit (with baked (M, S), their reads at the samples' voxels)."""
+    mean unit (with baked (M, S), their reads at the samples' voxels).
+    ``ops_fn(args) -> (operations, samples)`` counts the operations where
+    the samples' and rays' rates do not (a5_fwd_ops)."""
     def units():
         for a in args:
             kernel(a)
 
     ms = timed_ms(units, 5, prefill=True, label=label) / len(args)
     plain_ms = time_plain(lambda: plain(args[0]))
-    samples = samples_needed(plain, args)
+    if ops_fn is None:
+        samples = samples_needed(plain, args)
+        ops = samples * flops_per_sample + rays * flops_per_ray
+    else:
+        ops, samples = ops_fn(args)
     a = args[0]
     size = a.ids.element_size()
     nbytes = (read_bytes(grid_bytes, samples * id_reads * size)
@@ -3734,8 +3790,7 @@ def unit_timing(P, kernel, plain, args, label, rays, grid_bytes,
     if a.mgrid is not None:
         nbytes += read_bytes((a.mgrid.numel() + a.sgrid.numel()) * 4,
                              samples * 8)
-    bound_ms, bound_by, ops_ms, bytes_ms = bound(
-        samples * flops_per_sample + rays * flops_per_ray, nbytes)
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(ops, nbytes)
     log(f"{label}: {ms:.4f} ms a unit, plain {plain_ms:.2f} ms, needed "
         f"samples a unit {samples}, bound {ops_ms:.4f} ms (operations) / "
         f"{bytes_ms:.4f} ms (bytes)")
@@ -3866,7 +3921,8 @@ def shard_kernel_phases(P, march, a5, volumes, mc_vols, dense, tf, a5_edge,
         P, a5.march_a5_kernel, a5.march_a5_plain, args,
         "3q K3 segment units of (2, 2, 1), MNI-dims a5_500",
         args[0].width * A5_H, args[0].ids.numel(), FLOPS_PER_A5_SAMPLE,
-        FLOPS_PER_A5_RAY, 8)
+        FLOPS_PER_A5_RAY, 8,
+        ops_fn=lambda xs: a5_fwd_ops(a5, xs, FLOPS_PER_A5_SAMPLE))
     del args
     torch.cuda.empty_cache()
     return errs
@@ -4248,7 +4304,8 @@ def bwd_unit_timing(march, march_vjp, a5, a5_vjp, units, label,
     baked = a.mgrid is not None
     nbytes = (read_bytes(a.ids.numel(), inside * (8 if a5_unit else 1))
               + rays * 16 + k * 16
-              + march_vjp.num_blocks(a.width, a.height) * k * 16)
+              + (a5_vjp if a5_unit else march_vjp).num_blocks(
+                  a.width, a.height) * k * 16)
     if baked:
         nbytes += read_bytes((a.mgrid.numel() + a.sgrid.numel()) * 4,
                              inside * 8)
@@ -4712,6 +4769,233 @@ def k1_chunk_phase(P, march, march_vjp, phong, volumes, mc_vols, tf
         torch.cuda.empty_cache()
 
 
+# the a5 kernels' index width at the edge of 2^31 (tests/test_torch_a5_chain
+# .py holds ops/a5.index32 there), and a grid past it
+A5_INDEX32_EDGES = ((2**31 - 6, 1, 1), (2**31 - 5, 1, 1), (1289, 1289, 1289),
+                    (1290, 1290, 1290), (1, 21844, 2**15), (1, 21845, 2**15),
+                    (182, 218, 182), (512, 512, 512))
+A5_WIDE_DIMS = (1300, 1300, 1300)
+
+
+def a5_on_card(a):
+    """An a5 march input of the CPU tests' scenes, its tensors on the
+    card."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def mv(t):
+        return None if t is None else t.to(dev)
+
+    return a._replace(scal=mv(a.scal), colors=mv(a.colors), ids=mv(a.ids),
+                      mgrid=mv(a.mgrid), sgrid=mv(a.sgrid))
+
+
+def k3_bits(a5, label, a) -> None:
+    """K3 against march_a5_plain on march input ``a``: bit for bit (the
+    image, or a unit's C and T)."""
+    import torch
+
+    got, want = a5.march_a5_kernel(a), a5.march_a5_plain(a)
+    pairs = zip(got, want) if a.segment else [(got, want)]
+    same = all(torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32))
+               for g, w in pairs)
+    check(same, f"{label}: K3 not bit-exact to march_a5_plain")
+
+
+def a5_span_counts(a5, a) -> dict:
+    """Samples of march input ``a`` whose position lies in [0, dims)
+    ("touch"), those in the rays' spans (``a5.sample_range``, the kernels'
+    float order) and those that touch outside the spans ("lost", must be
+    0), by the hoisted chain on the card."""
+    import torch
+
+    lo, hi = a5.sample_range(a)
+    q = a5.ray_q(a)
+    dims = torch.tensor(a.dims, dtype=torch.float32, device=q.device)
+    touch = lost = torch.zeros((), dtype=torch.int64, device=q.device)
+    for i in range(a.s_start, a.s_start + a.spr):
+        p = a5.positions(a, q, i)
+        ins = ((p >= 0.0) & (p < dims)).all(-1)
+        touch = touch + ins.sum()
+        lost = lost + (ins & ((i < lo) | (i > hi))).sum()
+    return {"touch": int(touch), "lost": int(lost),
+            "span": int((hi - lo + 1).clamp_min(0).sum())}
+
+
+def k6_span_check(a5_vjp, label, a, g) -> float:
+    """K6 against march_a5_bwd_plain (TOL_GRAD of max |dplain|) and its
+    block partials (``per_block``) against the float64 sums of the plain
+    terms over each block's rays (TOL_SPAN_F64 of their largest) -> that
+    relative error."""
+    bwd_vs_plain(a5_vjp.march_a5_bwd_kernel, a5_vjp.march_a5_bwd_plain,
+                 label, a, g)
+    got = a5_vjp.march_a5_bwd_kernel(a, *g, per_block=True).double()
+    exact = a5_vjp.block_sums(a5_vjp.march_a5_bwd_plain(a, *g, per_ray=True),
+                              a.width, a.height)
+    scale = float(exact.abs().max())
+    e_abs = float((got - exact).abs().max())
+    e_rel = e_abs / scale if scale > 0.0 else (0.0 if e_abs == 0.0
+                                               else math.inf)
+    log(f"{label}: K6's {got.shape[0]} block partials vs the float64 sums of "
+        f"the plain terms, max err {e_abs:.3e}, {e_rel:.3e} of their largest "
+        f"(tol {TOL_SPAN_F64:g})")
+    check(e_rel <= TOL_SPAN_F64, f"{label}: K6's block partials off the "
+          f"float64 sums by {e_rel} of their largest")
+    return e_rel
+
+
+def wide_a5_args(P, a5, dims):
+    """An a5 march input on a grid past 32-bit indices: seeded random
+    interval ids of the default TF, 64x48 rays of 64 samples of an orbit
+    camera across the whole grid, eps 0."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(72)
+    tf = P.default_transfer_function()
+    ids = torch.randint(0, tf.num_intervals, dims, generator=gen,
+                        dtype=torch.uint8, device=dev)
+    cfg = P.RenderConfig(width=64, height=48, samples_per_ray=64,
+                         algorithm=P.Algorithm.TEST)
+    cam = P.Camera.initial(position=(0.9, 0.5, 1.0))
+    scal = a5.scal_vector(cam, dims, cfg, 0.0,
+                          torch.zeros((), dtype=torch.int64, device=dev))
+    return a5.A5Args(scal=scal, colors=tf.colors.contiguous(), ids=ids,
+                     dims=dims, width=cfg.width, height=cfg.height,
+                     spr=cfg.samples_per_ray)
+
+
+def a5_span_phase(P, a5, a5_vjp, volumes, tf) -> dict:
+    """Phase 3t: K3 bit-exact to march_a5_plain and K6 within TOL_GRAD of
+    march_a5_bwd_plain, its block partials within TOL_SPAN_F64 of the
+    float64 sums of the plain terms, where their spans could go wrong: the
+    CPU tests' scenes (tests/_torch_a5_scenes.py: odd dims, orbits, a camera
+    inside the volume, fronts along an axis, rays that miss, a step longer
+    than a voxel, a 512-deep volume, segment units, rays stepped an ulp at
+    a time across each face of the box at slopes 0.3 to 0), with
+    TF(0).alpha 0 and 0.05, at eps 0 and 1e-3, baked; both volumes at
+    ``a5_500`` with TF(0).alpha 0.05 and MNI-dims' (2, 2, 1) units and a5
+    lit 300^3 with it; no sample inside the volume outside a span.  Then
+    the index width: the kernels' rule against ``a5.index32`` at the 2^31
+    edge, and K3 and K6 on a 1300^3 grid (64-bit indices) whose rays read
+    past 2^31 -> the counts and the largest partials error."""
+    import torch
+
+    import _torch_a5_scenes as S
+
+    res = {"k3": 0, "k6": 0, "lost": 0, "touch": 0, "span": 0, "f64": 0.0}
+    grad_rng = np.random.default_rng(73)
+
+    def spans(a):
+        n = a5_span_counts(a5, a)
+        for k in ("lost", "touch", "span"):
+            res[k] += n[k]
+
+    def k3(label, a):
+        k3_bits(a5, label, a)
+        res["k3"] += 1
+
+    def k6(label, a):
+        res["f64"] = max(res["f64"], k6_span_check(
+            a5_vjp, label, a, cotangents(a, grad_rng)))
+        res["k6"] += 1
+
+    for name in S.SCENES:
+        for alpha0 in (0.0, 0.05):
+            for eps in (0.0, 1e-3):
+                a = a5_on_card(S.scene(name, alpha0, eps))
+                if eps == 0.0:
+                    spans(a)
+                    k6(f"3t {name} alpha0 {alpha0:g}", a)
+                k3(f"3t {name} alpha0 {alpha0:g} eps {eps:g}", a)
+    for name in ("orbit", "near", "inside"):
+        for alpha0 in (0.0, 0.05):
+            for j, kw in enumerate(S.units(name)):
+                a = a5_on_card(S.scene(name, alpha0, 0.0, **kw))
+                spans(a)
+                k3(f"3t {name} unit {j} alpha0 {alpha0:g}", a)
+                k6(f"3t {name} unit {j} alpha0 {alpha0:g}", a)
+    pos, shape, cfg = S.SCENES["near"]
+    for alpha0 in (0.0, 0.05):
+        for eps in (0.0, 1e-3):
+            k3(f"3t near baked alpha0 {alpha0:g} eps {eps:g}", a5_on_card(
+                a5.prepare_a5(S.odd(shape), S.tf(alpha0), P.Camera.initial(
+                    position=pos, device="cpu"), cfg.replace(lighting=True),
+                    eps)))
+    for face, side, slope in S.FACES:
+        for alpha0 in (0.0, 0.05):
+            a = a5_on_card(S.face_args(face, side, slope, alpha0))
+            label = f"3t face {face} side {side} slope {slope:g} alpha0 " \
+                    f"{alpha0:g}"
+            spans(a)
+            k3(label, a)
+            if (face, side, slope) in S.FACE_CASES:
+                k6(label, a)
+    log(f"3t edge cases: {res['touch']} samples inside the volume, "
+        f"{res['span']} in the spans, {res['lost']} inside outside a span "
+        "(must be 0)")
+    check(res["lost"] == 0, "3t: a span leaves out a sample inside the volume")
+
+    # the main shapes with TF(0).alpha 0.05: every constant sample has alpha
+    cfg = P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                         algorithm=P.Algorithm.TEST)
+    tf05 = tf_with_alpha(P, tf, 0, 0.05)
+    cam = orbit_cameras(P, np.random.default_rng(74), 1)[0]
+    for vname, vol in volumes.items():
+        for eps in (0.0, 1e-3):
+            a = a5.prepare_a5(vol, tf05, cam, cfg, eps)
+            k3(f"3t {vname} alpha0 0.05 eps {eps:g}", a)
+        n = a5_span_counts(a5, a)
+        log(f"3t {vname}: {n['touch']} of {A5_W * A5_H * A5_SPR} samples "
+            f"inside the volume, {n['span']} in the spans "
+            f"({n['span'] / max(n['touch'], 1):.3f} of them), {n['lost']} "
+            "inside outside a span (must be 0)")
+        check(n["lost"] == 0, f"3t {vname}: a span leaves out a sample")
+        a, _ = a5_vjp.prepare_a5_diff(vol, tf05, cam, cfg)
+        k6(f"3t {vname} alpha0 0.05", a)
+    vol = volumes["mni_dims_182x218x182"]
+    for xyz in mesh_coords((2, 2, 1)):
+        kw = unit_kwargs(vol, cfg, (2, 2, 1), xyz)
+        a, _ = a5_vjp.prepare_a5_diff(vol, tf05, cam, cfg, **kw)
+        k3(f"3t mni unit {xyz} alpha0 0.05", a)
+        k6(f"3t mni unit {xyz} alpha0 0.05", a)
+    k3("3t mni a5_lit_300 alpha0 0.05", a5.prepare_a5(
+        vol, tf05, cam, P.RenderConfig(**A5_LIT,
+                                       algorithm=P.Algorithm.TEST), 0.0))
+
+    # the index width: the rule at the 2^31 edge, then a grid past it
+    import ctypes
+    fn = a5._kernel_lib().vrp_a5_index32
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for dims in A5_INDEX32_EDGES:
+        got = bool(fn(*dims))
+        check(got == a5.index32(dims), f"3t index width of {dims}: kernel "
+              f"{got}")
+    wide = sum(not a5.index32(d) for d in A5_INDEX32_EDGES)
+    log(f"3t index width: the kernels' rule equals ops/a5.index32 on "
+        f"{len(A5_INDEX32_EDGES)} cases at the 2^31 edge ({wide} take 64 "
+        "bits)")
+    a = wide_a5_args(P, a5, A5_WIDE_DIMS)
+    check(not a5.index32(a.dims), "3t: the wide grid takes 32 bits")
+    corners = a5._corners(a)
+    past = sum(int((c[2] & (c[3] >= 2**31)).sum())
+               for c in (corners(i) for i in range(a.spr)))
+    log(f"3t {A5_WIDE_DIMS}: {past} samples inside read at indices past "
+        "2^31")
+    check(past > 0, "3t: no sample reads past 2^31")
+    k3(f"3t {A5_WIDE_DIMS} (64-bit indices)", a)
+    k6(f"3t {A5_WIDE_DIMS} (64-bit indices)", a)
+    del a, corners
+    torch.cuda.empty_cache()
+    log(f"3t: K3 bit-exact on {res['k3']} inputs, K6 on {res['k6']}, its "
+        f"block partials within {res['f64']:.3e} of the float64 sums")
+    return res
+
+
 class PhaseClock:
     """Prints each phase's seconds on a line of its own."""
 
@@ -5078,6 +5362,10 @@ def main(argv) -> int:
     # ---- 3s. K1's chunks and index width vs plain ----------------------------
     k1_chunk_phase(P, march, march_vjp, phong, volumes, mc_vols, tf)
     clock("3s K1's chunks and index width vs plain")
+
+    # ---- 3t. K3's and K6's spans and index width vs plain -------------------
+    a5_spans = a5_span_phase(P, a5, a5_vjp, volumes, tf)
+    clock("3t K3's and K6's spans and index width vs plain")
 
     # ---- 4. the render path -------------------------------------------------
     main_cfg = cfg.replace(early_termination=1e-3)

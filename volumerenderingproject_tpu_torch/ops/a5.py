@@ -31,10 +31,16 @@ Prep (per call, plain PyTorch):
     lookup over the float cal_max and its transmittance's alpha over
     trunc(cal_max) (PARITY C4; pallas_a5.py:981-994).
 
-The kernel's only skip is early termination: it stops a ray before the
-first sample at which |T| <= eps, which changes the output by at most eps
-times the largest colour (a sample of alpha above 1 makes T negative, and
-the ray goes on); :func:`march_a5_plain` stops at the same sample.
+The kernel stops a ray before the first sample at which |T| <= eps, which
+changes the output by at most eps times the largest colour (a sample of
+alpha above 1 makes T negative, and the ray goes on); :func:`march_a5_plain`
+stops at the same sample.  It runs the position chain only on each ray's
+span (:func:`sample_range`, the samples whose position may lie in [0,
+dims)); every other sample is TF(0)'s colour, skipped where its alpha is 0
+and composited as it is otherwise, which leaves the march bit-exact to
+:func:`march_a5_plain`.  The position is the TPU kernel's hoisted chain
+(:func:`ray_q`, :func:`positions`), bit-equal to :func:`apply_stages` on
+the matrices :func:`stage_matrices` builds.
 A sharded render (``parallel/render_dist.py``) marches one work unit per
 rank on the rays and samples axes (pallas_a5.py:851 with ``segment=True``):
 columns [x_offset, x_offset + local_width) and samples [s_start, s_start +
@@ -71,6 +77,12 @@ MAX_INTERVALS = 256  # ids are uint8; the kernel keeps the colours in shared mem
 # (modelCam, inverseView, toVolume), eps, id0 and the background
 S_MC, S_IV, S_TV, S_EPS, S_ID0, S_BG = 0, 12, 24, 36, 37, 38
 SCAL_LEN = 41
+
+# each ray's span is widened by this times the largest magnitude its chain
+# adds (csrc/a5_common.cuh kRangePad); a step component at most TINY_STEP
+# is not divided by (kTinyStep)
+RANGE_PAD = 2.0 ** -14
+TINY_STEP = 1e-20
 
 # launches of the CUDA kernel since import (or since a caller reset them),
 # in all and by variant
@@ -150,6 +162,110 @@ def apply_stages(mats, x: torch.Tensor, y: torch.Tensor, i: torch.Tensor
     return pos
 
 
+def ray_q(a: A5Args) -> torch.Tensor:
+    """[W, H, 3] f32: the i-independent part of every ray's position chain
+    (``a5_ray_q`` in csrc/a5_common.cuh, pallas_a5.py:186-188), ``q_c = (px
+    s1 + o1) iv[c][0] + (py s2 + o2) iv[c][1]`` for the global columns
+    [x_offset, x_offset + width), read from the stage-matrix slots."""
+    s = a.scal
+    dev = s.device
+    x = torch.arange(a.width, dtype=_f32, device=dev) + float(a.x_offset)
+    y = torch.arange(a.height, dtype=_f32, device=dev)
+    p1x = (x * s[S_MC] + s[S_MC + 3])[:, None]
+    p1y = (y * s[S_MC + 5] + s[S_MC + 7])[None, :]
+    return torch.stack([p1x * s[S_IV + 4 * c] + p1y * s[S_IV + 4 * c + 1]
+                        for c in range(3)], dim=-1)
+
+
+def _chain_consts(scal: torch.Tensor):
+    """(s3, iv[:, 2], iv[:, 3], L, m3) of the scalar vector, as
+    ``a5_chain`` reads them: [1] and four [3]."""
+    c = torch.arange(3, device=scal.device)
+    return (scal[S_MC + 10], scal[S_IV + 4 * c + 2], scal[S_IV + 4 * c + 3],
+            scal[S_TV + 5 * c], scal[S_TV + 4 * c + 3])
+
+
+def positions(a: A5Args, q: torch.Tensor, i: int) -> torch.Tensor:
+    """[W, H, 3] f32: sample i's voxel-space position on every ray through
+    the hoisted chain (``a5_position``): ``p2_c = (q_c + (i s3) iv[c][2]) +
+    iv[c][3]``, ``p_c = p2_c L_c + m3_c``, 16 operations."""
+    s3, iv2, iv3, L, m3 = _chain_consts(a.scal)
+    p1z = torch.tensor(float(i), dtype=_f32, device=q.device) * s3
+    return ((q + p1z * iv2) + iv3) * L + m3
+
+
+def sample_range(a: A5Args) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each ray's span of samples as the a5 kernels take it (``a5_span`` in
+    csrc/a5_common.cuh, in its float order) -> (lo, hi) int64 [W, H],
+    within the unit's samples [s_start, s_start + spr); an empty span is
+    (end, end - 1), end = s_start + spr.  Every sample whose chain puts it
+    in [0, dims) lies in it.  Used to check and count the spans:
+    :func:`march_a5_plain` evaluates every sample."""
+    s3, iv2, iv3, L, m3 = _chain_consts(a.scal)
+    q = ray_q(a)
+    dev = q.device
+    end = a.s_start + a.spr
+    imax = torch.tensor(float(end), dtype=_f32, device=dev)
+    A = (q + iv3) * L + m3
+    B = (s3 * iv2) * L
+    mag = (((q.abs() + (s3 * iv2).abs() * imax) + iv3.abs()) * L.abs()
+           + m3.abs())
+    finite = (torch.isfinite(A).all(-1) & bool(torch.isfinite(B).all())
+              & torch.isfinite(mag).all(-1))
+    pad = RANGE_PAD * (mag + 2.0)
+    lo_b = 0.0 - pad
+    hi_b = torch.tensor(a.dims, dtype=_f32, device=dev) + pad
+    safe = B.abs() > TINY_STEP
+    bv = torch.where(safe, B, torch.ones_like(B))
+    ta = (lo_b - A) / bv
+    tb = (hi_b - A) / bv
+    in_c = (A >= lo_b) & (A <= hi_b)
+    inf = torch.full_like(A, float("inf"))
+    lo_c = torch.where(safe, torch.fmin(ta, tb), torch.where(in_c, -inf, inf))
+    hi_c = torch.where(safe, torch.fmax(ta, tb), torch.where(in_c, inf, -inf))
+    t_lo, t_hi = -inf[..., 0], inf[..., 0]
+    for c in range(3):  # fmaxf / fminf: a NaN operand gives the other
+        t_lo = torch.fmax(t_lo, lo_c[..., c])
+        t_hi = torch.fmin(t_hi, hi_c[..., c])
+    w_lo = torch.tensor(float(a.s_start), dtype=_f32, device=dev) - 2.0
+    w_hi = imax + 1.0
+
+    def clamped(v):
+        return torch.fmin(torch.fmax(v, w_lo), w_hi)
+
+    lo = torch.clamp(torch.floor(clamped(t_lo)).to(torch.int64) - 1,
+                     min=a.s_start)
+    hi = torch.clamp(torch.ceil(clamped(t_hi)).to(torch.int64) + 1,
+                     max=end - 1)
+    empty = ~(t_hi >= t_lo) | (lo > hi)
+    lo = torch.where(finite, torch.where(empty, end, lo), a.s_start)
+    hi = torch.where(finite, torch.where(empty, end - 1, hi), end - 1)
+    return lo, hi
+
+
+def index32(dims: Tuple[int, int, int]) -> bool:
+    """Whether the a5 kernels take 32-bit voxel indices on a grid of
+    ``dims`` (``a5_index32`` in csrc/a5_common.cuh): where every flat index
+    a corner can form, its indices up to dim + 1 with the row and plane
+    wraps, stays below 2^31.  Else 64-bit."""
+    d1, d2, d3 = dims
+    return (d1 + 1) * d2 * d3 + (d2 + 1) * d3 + (d3 + 1) < 2**31
+
+
+def scal_vector(camera, dims: Tuple[int, int, int], config: RenderConfig,
+                early_eps: float, id0: torch.Tensor) -> torch.Tensor:
+    """The kernels' scalar vector [41] f32 on the camera's device: the
+    three stage matrices' rows (slots S_MC, S_IV, S_TV), eps, id0 and the
+    background."""
+    dev = camera.device
+    mats = stage_matrices(camera, dims, config)
+    return torch.cat([m[:3].reshape(-1) for m in mats] + [
+        torch.tensor([early_eps], dtype=_f32, device=dev),
+        id0.to(device=dev, dtype=_f32).reshape(1),
+        torch.tensor(list(config.background[:3]), dtype=_f32, device=dev),
+    ])
+
+
 def prepare_a5(volume, tf, camera, config: RenderConfig,
                early_eps: float, light: Light | None = None, *,
                x_offset: int = 0, local_width: int | None = None,
@@ -180,12 +296,7 @@ def prepare_a5(volume, tf, camera, config: RenderConfig,
     tf = tf.to(dev)
     camera = camera.to(dev)
     ids, id0 = a5_ids(volume, tf)
-    mats = stage_matrices(camera, volume.dims, config)
-    scal = torch.cat([m[:3].reshape(-1) for m in mats] + [
-        torch.tensor([early_eps], dtype=_f32, device=dev),
-        id0.to(_f32).reshape(1),
-        torch.tensor(list(config.background[:3]), dtype=_f32, device=dev),
-    ])
+    scal = scal_vector(camera, volume.dims, config, early_eps, id0)
     cal = volume.cal_max.to(device=dev, dtype=_f32)
     mgrid, sgrid = bake_grids(volume, tf, camera, config, light, cal,
                               torch.trunc(cal))
@@ -238,7 +349,9 @@ def march_a5_plain(a: A5Args, stats: dict | None = None):
     ray where the kernel does.
 
     With ``stats``, ``stats["samples"]`` is set to the number of samples
-    this input needs: those inside the volume on rays not yet terminated.
+    this input needs: those inside the volume on rays not yet terminated,
+    and ``stats["outside"]`` to those outside it on such rays (TF(0)'s
+    colour, composited where its alpha is not 0).
     """
     dev = a.ids.device
     s = a.scal
@@ -255,6 +368,7 @@ def march_a5_plain(a: A5Args, stats: dict | None = None):
     c = torch.zeros((w, h, 3), dtype=_f32, device=dev)
     t = torch.ones((w, h, 1), dtype=_f32, device=dev)
     needed = torch.zeros((), dtype=torch.int64, device=dev)
+    outside = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(a.s_start, a.s_start + a.spr):
         active = t.abs() > eps
         mid, frac, inside, flat0 = corners(i)
@@ -271,9 +385,11 @@ def march_a5_plain(a: A5Args, stats: dict | None = None):
         c = torch.where(active, c + (t * alpha) * rgb, c)
         if stats is not None:
             needed += (inside & active[..., 0]).sum()
+            outside += (~inside & active[..., 0]).sum()
         t = torch.where(active, t * (1.0 - alpha), t)
     if stats is not None:
         stats["samples"] = int(needed)
+        stats["outside"] = int(outside)
     if a.segment:
         return c, t
     rgb = c + t * s[S_BG:S_BG + 3]

@@ -24,7 +24,10 @@ in two passes per ray (pass A: the total and T_N; pass B: the prefix), with
 the division term gated to 0 where ``1 - a_s == 0``.  Both passes
 recompute a and rgb in this coefficient form, as the TPU kernel does, so
 the suffix at the last sample is exactly 0; the forward's mixed form can
-differ from it in the last bits.  Every sample is marched.
+differ from it in the last bits.  The plain version marches every sample;
+the kernel runs the chain only on each ray's span (``a5.sample_range``)
+and folds the constant samples outside it once a ray, which regroups
+float sums (within ``TOL_GRAD`` of the plain version on the card).
 
 The forward runs at ``early_eps = 0``.  The a5 path reads no
 ``density_scale`` (the fit folds its own density into the alpha column), so
@@ -41,12 +44,14 @@ import torch
 from ..scene.transfer_function import TransferFunction
 from ..utils.config import RenderConfig
 from ..utils.device import resolve_device
-from . import _build, a5
+from . import _build, a5, march_vjp
 from .a5 import S_BG, S_ID0, A5Args
 
 _f32 = torch.float32
 MAX_INTERVALS = 16  # the JAX kernel's limit (a5_diff_config_ok)
-BLOCK = 16  # pixels per edge of the kernel's blocks; one partial per block
+# the kernel's blocks, pixels along y and x (kBlockY, kBlockX in
+# csrc/a5_bwd.cu); one partial per block
+BLOCK_Y, BLOCK_X = 8, 64
 
 # launches of the CUDA kernel since import (or since a caller reset them),
 # and the launches that took a sharded fit's work unit
@@ -129,12 +134,16 @@ def _coef_samples(a: A5Args):
 
 
 def march_a5_bwd_plain(a: A5Args, g_rgb: torch.Tensor,
-                       g_t: torch.Tensor) -> torch.Tensor:
+                       g_t: torch.Tensor, per_ray: bool = False
+                       ) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel -> dL/dcolors [K, 4]:
     the kernel's two passes with its float order, as a loop over samples
     vectorised over rays, over a work unit's columns and samples (``g_t``
     the cotangent of its own final T).  Each ray sums its terms per interval
-    in sample order; the rays' sums are added last."""
+    in sample order; the rays' sums are added last.  With ``per_ray`` the
+    same float32 terms are summed per ray in float64 and not over the rays
+    -> [W * H, K, 4] float64 (ray px * H + py): the sums that any float
+    order of the terms approximates."""
     dev = a.ids.device
     sample = _coef_samples(a)
     gr, gg, gb = g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2]
@@ -149,7 +158,8 @@ def march_a5_bwd_plain(a: A5Args, g_rgb: torch.Tensor,
         t = t * (1.0 - alpha)
     bg_term = t * g_t
 
-    acc = torch.zeros(shape + (a.colors.shape[0], 4), dtype=_f32, device=dev)
+    acc = torch.zeros(shape + (a.colors.shape[0], 4),
+                      dtype=torch.float64 if per_ray else _f32, device=dev)
     zero = torch.zeros((), dtype=_f32, device=dev)
     g4 = torch.stack([gr, gg, gb], dim=-1)[..., None, :]
     t = torch.ones(shape, dtype=_f32, device=dev)
@@ -166,13 +176,24 @@ def march_a5_bwd_plain(a: A5Args, g_rgb: torch.Tensor,
         t = t * denom
         cw = (coef * w[..., None])[..., None]
         acc = acc + torch.cat([cw * g4, (coef * da[..., None])[..., None]],
-                              dim=-1)
+                              dim=-1).to(acc.dtype)
+    if per_ray:
+        return acc.reshape(a.width * a.height, -1, 4)
     return acc.sum(dim=(0, 1))
 
 
 def num_blocks(width: int, height: int) -> int:
-    """Rows of the kernel's partials: one per 16x16 pixel block."""
-    return -(-width // BLOCK) * -(-height // BLOCK)
+    """Rows of the kernel's partials: one per block of BLOCK_X x BLOCK_Y
+    pixels."""
+    return -(-width // BLOCK_X) * -(-height // BLOCK_Y)
+
+
+def block_sums(per_ray: torch.Tensor, width: int, height: int
+               ) -> torch.Tensor:
+    """Per-ray sums [W * H, K, 4] (ray px * H + py) summed over the
+    kernel's blocks -> [num_blocks, K, 4] in the rows of its partials
+    (block (px // BLOCK_X) * ceil(H / BLOCK_Y) + py // BLOCK_Y)."""
+    return march_vjp.block_sums(per_ray, width, height, BLOCK_X, BLOCK_Y)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -188,9 +209,11 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def march_a5_bwd_kernel(a: A5Args, g_rgb: torch.Tensor,
-                        g_t: torch.Tensor) -> torch.Tensor:
+                        g_t: torch.Tensor, per_block: bool = False
+                        ) -> torch.Tensor:
     """Launch ``csrc/a5_bwd.cu`` on the current stream and sum its
-    per-block partials -> dL/dcolors [K, 4], over a work unit's columns and
+    per-block partials -> dL/dcolors [K, 4] (with ``per_block`` the
+    partials themselves, [num_blocks, K, 4]), over a work unit's columns and
     samples."""
     global launches, segment_launches
     if a.mgrid is not None:
@@ -216,7 +239,7 @@ def march_a5_bwd_kernel(a: A5Args, g_rgb: torch.Tensor,
     launches += 1
     if a.segment:
         segment_launches += 1
-    return partials.sum(dim=0)
+    return partials if per_block else partials.sum(dim=0)
 
 
 def _forward(a: A5Args):

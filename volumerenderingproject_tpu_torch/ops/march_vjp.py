@@ -417,17 +417,19 @@ def num_blocks(width: int, height: int) -> int:
     return -(-width // BLOCK_X) * -(-height // BLOCK_Y)
 
 
-def block_sums(per_ray: torch.Tensor, width: int, height: int
+def block_sums(per_ray: torch.Tensor, width: int, height: int,
+               block_x: int = BLOCK_X, block_y: int = BLOCK_Y
                ) -> torch.Tensor:
     """Per-ray sums [W * H, K, 4] (ray px * H + py) summed over the
     kernel's blocks -> [num_blocks, K, 4] in the rows of its partials
-    (block (px // BLOCK_X) * ceil(H / BLOCK_Y) + py // BLOCK_Y)."""
+    (block (px // block_x) * ceil(H / block_y) + py // block_y; K4's blocks
+    unless given)."""
     k = per_ray.shape[1]
     x = per_ray.reshape(width, height, k, 4)
-    pw, ph = -width % BLOCK_X, -height % BLOCK_Y
+    pw, ph = -width % block_x, -height % block_y
     x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, ph, 0, pw))
-    return x.reshape((width + pw) // BLOCK_X, BLOCK_X,
-                     (height + ph) // BLOCK_Y, BLOCK_Y, k, 4
+    return x.reshape((width + pw) // block_x, block_x,
+                     (height + ph) // block_y, block_y, k, 4
                      ).sum(dim=(1, 3)).reshape(-1, k, 4)
 
 
