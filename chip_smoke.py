@@ -305,6 +305,29 @@ their own seeds:
      rank's K1/K3 and K4/K6 launches by work unit set to 0 just before and
      read just after (rank 0's ms/step); then 1 rank through NCCL.
 
+The scan route (``mode="scan"``: the plain scans under autograd in
+checkpointed chunks of samples, for the fits that no differentiable kernel
+computes; the volume axis's slab scan), with its own seeds:
+
+  4h, 7m also run it among the gloo ranks: a lit a1 and an a5 render
+     through the slab scan on (1, 1, 4) against ``render(mode="scan")``
+     within TOL_EXACT, a LUT fit through the scan segments on (2, 2, 1) and
+     a light fit through the slab scan on (1, 2, 2), step-1 gradients within
+     TOL_EXACT of the single-device scan route's; no kernel launches;
+  5k. the CLI ``fit --mode scan --lighting --conic --fit-light``;
+  7n. full-width fits through the scan on MNI-dims: (a) conic lit colour
+     and light 700x700x500, (b) lit a5 ``a5_500``, (c) a light fit at
+     ``lut_phong_300``, (d) a smooth lit bound fit 700x700x500, (e) conic
+     scattered 700x700x250, (f) lit 4-D ``multichannel_304``, (g) 20
+     intervals and ``Interp.TRILINEAR_COLOR`` 700x700x500; each 1 warm-up
+     and 2 timed steps (CUDA events), finite losses, its peak device memory
+     at most 8 GiB above the start and no hand-written kernel launched; (a)
+     with its steps repeated (equal losses) and a central difference of its
+     gradient within TOL_FD; then the scan route against K1/K4 baked
+     (``sobel_lit_700``), K3/K6 (``a5_500``) and K8/K9 (the smooth bound
+     fit at 700x700x500) at eps 0: losses within 1e-4 relative, every
+     gradient within TOL_GRAD of its largest component.
+
 K1's chunks and index width (the brick test's runs of 8 samples; with
 channel grids the march computes the voxels of 8 samples and issues their
 loads together, then composites them in order; 32-bit voxel indices below
@@ -1546,6 +1569,26 @@ def lit_cli_phase(tmp: str) -> None:
             f"{proc.stderr.strip()[-2000:]}")
         check(proc.returncode == 0, f"cli {name} failed")
         check_png(out, size, size)
+
+
+def scan_cli_phase(tmp: str, from_text) -> None:
+    """Phase 5k: the CLI ``fit --mode scan --lighting --conic --fit-light``
+    at 64x64 pixels and 64 samples a ray, against its own scan render: the
+    TF file parses, the fitted light is printed."""
+    out = os.path.join(tmp, "scan_fit_tf.txt")
+    proc = subprocess.run(
+        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "fit",
+         "--data", "sphere", "--width", "64", "--height", "64", "--spr",
+         "64", "--steps", "2", "--mode", "scan", "--lighting", "--conic",
+         "--camera", "0.9,0.5,1.0", "--fit-light", "--out-tf", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(f"cli fit --mode scan exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-2000:]}")
+    check(proc.returncode == 0, "cli fit --mode scan failed")
+    check("fitted light:" in proc.stdout, "cli fit --mode scan: no light")
+    with open(out) as f:
+        check(from_text(f.read()).num_intervals == 4,
+              "cli fit --mode scan: the TF file")
 
 
 def bounds_moved(tf):
@@ -3957,6 +4000,15 @@ def shard_render_phase(P, launch, shard_worker, volumes, tf, rng, res
     vol = volumes["mni_dims_182x218x182"]
     specs.append(("mni_dims_182x218x182", vol, (2, 2, 1), orbit_cam, a5_cfg))
     jobs, refs = [], {}
+    # the slab scan (mode="scan", 7n's): a lit a1 and an a5 render on
+    # (1, 1, 4), against the single-device scan; no kernel launches
+    for c in (cfg.replace(lighting=True), a5_cfg):
+        name = f"sphere100_{'lit' if c.lighting else 'a5'}_slab_scan_114"
+        refs[name] = (P.render(volumes["sphere100"], tf, orbit_cam, c,
+                               mode="scan"), 0.0, (1, 1, 4), c)
+        jobs.append(dict(name=name, mesh=(1, 1, 4),
+                         volume=cpu_vols["sphere100"], tf=cpu_tf,
+                         camera=orbit_cam.to("cpu"), config=c, mode="scan"))
     for vname, vol, shape, cam, c in specs:
         exact = P.render(vol, tf, cam, c)  # eps 0: the exact render
         for eps in (0.0, 1e-3):
@@ -3991,7 +4043,11 @@ def shard_render_phase(P, launch, shard_worker, volumes, tf, rng, res
                 e = float((img - exact).abs().max())
                 check(e <= tol, f"4h {job['name']} rank {r}: max err {e}")
                 frames = meta["frames"]
-                if a5_job:
+                if job.get("mode") == "scan":
+                    got = {**meta["k1_shard"],
+                           "a5_segment": meta["k3_segment"]}
+                    want = dict.fromkeys(got, 0)
+                elif a5_job:
                     got = {"a5_segment": meta["k3_segment"]}
                     want = {"a5_segment": frames}
                 else:
@@ -4361,20 +4417,32 @@ def shard_fit_phase(P, fit, phong, launch, shard_worker, volumes, tf, rng,
              ("lit_light_221", (2, 2, 1), lit, start_light, "segment",
               "baked", 1 + phong.N_LIGHT_PARAMS + 1),
              ("lit_122", (1, 2, 2), lit, None, "slab", "baked", 1),
-             ("a5_221", (2, 2, 1), a5_cfg, None, "segment", "a5", 1)]
+             ("a5_221", (2, 2, 1), a5_cfg, None, "segment", "a5", 1),
+             # the scan route (7n's): a LUT fit through the scan segments
+             # and a light fit through the slab scan; no kernel launches,
+             # step-1 gradients within TOL_EXACT of the single-device scan
+             # route's
+             ("lut_scan_221", (2, 2, 1), cfg.replace(tf_lut=256), None,
+              "segment", "scan", 0),
+             ("lit_light_slab_scan_122", (1, 2, 2), lit, start_light, "slab",
+              "scan", 0)]
     jobs, singles = [], {}
     cpu = dict(volume=vol.to("cpu"), camera=cam.to("cpu"))
-    for name, shape, c, light, _, _, _ in specs:
-        target = P.render(vol, tf, cam, c)
+    for name, shape, c, light, _, var, _ in specs:
+        mode = "scan" if var == "scan" else "fast"
+        target = P.render(vol, tf, cam, c, mode=mode)
         jobs.append(dict(name=name, mesh=shape, tf=start_tf.to("cpu"),
                          config=c, target=target.cpu(), steps=SHARD_FIT_STEPS,
-                         lr=FIT_LR, timed_steps=SHARD_FIT_TIMED,
+                         lr=FIT_LR, mode=mode,
+                         timed_steps=1 if var == "scan" else SHARD_FIT_TIMED,
                          light=None if light is None else light.to("cpu"),
                          **cpu))
         params = fit.FitParams.init(start_tf, light=light)
-        loss = fit.render_loss(params, start_tf, vol, cam, target, c)
+        loss = fit.render_loss(params, start_tf, vol, cam, target, c,
+                               mode=mode)
         loss.backward()
-        singles[name] = [p.grad.detach() for p in params.parameters()]
+        singles[name] = [torch.zeros_like(p) if p.grad is None
+                         else p.grad.detach() for p in params.parameters()]
     totals = {"k1_segment": 0, "k1_slab": 0, "k1_baked_segment": 0,
               "k1_baked_slab": 0, "k4_segment": 0, "k4_slab": 0,
               "k4_segment_baked": 0, "k4_slab_baked": 0, "k3_segment": 0,
@@ -4407,11 +4475,19 @@ def shard_fit_phase(P, fit, phong, launch, shard_worker, volumes, tf, rng,
                 errs.append(float((got - want).abs().max()) / scale
                             if scale > 0 else float(got.abs().max()))
             grad_errs[name] = max(errs)
-            check(grad_errs[name] <= TOL_SHARD_SUM,
+            tol = TOL_EXACT if var == "scan" else TOL_SHARD_SUM
+            check(grad_errs[name] <= tol,
                   f"7m {name}: step-1 gradients vs the single-device fit's "
                   f"{errs}")
             steps = metas[0]["steps"]
             for r, m in enumerate(metas):
+                if var == "scan":
+                    got = (sum(m["k1_shard"].values())
+                           + sum(m["k4_shard"].values()) + m["k3_segment"]
+                           + m["k6_segment"],)
+                    check(got == (0,), f"7m {name} rank {r}: a kernel "
+                          f"launched {m}")
+                    continue
                 if var == "a5":
                     got = (m["k3_segment"], m["k6_segment"])
                 else:
@@ -4430,7 +4506,7 @@ def shard_fit_phase(P, fit, phong, launch, shard_worker, volumes, tf, rng,
             step_ms[name] = metas[0]["ms_per_step"]
             log(f"7m {name} {shape}: rank 0 {step_ms[name]:.3f} ms/step over "
                 f"{steps} steps, step-1 gradients vs single-device max err "
-                f"{grad_errs[name]:.3e} (tol {TOL_SHARD_SUM:g}), losses "
+                f"{grad_errs[name]:.3e} (tol {tol:g}), losses "
                 f"{outs[0]['losses'].tolist()}, launches K1 "
                 f"{metas[0]['k1_shard']} {metas[0]['k1']}, K4 "
                 f"{metas[0]['k4_shard']} {metas[0]['k4']}, K3 segment "
@@ -4996,6 +5072,238 @@ def a5_span_phase(P, a5, a5_vjp, volumes, tf) -> dict:
     return res
 
 
+# ---- the scan route -----------------------------------------------------------
+
+# phase 7n: every full-width scan-route fit takes one warm-up step and these
+# timed steps; its peak device memory above the start stays below
+# SCAN_PEAK_MIB; the scan route agrees with the kernels where both apply
+# within TOL_SCAN_LOSS (the loss, relative) and TOL_GRAD (each gradient, of
+# its largest component)
+SCAN_FIT_TIMED = 2
+SCAN_PEAK_MIB = 8192
+TOL_SCAN_LOSS = 1e-4
+# two identical scan fits, where an autograd op's CUDA backward is not
+# deterministic (relative); bit-equal expected
+TOL_SCAN_DET = 1e-6
+
+
+def kernel_counts(mods) -> tuple:
+    """The launches of each kernel module so far."""
+    return tuple(m.launches for m in mods)
+
+
+def scan_fit_case(P, fit, mods, label, vol, cam, cfg, start_tf, target,
+                  fit_bounds=False, light=None, repeat=False) -> dict:
+    """One full-width fit through the scan route: 1 warm-up step and
+    SCAN_FIT_TIMED timed steps (CUDA events), the peak device memory above
+    the start, no hand-written kernel launched; with ``repeat`` the timed
+    steps once more, their losses equal."""
+    import torch
+
+    def run(steps):
+        return fit.fit_transfer_function(vol, cam, target, start_tf, cfg,
+                                         steps=steps, learning_rate=FIT_LR,
+                                         fit_bounds=fit_bounds, light=light,
+                                         mode="scan")
+
+    base = mem_reset()
+    before = kernel_counts(mods)
+    run(1)  # warm-up step
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, losses = run(SCAN_FIT_TIMED)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / SCAN_FIT_TIMED
+    _, above = peak_mb(base)
+    launched = [a - b for a, b in zip(kernel_counts(mods), before)]
+    log(f"7n {label}: scan-route fit losses {losses}, {ms:.1f} ms/step, "
+        f"peak {above:.1f} MiB above the start, kernel launches {launched}")
+    check(all(math.isfinite(v) for v in losses),
+          f"7n {label}: loss not finite")
+    check(not any(launched), f"7n {label}: a kernel launched {launched}")
+    check(above <= SCAN_PEAK_MIB,
+          f"7n {label}: peak {above:.1f} MiB above the start")
+    out = dict(ms=ms, peak_mib=above, losses=losses)
+    if repeat:
+        _, again = run(SCAN_FIT_TIMED)
+        det = max(abs(a - b) / abs(b) for a, b in zip(again, losses))
+        log(f"7n {label}: the same steps again: losses {again} "
+            f"({'bit-equal' if again == losses else f'max relative {det:.3e}'})")
+        check(det <= TOL_SCAN_DET, f"7n {label}: the scan fit is not "
+              f"deterministic ({det})")
+        out["bit_equal"] = again == losses
+    return out
+
+
+def scan_fd_check(P, fit, phong, label, vol, cam, cfg, start_tf, target,
+                  light) -> float:
+    """The scan route's gradient (colours, density, the light's ten) at the
+    start against a central difference of the loss along it, as phase 7."""
+    import torch
+
+    params = fit.FitParams.init(start_tf, light=light)
+    fit.render_loss(params, start_tf, vol, cam, target, cfg,
+                    mode="scan").backward()
+    ps = params.parameters()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
+    norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+    check(math.isfinite(norm) and norm > 0.0, f"7n {label}: gradient {norm}")
+
+    def moved(h):
+        q = [p + (h / norm) * g for p, g in zip(ps, grads)]
+        return fit.FitParams(tf_colors=q[0], density_scale=q[1],
+                             light=phong.Light(*q[2:]))
+
+    with torch.no_grad():
+        up, down = moved(FD_STEP), moved(-FD_STEP)
+        l_up, l_down = (float(fit.render_loss(q, start_tf, vol, cam, target,
+                                              cfg, mode="scan"))
+                        for q in (up, down))
+        predicted = sum(float((g.double() * (u - d).double()).sum())
+                        for g, u, d in zip(grads, up.parameters(),
+                                           down.parameters()))
+    err = abs((l_up - l_down) - predicted) / abs(predicted)
+    log(f"7n {label}: |grad| {norm:.6g}; central difference {l_up - l_down:.6g}"
+        f" against {predicted:.6g} predicted (relative err {err:.3e}, tol "
+        f"{TOL_FD:g})")
+    check(err <= TOL_FD and l_down < l_up,
+          f"7n {label}: gradient check failed")
+    return err
+
+
+def scan_vs_kernels(P, fit, mods, label, vol, cam, cfg, start_tf, target,
+                    fit_bounds=False) -> dict:
+    """The loss and every gradient through the scan route against the
+    kernels' route (eps 0) on the same inputs: the kernels launched only in
+    the fast step."""
+    got = {}
+    for mode in ("fast", "scan"):
+        before = kernel_counts(mods)
+        params = fit.FitParams.init(start_tf, fit_bounds=fit_bounds)
+        loss = fit.render_loss(params, start_tf, vol, cam, target, cfg,
+                               mode=mode)
+        loss.backward()
+        launched = [a - b for a, b in zip(kernel_counts(mods), before)]
+        got[mode] = (float(loss.detach()),
+                     [p.grad for p in params.parameters()],
+                     launched)
+    (lf, gf, nf), (ls, gs, ns) = got["fast"], got["scan"]
+    loss_err = abs(ls - lf) / abs(lf)
+    errs = [float((b - a).abs().max()) / float(a.abs().max())
+            for a, b in zip(gf, gs)]
+    log(f"7n {label}: scan route vs kernels at eps 0: loss {ls:.9g} vs "
+        f"{lf:.9g} (relative {loss_err:.3e}, tol {TOL_SCAN_LOSS:g}), "
+        f"gradients max err of the largest {errs} (tol {TOL_GRAD:g}); "
+        f"launches kernels {nf}, scan {ns}")
+    check(loss_err <= TOL_SCAN_LOSS, f"7n {label}: losses {ls} vs {lf}")
+    check(max(errs) <= TOL_GRAD, f"7n {label}: gradients {errs}")
+    check(sum(nf) >= 2 and not any(ns),
+          f"7n {label}: launches kernels {nf}, scan {ns}")
+    return dict(loss_err=loss_err, grad_err=max(errs))
+
+
+def scan_route_phase(P, fit, phong, mods, volumes, mc_vols, tf, rng) -> dict:
+    """Phase 7n: fits through the scan route at full width, each on the
+    MNI-dims volume (the 4-D one on its 3-channel twin) from the default TF
+    with colours 1..3 moved by a seeded +-0.2 (the alphas scaled for the
+    4-D fit), against the scan render of the default TF: (a) conic lit
+    colour and light fit at 700x700x500 (central filter, presmooth 0; the
+    light from ambient 0.7 and diffuse 0.2), with a central difference of
+    its gradient and its steps repeated; (b) lit a5 colour fit at
+    ``a5_500``; (c) a light fit through a LUT at ``lut_phong_300``; (d) a
+    smooth lit bound fit at 700x700x500; (e) a conic scattered colour fit
+    at ``sobel_lit_700``'s shape; (f) a lit 4-D alpha fit at
+    ``multichannel_304``; (g) a 20-interval and an ``Interp.TRILINEAR_COLOR``
+    colour fit at 700x700x500.  Then the scan route against K1/K4 baked
+    (``sobel_lit_700``), K3/K6 (``a5_500``) and K8/K9 (the smooth bound fit
+    at 700x700x500), eps 0.  -> ms/step and peak MiB by case."""
+    import torch
+
+    vol = volumes["mni_dims_182x218x182"]
+    cam = orbit_cameras(P, rng, 1)[0]
+    conic_cam = P.Camera.initial(position=(0.9, 0.5, 1.0))
+    a1 = dict(width=W, height=H, samples_per_ray=SPR)
+    start_tf, _ = lit_fit_start(P, phong, tf, rng, False)
+    _, start_light = lit_fit_start(P, phong, tf, rng, True)
+    default_light = phong.default_light()
+    # 20 intervals of width 0.05 over [0, 1], seeded colours
+    dev = tf.colors.device
+    k = 20
+    lo = torch.linspace(0.0, 0.95, k, device=dev)
+    up = lo + 0.05
+    up[0] = 1.0
+    colors = torch.tensor(rng.uniform(0.0, 0.5, (k, 4)).astype(np.float32),
+                          device=dev)
+    colors[0, 3] = 0.0
+    k20_start = P.TransferFunction(lo, up, colors, torch.zeros(k, device=dev))
+    moved = colors.clone()
+    moved[1:] += 0.1
+    k20_target_tf = P.TransferFunction(lo, up, moved, k20_start.hg_g)
+    mc_vol = mc_vols["mni3_182x218x182"]
+    mc_colors = tf.colors.clone()
+    mc_colors[1:, 3] *= MC_FIT_ALPHA_SCALE
+    mc_start = P.TransferFunction(tf.lower, tf.upper, mc_colors, tf.hg_g)
+    lower, upper = bounds_moved(tf)
+    bound_start = P.TransferFunction(lower, upper, start_tf.colors, tf.hg_g)
+    cases = [
+        ("a conic lit colour and light fit 700x700x500", vol, conic_cam,
+         P.RenderConfig(**a1, lighting=True, conic=True), start_tf, tf,
+         start_light, False),
+        ("b lit a5 colour fit a5_500", vol, cam,
+         P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                        algorithm=P.Algorithm.TEST, lighting=True),
+         start_tf, tf, None, False),
+        ("c light fit lut_phong_300", vol, cam,
+         P.RenderConfig(**LIT_CONFIGS["lut_phong_300"]), tf, tf, start_light,
+         False),
+        ("d smooth lit bound fit 700x700x500", vol, cam,
+         P.RenderConfig(**a1, interp=P.Interp.TRILINEAR, lighting=True),
+         bound_start, tf, None, True),
+        ("e conic scattered colour fit 700x700x250", vol, conic_cam,
+         P.RenderConfig(width=W, height=H, samples_per_ray=250,
+                        scattering=True, conic=True), start_tf, tf, None,
+         False),
+        ("f lit 4-D alpha fit multichannel_304", mc_vol, cam,
+         P.RenderConfig(**MC_SHAPE, lighting=True), mc_start, tf, None,
+         False),
+        ("g1 20-interval colour fit 700x700x500", vol, cam,
+         P.RenderConfig(**a1), k20_start, k20_target_tf, None, False),
+        ("g2 TRILINEAR_COLOR colour fit 700x700x500", vol, cam,
+         P.RenderConfig(**a1, interp=P.Interp.TRILINEAR_COLOR), start_tf, tf,
+         None, False),
+    ]
+    res = {}
+    for label, v, c, cfg, start, target_tf, light, bounds in cases:
+        with torch.no_grad():
+            target = P.render(v, target_tf, c, cfg, mode="scan",
+                              light=None if light is None else default_light)
+        key = label.split()[0]
+        res[key] = scan_fit_case(P, fit, mods, label, v, c, cfg, start,
+                                 target, fit_bounds=bounds, light=light,
+                                 repeat=key == "a")
+        if key == "a":
+            res[key]["fd_err"] = scan_fd_check(P, fit, phong, label, v, c,
+                                               cfg, start, target, light)
+    # the scan route against the kernels where both apply, eps 0
+    smooth_cfg = P.RenderConfig(**a1, interp=P.Interp.TRILINEAR)
+    for label, cfg, start, bounds in (
+            ("K1/K4 baked, lit colour fit sobel_lit_700",
+             P.RenderConfig(**LIT_CONFIGS["sobel_lit_700"]), start_tf, False),
+            ("K3/K6, a5 colour fit a5_500",
+             P.RenderConfig(width=A5_W, height=A5_H, samples_per_ray=A5_SPR,
+                            algorithm=P.Algorithm.TEST), start_tf, False),
+            ("K8/K9, smooth bound fit 700x700x500", smooth_cfg, bound_start,
+             True)):
+        target = P.render(vol, tf, cam, cfg)
+        res[label.split(",")[0]] = scan_vs_kernels(
+            P, fit, mods, label, vol, cam, cfg, start, target,
+            fit_bounds=bounds)
+    return res
+
+
 class PhaseClock:
     """Prints each phase's seconds on a line of its own."""
 
@@ -5449,11 +5757,12 @@ def main(argv) -> int:
                   lambda: scatter_cli_phase(tmp, from_text),  # 5h
                   lambda: mc_cli_phase(  # 5i
                       tmp, mc_vols["bench3_91"].data.cpu().numpy(),
-                      from_text)]
+                      from_text),
+                  lambda: scan_cli_phase(tmp, from_text)]  # 5k
         with ThreadPoolExecutor(len(chains)) as pool:
             for job in [pool.submit(c) for c in chains]:
                 job.result()
-    clock("5-5j CLI")
+    clock("5-5k CLI")
 
     # ---- 6. a small input against the reference scan ----------------------
     small = P.RenderConfig(width=100, height=100, samples_per_ray=100)
@@ -5659,6 +5968,12 @@ def main(argv) -> int:
         P, fit, phong, launch, shard_worker, volumes, tf,
         np.random.default_rng(55), shard_fit_res)
     clock("7m sharded fit path")
+
+    # ---- 7n. the scan route: fits through the plain scan at full width ------
+    scan_res = scan_route_phase(
+        P, fit, phong, (march, march_vjp, a5, a5_vjp, smooth, smooth_vjp),
+        volumes, mc_vols, tf, np.random.default_rng(60))
+    clock("7n scan route")
 
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
@@ -5921,6 +6236,7 @@ def main(argv) -> int:
         f"{json.dumps(shard_fit_res['step_ms'])}; step-1 gradients vs "
         f"single-device {json.dumps(shard_fit_res['grad_errs'])}")
     log(f"sharded renders: units {json.dumps(shard_res)}")
+    log(f"scan route (7n): {json.dumps(scan_res)}")
     log(f"multichannel: {json.dumps(mc_res)}; K4 mc max relative err "
         f"{mc_errs['k4_rel']:.3e}; in-kernel lighting: {json.dumps(lit_res)};"
         f" small 4-D and conic lit renders vs the reference scan "

@@ -57,8 +57,9 @@ def render_jobs(rank: int, world_size: int, jobs, out_dir: str,
     A job is a dict: ``name``, ``mesh`` (rays, samples, volume), the CPU
     ``volume``, ``tf``, ``camera`` and ``config``, and optionally ``frames``
     (the renders timed and counted; 1 by default, and with more one untimed
-    render goes first).  Each mesh shape is built once: every rank builds
-    the same shapes in the same order.
+    render goes first) and ``mode`` (``render_vrc_sharded``'s, "fast" by
+    default).  Each mesh shape is built once: every rank builds the same
+    shapes in the same order.
     """
     dev = rank_device(rank, backend, device)
     if dev.type == "cpu":
@@ -73,7 +74,8 @@ def render_jobs(rank: int, world_size: int, jobs, out_dir: str,
         frames = int(job.get("frames", 1))
 
         def render():
-            return render_vrc_sharded(vol, tf, cam, job["config"], mesh)
+            return render_vrc_sharded(vol, tf, cam, job["config"], mesh,
+                                      mode=job.get("mode", "fast"))
 
         if frames > 1:
             render()  # warm-up
@@ -111,7 +113,8 @@ def fit_jobs(rank: int, world_size: int, jobs, out_dir: str, backend: str,
     A job is a dict: ``name``, ``mesh``, the CPU ``volume``, ``tf``,
     ``camera``, ``config`` and ``target`` [W, H, 4], ``steps`` and ``lr``,
     optionally ``light`` (an ``ops.phong.Light``, whose parameters are
-    fitted too) and ``timed_steps``.  With ``timed_steps`` the rank then
+    fitted too), ``mode`` (the fit's route, "fast" by default) and
+    ``timed_steps``.  With ``timed_steps`` the rank then
     takes, from the same start, one step through ``make_train_step`` whose
     gradients (summed over the mesh) go into the npz as ``g0``, ``g1``, ...,
     and ``timed_steps`` more, timed by the host clock around them
@@ -133,9 +136,11 @@ def fit_jobs(rank: int, world_size: int, jobs, out_dir: str, backend: str,
         cfg = job["config"]
         light = job.get("light")
         light = None if light is None else light.to(dev)
+        mode = job.get("mode", "fast")
         params, losses = fit.fit_transfer_function(
             vol, cam, target, tf, cfg, steps=job["steps"],
-            learning_rate=job["lr"], mesh=mesh, light=light, device=dev)
+            learning_rate=job["lr"], mesh=mesh, light=light, device=dev,
+            mode=mode)
         out = {f"p{i}": p.detach().cpu().numpy()
                for i, p in enumerate(params.parameters())}
         out["losses"] = np.asarray(losses, np.float64)
@@ -144,7 +149,7 @@ def fit_jobs(rank: int, world_size: int, jobs, out_dir: str, backend: str,
         if timed:
             params = fit.FitParams.init(tf, light=light)
             step = fit.make_train_step(tf, cfg, fit.make_optimizer(
-                params, job["lr"]), mesh)
+                params, job["lr"]), mesh, mode)
             step(params, vol, cam, target)
             out.update({f"g{i}": p.grad.detach().cpu().numpy()
                         for i, p in enumerate(params.parameters())})

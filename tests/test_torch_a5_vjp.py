@@ -206,10 +206,12 @@ def test_fit_matches_jax(scene):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(lighting=True), "item 9"),
-    (dict(scattering=True), "item 11a"),
+    (dict(lighting=True), "mode='scan'"),
+    (dict(scattering=True), "mode='scan'"),
 ])
 def test_unported_diff_options_raise(scene, kw, item):
+    """Lit and scattered a5 fits raise in fast mode, naming the scan route,
+    which fits them (tests/test_torch_scan_fit_a5_smooth.py)."""
     jv, jc, cfg, target = scene
     pv, pc = _port_scene(jv, jc)
     pcfg = P.RenderConfig.from_json(cfg.to_json()).replace(**kw)
@@ -219,6 +221,11 @@ def test_unported_diff_options_raise(scene, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         pfit.fit_transfer_function(pv, pc, target, tf, pcfg, steps=1,
                                    device="cpu")
+    params, losses = pfit.fit_transfer_function(pv, pc, target, tf, pcfg,
+                                                steps=1, device="cpu",
+                                                mode="scan")
+    assert np.isfinite(losses[0])
+    assert not torch.equal(params.tf_colors, tf.colors)
 
 
 def test_multichannel_and_more_than_16_intervals_raise(scene):
@@ -230,14 +237,21 @@ def test_multichannel_and_more_than_16_intervals_raise(scene):
                               torch.full((k, 4), 0.1), torch.zeros(k))
     tf = P.default_transfer_function(device="cpu")
     a5_vjp.check_diff_supported(pcfg, pv.channels, tf.num_intervals)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
         a5_vjp.render_test_diff(pv, tf17, pc, pcfg, device="cpu")
     # the forward a5 render takes up to 256 intervals
     assert P.render(pv, tf17, pc, pcfg, device="cpu").shape == (18, 13, 4)
     mc = interop.volume_from_numpy(np.zeros((4, 4, 4, 2), np.float32), 255.0,
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11a"):
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
         a5_vjp.render_test_diff(mc, tf, pc, pcfg, device="cpu")
+    # the scan route fits both
+    for vol, tfx in ((pv, tf17), (mc, tf)):
+        params = pfit.FitParams.init(tfx)
+        loss = pfit.render_loss(params, tfx, vol, pc, torch.zeros(18, 13, 4),
+                                pcfg, mode="scan")
+        loss.backward()
+        assert torch.isfinite(params.tf_colors.grad).all()
 
 
 def test_bwd_kernel_wrapper_refuses_cpu_tensors(scene):

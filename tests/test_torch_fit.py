@@ -190,9 +190,11 @@ def test_checkpoint_resume_bit_identical(scene, tmp_path):
 
 
 def test_unported_fit_options_raise(scene):
-    """A sharded fit that no differentiable kernel takes raises, naming the
-    scan route (item 11a; the sharded fits the kernels take are in
-    tests/test_torch_parallel_fit.py); bound fits are ported (smooth mode,
+    """A sharded fit that no differentiable kernel takes raises in fast
+    mode, naming the scan route, which fits it (a one-rank mesh here equals
+    the single-device scan route; the sharded fits the kernels take are in
+    tests/test_torch_parallel_fit.py, the scan route's in
+    tests/test_torch_scan_fit_sharded.py); bound fits are ported (smooth mode,
     tests/test_torch_smooth_vjp.py) and only add the bounds, light fits
     (tests/test_torch_lit_fit.py) the light's six fields as leaves."""
     _, jtf, _, cfg, target, pv, pc = scene
@@ -209,9 +211,15 @@ def test_unported_fit_options_raise(scene):
     params = pfit.FitParams.init(tf)
     mesh = pmesh.Mesh(shape=(2, 2, 1), coords=(0, 0, 0), groups={})
     lut = RenderConfig.from_json(cfg.to_json()).replace(tf_lut=64)
-    with pytest.raises(NotImplementedError, match="item 11a"):
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
         pfit.render_loss(params, tf, pv, pc, torch.from_numpy(target), lut,
                          mesh=mesh)
+    one = pmesh.Mesh(shape=(1, 1, 1), coords=(0, 0, 0), groups={})
+    sharded = pfit.render_loss(params, tf, pv, pc, torch.from_numpy(target),
+                               lut, mesh=one, mode="scan")
+    single = pfit.render_loss(params, tf, pv, pc, torch.from_numpy(target),
+                              lut, mode="scan")
+    np.testing.assert_allclose(float(sharded), float(single), rtol=1e-6)
 
 
 # -- bound fits (smooth mode) ----------------------------------------------
@@ -463,15 +471,15 @@ def test_cli_fit_cpu(tmp_path):
     assert not np.array_equal(fitted.colors.numpy(), start.colors.numpy())
 
 
-@pytest.mark.parametrize("flag,item", [("--fit-bounds", "item 12"),
-                                       ("--fit-light", "item 11a")])
-def test_cli_fit_unported_flags_raise(flag, item, tmp_path):
+@pytest.mark.parametrize("flag,item", [("--fit-bounds", "mode='scan'"),
+                                       ("--fit-light", "mode='scan'")])
+def test_cli_fit_unported_flags_raise(flag, item, tmp_path, capsys):
     """On a lit smooth config: a light fit of a smooth render, which the
-    JAX package fits only through its XLA scan, raises naming item 11a
-    (``--fit-light`` itself is ported for a1: tests/test_torch_lit_fit.py),
-    and a bound fit of a lit smooth render, which the smooth kernels do not
-    compute, raises naming item 12 (``--fit-bounds`` itself is ported:
-    tests/test_torch_smooth_vjp.py)."""
+    JAX package fits only through its XLA scan, and a bound fit of a lit
+    smooth render, which the smooth kernels do not compute, raise in fast
+    mode naming the scan route (``--fit-light`` and ``--fit-bounds``
+    themselves take the kernels: tests/test_torch_lit_fit.py,
+    tests/test_torch_smooth_vjp.py); ``--mode scan`` fits them."""
     cfg = os.path.join(tmp_path, "lit_smooth.json")
     with open(cfg, "w") as f:
         f.write(RenderConfig(width=8, height=8, samples_per_ray=4,
@@ -479,3 +487,6 @@ def test_cli_fit_unported_flags_raise(flag, item, tmp_path):
                              lighting=True).to_json())
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["fit", "--config", cfg, "--device", "cpu", flag])
+    assert cli.main(["fit", "--config", cfg, "--device", "cpu", flag,
+                     "--steps", "2", "--mode", "scan"]) == 0
+    assert "fit: loss" in capsys.readouterr().out

@@ -439,16 +439,18 @@ def test_cli_fit_light_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cfg_kw,light_kw,item", [
-    (dict(scattering=True), {}, "item 11a"),
-    (dict(lighting=True, conic=True), {}, "item 11a"),
-    (dict(tf_lut=256), {}, "item 11a"),
-    (dict(algorithm=Algorithm.TEST), {}, "item 11a"),
-    (dict(interp=Interp.TRILINEAR), {}, "item 11a"),
-    (dict(), dict(color=[1.0, 0.5, 0.5]), "item 11a"),
+    (dict(scattering=True), {}, "mode='scan'"),
+    (dict(lighting=True, conic=True), {}, "mode='scan'"),
+    (dict(tf_lut=256), {}, "mode='scan'"),
+    (dict(algorithm=Algorithm.TEST), {}, "mode='scan'"),
+    (dict(interp=Interp.TRILINEAR), {}, "mode='scan'"),
+    (dict(), dict(color=[1.0, 0.5, 0.5]), "mode='scan'"),
 ])
 def test_unported_light_fits_raise(scene, cfg_kw, light_kw, item):
-    """Light fits the fused marches do not compute raise, naming their
-    ROADMAP.md item, and none falls back to another route."""
+    """Light fits the fused marches do not compute raise in fast mode,
+    naming ``mode='scan'``, and none falls back to another route; the scan
+    route fits them (its gradients against the JAX package's:
+    tests/test_torch_scan_fit.py)."""
     jv, jtf, jc, cfg, target = scene
     pv, pc = _port_scene(jv, jc)
     pcfg = _port_cfg(cfg).replace(**cfg_kw)
@@ -461,6 +463,11 @@ def test_unported_light_fits_raise(scene, cfg_kw, light_kw, item):
     with pytest.raises(NotImplementedError, match=item):
         pfit.fit_transfer_function(pv, pc, target, tf, pcfg, steps=1,
                                    device="cpu", light=light)
+    params, losses = pfit.fit_transfer_function(
+        pv, pc, target, tf, pcfg, steps=1, device="cpu", light=light,
+        mode="scan")
+    assert np.isfinite(losses[0])
+    assert not torch.equal(params.light.direction, light.direction)
 
 
 def test_light_fit_eligible_and_16_intervals(scene):
@@ -474,7 +481,11 @@ def test_light_fit_eligible_and_16_intervals(scene):
     tf17 = P.TransferFunction(torch.zeros(k), torch.ones(k),
                               torch.full((k, 4), 0.1), torch.zeros(k))
     assert not march_vjp.diff_light_eligible(pv, tf17, _port_cfg(cfg))
-    with pytest.raises(NotImplementedError, match="item 11d"):
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
         pfit.fit_transfer_function(pv, pc, target, tf17, _port_cfg(cfg),
                                    steps=1, device="cpu",
                                    light=phong.default_light(device="cpu"))
+    _, losses = pfit.fit_transfer_function(
+        pv, pc, target, tf17, _port_cfg(cfg), steps=1, device="cpu",
+        light=phong.default_light(device="cpu"), mode="scan")
+    assert np.isfinite(losses[0])

@@ -211,16 +211,20 @@ def test_non_uniform_light_colour_raises_in_fast_mode(alg):
                                           conic=True),
     dict(lighting=True, algorithm=Algorithm.TEST)])
 def test_lit_and_lut_fits_raise(kw):
-    """Conic lit fits (a1, with a LUT too) and lit a5 fits are left to the
-    scan route (ROADMAP.md item 11a); ortho lit and LUT a1 fits are ported
-    (tests/test_torch_lit_fit.py)."""
+    """Conic lit fits (a1, with a LUT too) and lit a5 fits raise in fast
+    mode, naming the scan route, which fits them (tests/test_torch_scan_fit
+    *.py hold it to the JAX package); ortho lit and LUT a1 fits take the
+    kernels (tests/test_torch_lit_fit.py)."""
     vol = synthetic.centered_sphere(8, device="cpu")
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
-    with pytest.raises(NotImplementedError, match="item 11a"):
-        pfit.fit_transfer_function(
-            vol, P.reset_preset(device="cpu"), np.zeros((8, 8, 4), np.float32),
-            P.default_transfer_function(device="cpu"), cfg, steps=1,
-            device="cpu")
+    args = (vol, P.reset_preset(device="cpu"),
+            np.zeros((8, 8, 4), np.float32),
+            P.default_transfer_function(device="cpu"), cfg)
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
+        pfit.fit_transfer_function(*args, steps=1, device="cpu")
+    _, losses = pfit.fit_transfer_function(*args, steps=1, device="cpu",
+                                           mode="scan")
+    assert np.isfinite(losses[0])
 
 
 @pytest.mark.parametrize("argv,cfg_kw", [

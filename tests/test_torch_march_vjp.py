@@ -222,13 +222,27 @@ def test_lit_and_lut_options_differentiate(scene, cfg_kw):
                                atol=1e-4 * np.abs(gx).max())
 
 
+def _scan_colour_grad(pv, tf, pc, pcfg):
+    """dL/dcolors of the image's sum through the scan route."""
+    colors = tf.colors.clone().requires_grad_()
+    img = P.render(pv, P.TransferFunction(tf.lower, tf.upper, colors,
+                                          tf.hg_g), pc, pcfg, mode="scan",
+                   device="cpu")
+    img.sum().backward()
+    return colors.grad
+
+
 @pytest.mark.parametrize("cfg_kw,item", [
-    (dict(lighting=True, conic=True), "item 11a"),
-    (dict(scattering=True, conic=True), "item 11a"),
-    (dict(tf_lut=256, lighting=True, conic=True), "item 11a"),
+    (dict(lighting=True, conic=True), "mode='scan'"),
+    (dict(scattering=True, conic=True), "mode='scan'"),
+    (dict(tf_lut=256, lighting=True, conic=True), "mode='scan'"),
     (dict(interp=Interp.TRILINEAR), "item 12"),
 ])
 def test_unported_options_raise(scene, cfg_kw, item):
+    """What the differentiable march does not compute raises, naming the
+    route that does: the scan route (whose gradient is finite here; held to
+    the JAX package's in tests/test_torch_scan_fit.py) or the smooth
+    marches (item 12)."""
     jv, jc, cfg, _ = scene
     pv, pc = _port_scene(jv, jc)
     pcfg = RenderConfig.from_json(cfg.to_json()).replace(**cfg_kw)
@@ -236,6 +250,8 @@ def test_unported_options_raise(scene, cfg_kw, item):
     assert not march_vjp.diff_eligible(pv, tf, pcfg)
     with pytest.raises(NotImplementedError, match=item):
         march_vjp.render_vrc_diff(pv, tf, pc, pcfg, device="cpu")
+    g = _scan_colour_grad(pv, tf, pc, pcfg)
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0
 
 
 def test_more_than_16_intervals_raise(scene):
@@ -248,8 +264,10 @@ def test_more_than_16_intervals_raise(scene):
     assert march_vjp.diff_eligible(pv, P.default_transfer_function(
         device="cpu"), pcfg)
     assert not march_vjp.diff_eligible(pv, tf, pcfg)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
         march_vjp.render_vrc_diff(pv, tf, pc, pcfg, device="cpu")
+    g = _scan_colour_grad(pv, tf, pc, pcfg)
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0
 
 
 def test_bwd_kernel_wrapper_refuses_cpu_tensors(scene):

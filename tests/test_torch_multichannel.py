@@ -297,7 +297,8 @@ def test_a5_scan_matches_jax():
 def test_raises():
     """Scattering (the JAX package's reason, in every mode and in a fit),
     lit, LUT or smooth 4-D renders in fast mode (naming the scan), and 4-D
-    fits beyond the ortho, unlit alpha-column fit (naming item 11a)."""
+    fits beyond the ortho, unlit alpha-column fit in fast mode (naming the
+    scan route, which fits them)."""
     pv = interop.volume_from_numpy(
         np.random.default_rng(1).uniform(0, 255, (6, 7, 5, 3)), 255.0,
         device="cpu")
@@ -318,15 +319,29 @@ def test_raises():
         assert P.render(pv, tf, cam, cfg.replace(**kw), mode="scan",
                         device="cpu").shape == (6, 5, 4)
     for kw, match in ((dict(scattering=True), "single-channel"),
-                      (dict(conic=True), "item 11a"),
-                      (dict(lighting=True), "item 11a"),
-                      (dict(tf_lut=64), "item 11a"),
-                      (dict(interp=Interp.TRILINEAR), "item 11a"),
-                      (dict(algorithm=Algorithm.TEST), "item 11a")):
+                      (dict(conic=True), "mode='scan'"),
+                      (dict(lighting=True), "mode='scan'"),
+                      (dict(tf_lut=64), "mode='scan'"),
+                      (dict(interp=Interp.TRILINEAR), "mode='scan'"),
+                      (dict(algorithm=Algorithm.TEST), "mode='scan'")):
         with pytest.raises(NotImplementedError, match=match):
             pfit.fit_transfer_function(pv, cam, target, tf, cfg.replace(**kw),
                                        steps=1, device="cpu")
+        if kw.get("scattering"):  # the JAX package's reason, in every mode
+            with pytest.raises(NotImplementedError, match=match):
+                pfit.fit_transfer_function(pv, cam, target, tf,
+                                           cfg.replace(**kw), steps=1,
+                                           device="cpu", mode="scan")
+            continue
+        _, losses = pfit.fit_transfer_function(
+            pv, cam, target, tf, cfg.replace(**kw), steps=1, device="cpu",
+            mode="scan")
+        assert np.isfinite(losses[0])
     light = phong.default_light(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11a"):
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
         pfit.fit_transfer_function(pv, cam, target, tf, cfg, steps=1,
                                    device="cpu", light=light)
+    _, losses = pfit.fit_transfer_function(pv, cam, target, tf, cfg, steps=1,
+                                           device="cpu", light=light,
+                                           mode="scan")
+    assert np.isfinite(losses[0])

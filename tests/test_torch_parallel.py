@@ -31,6 +31,8 @@ from volumerenderingproject_tpu_torch.ops.phong import default_light
 from volumerenderingproject_tpu_torch.parallel import launch
 from volumerenderingproject_tpu_torch.parallel import mesh as pmesh
 from volumerenderingproject_tpu_torch.parallel import render_dist
+from volumerenderingproject_tpu_torch.scene.transfer_function import (
+    TransferFunction)
 from volumerenderingproject_tpu_torch.utils.config import (Algorithm, Interp,
                                                            RenderConfig)
 
@@ -257,22 +259,40 @@ def _small():
     ("smooth_fast", (2, 2, 1), dict(interp=Interp.TRILINEAR), "fast", False,
      "mode='scan'"),
     ("light_fast", (2, 2, 1), {}, "fast", True, "mode='scan'"),
-    ("lit_slab", (1, 1, 4), dict(lighting=True), "fast", False, "14b"),
+    ("lit_slab", (1, 1, 4), dict(lighting=True), "fast", False,
+     "mode='scan'"),
     ("scattered_slab", (1, 1, 4), dict(scattering=True), "fast", False,
-     "14b"),
-    ("smooth_slab", (1, 1, 4), dict(interp=Interp.TRILINEAR), "scan", False,
-     "14b"),
+     "mode='scan'"),
+    ("smooth_slab", (1, 1, 4), dict(interp=Interp.TRILINEAR), "fast", False,
+     "mode='scan'"),
     ("a5_slab", (1, 2, 2), dict(algorithm=Algorithm.TEST), "fast", False,
-     "14b"),
-    ("scan_slab", (2, 1, 2), {}, "scan", False, "14b"),
+     "mode='scan'"),
+    ("scan_slab", (2, 1, 2), {}, "scan", False, None),
 ], ids=lambda c: c[0])
 def test_uncovered_configs_raise(case):
+    """A unit that no segment or slab kernel computes raises in fast mode,
+    naming ``mode='scan'``, which computes it: the plain scan segments on
+    the rays and samples axes, the slab scan on the volume axis (held to
+    the single-device scan in tests/test_torch_slab_scan.py).  A plain
+    slab takes the kernel or the slab scan, which agree."""
     _, shape, over, mode, light, match = case
     pv, ptf, pc, pcfg = _small()
+    cfg = pcfg.replace(**over)
     lg = default_light("cpu") if light else None
-    with pytest.raises(NotImplementedError, match=match):
-        render_dist.render_segment(pv, ptf, pc, pcfg.replace(**over), shape,
-                                   (0, 0, shape[2] - 1), mode=mode, light=lg)
+    coords = (0, 0, shape[2] - 1)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            render_dist.render_segment(pv, ptf, pc, cfg, shape, coords,
+                                       mode=mode, light=lg)
+    c, t = render_dist.render_segment(pv, ptf, pc, cfg, shape, coords,
+                                      mode="scan", light=lg)
+    assert c.shape == (cfg.width // shape[0], cfg.height, 3)
+    assert t.shape == (cfg.width // shape[0], cfg.height, 1)
+    if match is None:
+        fc, ft = render_dist.render_segment(pv, ptf, pc, cfg, shape, coords,
+                                            light=lg)
+        np.testing.assert_allclose(c.numpy(), fc.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(t.numpy(), ft.numpy(), rtol=0, atol=1e-6)
 
 
 def test_bad_meshes_and_units_raise():
@@ -300,27 +320,39 @@ def test_ranks_need_cuda_without_a_device(monkeypatch):
 
 
 @pytest.mark.parametrize("case", [
-    ("lut", (2, 2, 1), dict(tf_lut=64), 1, False, "11a"),
-    ("multichannel", (2, 2, 1), {}, 3, False, "11a"),
-    ("smooth", (1, 2, 1), dict(interp=Interp.TRILINEAR), 1, False, "11a"),
+    ("lut", (2, 2, 1), dict(tf_lut=64), 1, False, "mode='scan'"),
+    ("multichannel", (2, 2, 1), {}, 3, False, "mode='scan'"),
+    ("smooth", (1, 2, 1), dict(interp=Interp.TRILINEAR), 1, False,
+     "mode='scan'"),
     ("conic_lit", (2, 2, 1), dict(conic=True, lighting=True), 1, False,
-     "11a"),
+     "mode='scan'"),
     ("light_on_volume_axis", (1, 1, 4), dict(lighting=True), 1, True,
-     "14b.2"),
+     "mode='scan'"),
 ], ids=lambda c: c[0])
 def test_sharded_fits_outside_the_kernels_raise(case):
-    """A sharded fit's work unit that no differentiable kernel takes raises,
-    naming the scan route (item 11a) or the slab scan (item 14b.2); it never
-    drops to the scan segments or the plain versions."""
+    """A sharded fit's work unit that no differentiable kernel takes raises
+    in fast mode, naming the scan route, which fits it (the scan segments,
+    or the slab scan on the volume axis: tests/test_torch_scan_fit_sharded.py
+    and tests/test_torch_slab_scan.py hold their gradients to the JAX
+    package's); fast mode never drops to the scan segments or the plain
+    versions."""
     _, shape, over, channels, light, match = case
     jv = _volume(channels)
     pv, ptf, pc, pcfg = _port(jv, J.default_transfer_function(),
                               J.Camera.initial(position=CAM), SCENE_CFG)
+    cfg = pcfg.replace(**over)
     lg = default_light("cpu") if light else None
+    coords = (0, 0, shape[2] - 1)
     with pytest.raises(NotImplementedError, match=match):
-        render_dist.render_segment(pv, ptf, pc, pcfg.replace(**over), shape,
-                                   (0, 0, shape[2] - 1), light=lg,
+        render_dist.render_segment(pv, ptf, pc, cfg, shape, coords, light=lg,
                                    differentiable=True)
+    colors = ptf.colors.clone().requires_grad_()
+    tf2 = TransferFunction(ptf.lower, ptf.upper, colors, ptf.hg_g)
+    c, t = render_dist.render_segment(pv, tf2, pc, cfg, shape, coords,
+                                      light=lg, differentiable=True,
+                                      mode="scan")
+    (c.sum() + t.sum()).backward()
+    assert torch.isfinite(colors.grad).all()
 
 
 def test_kernel_wrappers_refuse_cpu_units():

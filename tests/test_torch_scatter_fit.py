@@ -198,16 +198,18 @@ def test_scatter_fit_matches_jax(scene):
 
 
 @pytest.mark.parametrize("cfg_kw,fit_light,item", [
-    (dict(algorithm=Algorithm.TEST), False, "item 11a"),
-    (dict(interp=Interp.TRILINEAR), False, "item 11a"),
-    (dict(), True, "item 11a"),
-    (dict(conic=True), False, "item 11a"),
-    (dict(tf_lut=256), False, "item 11a"),
+    (dict(algorithm=Algorithm.TEST), False, "mode='scan'"),
+    (dict(interp=Interp.TRILINEAR), False, "mode='scan'"),
+    (dict(), True, "mode='scan'"),
+    (dict(conic=True), False, "mode='scan'"),
+    (dict(tf_lut=256), False, "mode='scan'"),
 ])
 def test_unported_scatter_fits_raise(scene, cfg_kw, fit_light, item):
-    """Scattered fits the fused marches do not compute raise, naming their
-    ROADMAP.md item (the JAX package fits them through its XLA scan), and
-    none falls back to another route."""
+    """Scattered fits the fused marches do not compute raise in fast mode,
+    naming ``mode='scan'`` (the JAX package fits them through its XLA
+    scan), and none falls back to another route; the scan route fits them
+    (its gradients against the JAX package's: tests/test_torch_scan_fit.py
+    and tests/test_torch_scan_fit_a5_smooth.py)."""
     jv, jtf, jc, cfg, target = scene
     pv, ptf, pc = _port(jv, jtf, jc)
     pcfg = P.RenderConfig.from_json(cfg.to_json()).replace(**cfg_kw)
@@ -217,6 +219,11 @@ def test_unported_scatter_fits_raise(scene, cfg_kw, fit_light, item):
     with pytest.raises(NotImplementedError, match=item):
         pfit.fit_transfer_function(pv, pc, target, ptf, pcfg, steps=1,
                                    device="cpu", light=light)
+    params, losses = pfit.fit_transfer_function(
+        pv, pc, target, ptf, pcfg, steps=1, device="cpu", light=light,
+        mode="scan")
+    assert np.isfinite(losses[0])
+    assert not torch.equal(params.tf_colors, ptf.colors)
 
 
 def test_scatter_fit_eligible(scene):

@@ -344,7 +344,8 @@ def test_nearest_march_refuses_smooth_configs(scene):
 
 def test_cli_render_trilinear(tmp_path):
     """``render --interp trilinear`` writes the PNG of the smooth render;
-    ``--interp trilinear_color`` raises naming item 8."""
+    ``--interp trilinear_color`` raises in fast mode, naming the scan,
+    which renders it (``--mode scan``)."""
     out = str(tmp_path / "smooth.png")
     size = ["--width", "20", "--height", "14", "--spr", "24"]
     assert cli.main(["render", "--data", "sphere", *size, "--interp",
@@ -362,6 +363,17 @@ def test_cli_render_trilinear(tmp_path):
                        P.reset_preset(device="cpu"),
                        cfg.replace(interp=Interp.NEAREST), device="cpu")
     assert not torch.equal(img, nearest)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="mode='scan'"):
         cli.main(["render", *size, "--interp", "trilinear_color", "--device",
                   "cpu", "--out", str(tmp_path / "x.png")])
+    tc = str(tmp_path / "tc.png")
+    assert cli.main(["render", *size, "--interp", "trilinear_color",
+                     "--mode", "scan", "--device", "cpu", "--out", tc]) == 0
+    want = P.render(synthetic.centered_sphere(device="cpu"),
+                    P.default_transfer_function(device="cpu"),
+                    P.reset_preset(device="cpu"),
+                    cfg.replace(interp=Interp.TRILINEAR_COLOR), mode="scan",
+                    device="cpu")
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(tc).convert("RGB")),
+        imageio.to_uint8(imageio.to_display(want))[..., :3])

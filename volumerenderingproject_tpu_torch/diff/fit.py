@@ -35,13 +35,20 @@ whole target and computes the same loss; after ``loss.backward()`` each
 parameter's gradient is summed over the mesh (``Mesh.all_reduce_``), so
 every rank takes the same Adam step and the parameters stay replicated.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): what only the JAX package's XLA scan fits (item 11a: conic lit fits,
-light fits of a5, smooth, LUT or scattered renders or from a non-uniform
-light colour, scattered fits of a5, smooth, conic or LUT renders, 4-D fits
-other than the ortho, unlit, nearest-voxel a1 alpha-column fit, and the
-sharded fits that its kernels do not take; item 11d: fits of more than 16
-intervals) and sharded fits that its slab scan takes (item 14b.2).
+``mode="scan"`` is the scan route: every config, the kernels' ones
+included, renders through the plain scans (``models/raycast.render_vrc``
+/ ``render_test``, the JAX package's XLA scan fallback, fit.py:124-226)
+under autograd, checkpointed in chunks of samples, and with ``mesh``
+through the scan segments and the volume-axis slab scan.  ``mode="fast"``
+(the default) runs the kernels above and raises, naming ``mode='scan'``,
+for what only the JAX package's XLA scan fits: conic lit fits, light fits
+of a5, smooth, 4-D, conic, LUT or scattered renders or from a non-uniform
+light colour, scattered fits of a5, smooth, conic or LUT renders, lit a5
+fits, 4-D fits other than the ortho, unlit, nearest-voxel a1 alpha-column
+fit, smooth fits with lighting, scattering, a LUT or ``density_scale !=
+1``, fits of more than 16 intervals and ``Interp.TRILINEAR_COLOR`` fits.
+The scan route follows the JAX scan: a light fit shades each channel with
+its own light colour, where the fused route bakes with the mean colour.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models import raycast
 from ..ops.a5_vjp import render_test_diff
 from ..parallel.render_dist import render_vrc_sharded
 from ..ops.march_vjp import render_vrc_diff, render_vrc_scatter_diff
@@ -114,18 +122,25 @@ def _apply_params(tf: TransferFunction, params: FitParams
         colors=params.tf_colors, hg_g=tf.hg_g)
 
 
+def _check_mode(mode: str) -> None:
+    if mode not in ("fast", "scan"):
+        raise ValueError(f"unknown mode {mode!r}: a fit takes 'fast' or "
+                         "'scan'")
+
+
 def render_loss(params: FitParams, tf: TransferFunction, volume, camera,
                 target: torch.Tensor, config: RenderConfig,
-                mesh=None) -> torch.Tensor:
+                mesh=None, mode: str = "fast") -> torch.Tensor:
     """MSE between the differentiable render and the target image, on the
     device that holds the volume; with ``mesh``, the sharded render of this
-    rank's mesh (the module docstring)."""
+    rank's mesh; ``mode`` the route (the module docstring)."""
+    _check_mode(mode)
     tf2 = _apply_params(tf, params)
     zero = torch.zeros((), dtype=_f32, device=params.density_scale.device)
     density = torch.maximum(params.density_scale, zero)  # jnp.clip(d, 0, None)
     if mesh is None:
         img = _render_with_density(volume, tf2, camera, config, density,
-                                   params.light)
+                                   params.light, mode)
     else:
         # fit.py:97-119: the density folds into the alphas, and the sharded
         # render differentiates through the kernels' work units
@@ -134,16 +149,21 @@ def render_loss(params: FitParams, tf: TransferFunction, volume, camera,
         tf3 = TransferFunction(lower=tf2.lower, upper=tf2.upper,
                                colors=colors, hg_g=tf2.hg_g)
         img = render_vrc_sharded(volume, tf3, camera, config, mesh,
-                                 differentiable=True, light=params.light)
+                                 mode=mode, differentiable=True,
+                                 light=params.light)
     return torch.mean((img[..., :3] - target[..., :3]) ** 2)
 
 
 def _render_with_density(volume, tf: TransferFunction, camera,
                          config: RenderConfig, density: torch.Tensor,
-                         light=None) -> torch.Tensor:
-    """Scale the TF alphas by the (differentiable) density, then render
-    through the differentiable march of ``config.algorithm`` and
-    ``config.interp`` (fit.py:124-215): nearest-voxel a1 folds
+                         light=None, mode: str = "fast") -> torch.Tensor:
+    """Scale the TF alphas by the (differentiable) density, then render.
+    ``mode="scan"`` renders every config through the plain scan
+    (``render_test`` for a5, ``render_vrc`` otherwise, with ``light``;
+    fit.py:152-153, 171-172, 185-186, 193-194, 226), under autograd and
+    checkpointed in chunks of samples.  ``mode="fast"`` renders through the
+    differentiable march of ``config.algorithm`` and ``config.interp``
+    (fit.py:124-215): nearest-voxel a1 folds
     ``config.density_scale`` in as well and takes lit and LUT configs, and
     with ``light`` shades with it, differentiably; scattered configs take
     the scatter route first (a1 ortho, no LUT, the light static), except
@@ -151,11 +171,15 @@ def _render_with_density(volume, tf: TransferFunction, camera,
     the JAX package (fit.py:160-172); smooth
     a1 takes it only at 1 (the JAX package's smooth kernels do too), with
     no volume gradient; a5 reads none and samples its own way whatever
-    ``config.interp`` says.  A light, or scattering, on a config the fused
-    marches do not fit raises, naming ROADMAP.md item 11a."""
+    ``config.interp`` says.  A config the fused marches do not fit raises,
+    naming ``mode='scan'``."""
     colors = torch.cat([tf.colors[:, :3], tf.colors[:, 3:4] * density], dim=1)
     tf2 = TransferFunction(lower=tf.lower, upper=tf.upper, colors=colors,
                            hg_g=tf.hg_g)
+    if mode == "scan":
+        scan = (raycast.render_test if config.algorithm is Algorithm.TEST
+                else raycast.render_vrc)
+        return scan(volume, tf2, camera, config, light=light)
     if volume.channels > 1 and config.algorithm is Algorithm.VRC:
         # fit.py:160-172; render_vrc_diff checks what it fits
         return render_vrc_diff(volume, tf2, camera, config,
@@ -183,15 +207,18 @@ def make_optimizer(params: FitParams, learning_rate: float
 
 
 def make_train_step(tf: TransferFunction, config: RenderConfig,
-                    optimizer: torch.optim.Optimizer, mesh=None):
+                    optimizer: torch.optim.Optimizer, mesh=None,
+                    mode: str = "fast"):
     """A train step ``(params, volume, camera, target) -> loss``: one
-    forward and one backward march, then one update of ``optimizer``, which
-    holds ``params``' tensors and its own state.  With ``mesh`` every
-    gradient is summed over the mesh before the update."""
+    forward and one backward march (or scan, with ``mode="scan"``), then
+    one update of ``optimizer``, which holds ``params``' tensors and its own
+    state.  With ``mesh`` every gradient is summed over the mesh before the
+    update."""
 
     def step(params: FitParams, volume, camera, target) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = render_loss(params, tf, volume, camera, target, config, mesh)
+        loss = render_loss(params, tf, volume, camera, target, config, mesh,
+                           mode)
         loss.backward()
         if mesh is not None:
             # every rank builds the same graph, so a gradient is None on
@@ -211,17 +238,20 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
                           checkpoint_dir: Optional[str] = None,
                           checkpoint_every: int = 0, resume: bool = False,
                           fit_bounds: bool = False, light=None,
-                          device=None) -> Tuple[FitParams, list]:
+                          device=None, mode: str = "fast"
+                          ) -> Tuple[FitParams, list]:
     """Optimise TF colours and density (and with ``fit_bounds`` the interval
     bounds, with ``light`` the light's parameters, starting from it) against
     ``target`` [W, H, 4] on ``device`` (CUDA unless given) -> (params,
-    per-step losses).
+    per-step losses), through the kernels (``mode="fast"``) or the scan
+    route (``mode="scan"``; the module docstring).
 
     ``resume=True`` restores the latest checkpoint in ``checkpoint_dir``
     (parameters and optimizer state) and continues up to ``steps`` steps in
     all; every ``checkpoint_every`` steps a checkpoint is written.  With
     ``mesh`` every rank of it calls this with the whole target, and the rank
     at (0, 0, 0) writes the checkpoints (the parameters are replicated)."""
+    _check_mode(mode)
     dev = resolve_device(device)
     volume, camera, tf = volume.to(dev), camera.to(dev), tf.to(dev)
     if not isinstance(target, torch.Tensor):
@@ -240,7 +270,7 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
     optimizer = make_optimizer(params, learning_rate)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
-    train_step = make_train_step(tf, config, optimizer, mesh)
+    train_step = make_train_step(tf, config, optimizer, mesh, mode)
 
     losses = []
     for i in range(start, steps):

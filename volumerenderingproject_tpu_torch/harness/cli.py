@@ -8,6 +8,10 @@
            scattered (``--scattering``) renders fit too, and a 4-D volume's
            alpha column
 
+``--mode fast`` (the default) runs the CUDA kernels; ``--mode scan`` the
+plain scans, which render and fit every config (``fit``'s self-target is
+rendered in the same mode).
+
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
 subcommand runs on CUDA unless ``--device cpu`` is given.  ``--data`` takes
 a 3-D or 4-D (multichannel) NIfTI file; ``--conic`` casts perspective
@@ -125,7 +129,7 @@ def render_rank(rank: int, args) -> None:
     cam = _camera(args, cfg, device)
     mesh = make_mesh(**parse_mesh(args.mesh, args.backend))
     t0 = time.time()
-    img = render_vrc_sharded(volume, tf, cam, cfg, mesh)
+    img = render_vrc_sharded(volume, tf, cam, cfg, mesh, mode=args.mode)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -165,7 +169,7 @@ def cmd_render(args) -> int:
     tf = _tf(args, device)
     cam = _camera(args, cfg, device)
     t0 = time.time()
-    img = render(volume, tf, cam, cfg, device=device)
+    img = render(volume, tf, cam, cfg, mode=args.mode, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -195,7 +199,7 @@ def cmd_fit(args) -> int:
     tf = _tf(args, device)
     cam = _camera(args, cfg, device)
     light = phong.default_light(device) if args.fit_light else None
-    if light is not None:  # before the target's render
+    if light is not None and args.mode == "fast":  # before the target's
         check_light_fit_supported(cfg, volume.channels, tf.num_intervals,
                                   light)
     if args.target:
@@ -207,13 +211,13 @@ def cmd_fit(args) -> int:
         target = torch.as_tensor(np.concatenate(
             [target, np.ones_like(target[..., :1])], -1), device=device)
     else:  # self-target smoke: fit against the render of the start TF
-        target = render(volume, tf, cam, cfg, device=device)
+        target = render(volume, tf, cam, cfg, mode=args.mode, device=device)
     t0 = time.time()
     params, losses = fit_transfer_function(
         volume, cam, target, tf, cfg, steps=args.steps,
         learning_rate=args.lr, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, fit_bounds=args.fit_bounds,
-        light=light, device=device)
+        light=light, device=device, mode=args.mode)
     dt = time.time() - t0
     print(f"fit: loss {losses[0]:.6f} -> {losses[-1]:.6f} in {args.steps} "
           f"steps on {device} in {dt:.2f}s")
@@ -249,8 +253,9 @@ def _common(sp) -> None:
     sp.add_argument("--interp", choices=["nearest", "trilinear_color",
                                          "trilinear"],
                     help="a1 sampling: nearest (the default), trilinear "
-                         "(smooth mode) or trilinear_color (not ported yet: "
-                         "the renderer raises)")
+                         "(smooth mode) or trilinear_color (a5's colour mix "
+                         "on the a1 rays; --mode scan only, as no kernel "
+                         "samples it)")
     sp.add_argument("--lighting", action="store_true",
                     help="Phong gradient shading with the default light")
     sp.add_argument("--gradient-filter", choices=["central", "sobel"])
@@ -262,6 +267,9 @@ def _common(sp) -> None:
                     help="single scattering of the default light (HG phase "
                          "x light transmittance)")
     sp.add_argument("--scattering-strength", type=float)
+    sp.add_argument("--mode", choices=["fast", "scan"], default="fast",
+                    help="fast: the CUDA kernels (the default); scan: the "
+                         "plain scans, which render and fit every config")
 
 
 def build_parser() -> argparse.ArgumentParser:

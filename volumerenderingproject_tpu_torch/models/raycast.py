@@ -9,6 +9,11 @@ position -> modelAux (+0.5, kernel.cu:1046-1063) -> octree nearest voxel ->
 [-> + single-scattered light, ``config.scattering``] -> over-blend
 (kernel.cu:40-70, 194-225).
 
+With ``Interp.TRILINEAR_COLOR`` (raycast.py:168-174) an a1 sample takes
+a5's colour-space trilinear mix of its 8 classified corners, at the
+sample's voxel-space position; lit or scattered, it shades at the
+octree-NN voxel.
+
 A 4-D volume [X, Y, Z, C] (raycast.py:272-301) samples every channel at the
 a1 voxel: rgb from channels 0-2 (channel 0 as grey for C = 2) over the float
 cal_max, alpha from the TF of the channel mean; lit, it shades on the
@@ -28,13 +33,22 @@ tensors on the GPU, their plain PyTorch versions for tensors on the CPU.
 Python loops over samples vectorised over rays: ``mode="fast"`` composites
 front to back in (C, T) form, ``mode="reference"`` back to front in the
 reference's exact order, ``mode="segment"`` returns the raw (C, T) pair.
+They are also the port's scan route for fits (``diff/fit.py``,
+``mode="scan"``): where autograd records through the volume, the TF, the
+camera or the light, the front-to-back scan marches in chunks of
+:data:`SCAN_CHUNK` samples under ``torch.utils.checkpoint``, which keeps
+only the (C, T) carry at each chunk's start and recomputes the chunk's
+samples in the backward pass (the JAX package's ``remat``,
+raycast.py:358-401).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ingest.volume import Volume
 from ..ops import a5
@@ -44,12 +58,20 @@ from ..ops import phong
 from ..ops.march import channel_mean, check_supported, render_vrc_fused
 from ..ops.phong import Light, default_light, is_lit, phong_shade
 from ..scene.camera import Camera
-from ..scene.transfer_function import TransferFunction
+from ..scene.transfer_function import TransferFunction, take_rows
 from ..utils import transforms as T
 from ..utils.config import Algorithm, Interp, RenderConfig
-from ..utils.device import resolve_device
+from ..utils.device import const, resolve_device
 
 _f32 = torch.float32
+
+# Samples of one checkpointed chunk of the scan under autograd.  A chunk
+# keeps its samples' saved tensors alive while the backward pass recomputes
+# it (40-165 bytes a ray-sample, by config), and each boundary keeps one
+# (C, T) carry (16 bytes a ray).  On the H100 a full-width lit a5 or conic
+# lit light fit step peaks 0.9-1.5 GiB above its start at 16, 2.5-4.7 GiB
+# at 64, at the same speed within the noise (harness/scan_memory.py).
+SCAN_CHUNK = 16
 
 
 # ---------------------------------------------------------------------------
@@ -134,14 +156,18 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
                      scatter=None) -> torch.Tensor:
     """a1 per-sample classify: modelAux(+0.5) -> octree NN -> TF [-> Phong]
     [-> scattering], or in smooth mode (``Interp.TRILINEAR``) modelAux ->
-    voxel space -> trilinear intensity -> smooth TF [-> Phong and
-    scattering at the octree-NN voxel].
+    voxel space -> trilinear intensity -> smooth TF, or with
+    ``Interp.TRILINEAR_COLOR`` modelAux -> voxel space -> the a5 colour
+    mix [-> Phong and scattering at the octree-NN voxel].
 
-    ``shading``, when set, is a (grad_flat [X*Y*Z, 3], light, view_dir)
-    triple: the gradient at the sample's voxel (0 off the volume) is the
-    Phong normal.  ``lut``, when set, is the dense [N, 4] TF table used
-    instead of the interval scan (``config.tf_lut``).  ``scatter``, when
-    set, is :func:`_make_scatter`'s triple (raycast.py:142-222).  A 4-D
+    ``shading``, when set, is a (grad_flat [X*Y*Z, 3], light,
+    ``phong.shade_directions``) triple: the gradient at the sample's voxel
+    (0 off the volume) is the Phong normal.  ``lut``, when set, is the
+    interval [N] of each entry of the dense TF table used instead of the
+    interval scan (``config.tf_lut``, ``TransferFunction.lut_intervals``):
+    the sample takes the colour of its entry's interval, the entry's
+    colour.  ``scatter``, when set, is :func:`_make_scatter`'s triple
+    (raycast.py:142-222).  A 4-D
     volume samples its channels (:func:`_vrc_sample_rgba_multichannel`)
     whatever ``config.interp`` says, without the LUT."""
     p = positions + 0.5  # modelAux kernel.cu:1050
@@ -154,6 +180,12 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
         v = sampling.trilinear_intensity_sample(
             volume.data, _to_volume_space(p, volume))
         rgba = tf.classify_smooth(v / volume.cal_max, config.tf_sharpness)
+    elif config.interp is Interp.TRILINEAR_COLOR:
+        # the a5 colour mix on the a1 rays (raycast.py:168-174): corners
+        # over the float cal_max, TF(0)'s colour off the volume, no LUT
+        rgba = sampling.trilinear_color_sample(
+            volume.data.reshape(-1), volume.dims, _to_volume_space(p, volume),
+            tf.classify, volume.cal_max)
     else:
         flat, valid = sampling.octree_nn_index(volume.dims,
                                                volume.octree_depth, p)
@@ -166,18 +198,18 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
         if lut is not None:
             n = lut.shape[0]
             idx = torch.round(v_norm * (n - 1)).to(torch.int64).clamp(0, n - 1)
-            rgba = lut[idx]
+            rgba = take_rows(tf.colors, lut[idx])
         else:
             rgba = tf.classify(v_norm)
     if shading is not None:
-        grad_flat, light, view_dir = shading
+        grad_flat, light, directions = shading
         if flat is None:  # smooth mode shades at the octree-NN voxel
             flat, valid = sampling.octree_nn_index(volume.dims,
                                                    volume.octree_depth, p)
         normal = torch.where(valid[..., None], grad_flat[flat],
                              torch.zeros((), dtype=_f32, device=p.device))
-        rgba = torch.cat([phong_shade(rgba[..., :3], normal, view_dir, light),
-                          rgba[..., 3:4]], dim=-1)
+        rgba = torch.cat([phong_shade(rgba[..., :3], normal, None, light,
+                                      directions), rgba[..., 3:4]], dim=-1)
     if scatter is not None:
         if flat is None:
             flat, valid = sampling.octree_nn_index(volume.dims,
@@ -188,8 +220,7 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
         rgba = _apply_scattering(rgba, tf, config, scatter, flat, valid,
                                  v / torch.trunc(volume.cal_max))
     if config.density_scale != 1.0:
-        a = rgba[..., 3:4] * torch.tensor(config.density_scale, dtype=_f32,
-                                          device=rgba.device)
+        a = rgba[..., 3:4] * const(float(config.density_scale), rgba.device)
         rgba = torch.cat([rgba[..., :3], a.clamp(0.0, 1.0)], dim=-1)
     return rgba
 
@@ -223,14 +254,14 @@ def _apply_scattering(rgba: torch.Tensor, tf: TransferFunction,
     the transmittance grid at the sample's voxel (0 off the volume) and
     cos t = ray_dir . light_dir."""
     tl_flat, light, ray_dirs = scatter
-    tl = torch.where(valid, tl_flat[flat],
+    tl = torch.where(valid, sampling.take(tl_flat, flat),
                      torch.zeros((), dtype=_f32, device=flat.device))
     gk = tf.hg_g[tf.classify_index(v_norm)]
     ldir = light.direction / phong.norm3(light.direction).clamp_min(1e-8)
     cos_t = phong.dot3(ray_dirs, ldir)
     ph = phong.henyey_greenstein(cos_t, gk)
-    add = (torch.tensor(config.scattering_strength, dtype=_f32,
-                        device=ph.device) * (ph * tl)[..., None]) * light.color
+    add = (const(float(config.scattering_strength), ph.device)
+           * (ph * tl)[..., None]) * light.color
     return torch.cat([rgba[..., :3] + add, rgba[..., 3:4]], dim=-1)
 
 
@@ -264,9 +295,8 @@ def _gradient_flat(volume: Volume, config: RenderConfig) -> torch.Tensor:
 def _to_volume_space(p: torch.Tensor, volume: Volume) -> torch.Tensor:
     """NiftiFile::toVolumeSpace (BinaryLoader.cu:247-269) minus the +0.5
     (callers pass post-modelAux points): scale by L, center the dataset."""
-    L = torch.tensor(float(volume.longest_dimension), dtype=_f32,
-                     device=p.device)
-    dimv = torch.tensor(volume.dims, dtype=_f32, device=p.device)
+    L = const(float(volume.longest_dimension), p.device)
+    dimv = const(tuple(float(d) for d in volume.dims), p.device)
     return p * L + (dimv / 2.0 - L / 2.0)
 
 
@@ -293,9 +323,6 @@ def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
     vol_flat = volume.data.reshape(-1)
     mats = a5.stage_matrices(camera, volume.dims, config)
     lit = is_lit(config, light)
-    if lit:
-        grad_flat = _gradient_flat(volume, config)
-        view_dir = -camera.front
     scatter = (_make_scatter(volume, tf, config, light, camera.front)
                if config.scattering else None)
     if lit or scatter is not None:
@@ -305,6 +332,9 @@ def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
         dimv = torch.tensor(volume.dims, dtype=_f32, device=dev)
         hi = torch.tensor(volume.dims, dtype=torch.int64, device=dev) - 1
         d1, d2, d3 = volume.dims
+    if lit:
+        grad_flat = _gradient_flat(volume, config)
+        directions = phong.shade_directions(-camera.front, light)
 
     def sample_rgba(i):
         pos = a5.apply_stages(mats, x, y, i)
@@ -317,8 +347,9 @@ def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
         flat = ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3 + ijk[..., 2]
         if lit:
             normal = torch.where(inside[..., None], grad_flat[flat], zero)
-            rgba = torch.cat([phong_shade(rgba[..., :3], normal, view_dir,
-                                          light), rgba[..., 3:4]], dim=-1)
+            rgba = torch.cat([phong_shade(rgba[..., :3], normal, None, light,
+                                          directions), rgba[..., 3:4]],
+                             dim=-1)
         if scatter is not None:
             v = torch.where(inside, vol_flat[flat].clamp_min(0.0), zero)
             rgba = _apply_scattering(rgba, tf, config, scatter, flat, inside,
@@ -328,23 +359,47 @@ def _a5_sample_fn(volume: Volume, tf: TransferFunction, camera: Camera,
     return sample_rgba
 
 
+def scan_chunk(*objs) -> int | None:
+    """:data:`SCAN_CHUNK` when autograd records through a tensor of
+    ``objs`` (volumes, TFs, cameras, lights; None skipped), else None: the
+    chunk length the scans take."""
+    if not torch.is_grad_enabled():
+        return None
+    for obj in objs:
+        if obj is None:
+            continue
+        for f in dataclasses.fields(obj):
+            t = getattr(obj, f.name)
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                return SCAN_CHUNK
+    return None
+
+
 def _march(sample_rgba_fn, config: RenderConfig, mode: str, device,
            shape: Tuple[int, int] | None = None, s_start: int = 0,
-           s_count: int | None = None):
+           s_count: int | None = None, chunk: int | None = None):
     """Loop over samples [s_start, s_start + s_count) (all of them by
     default); ``sample_rgba_fn(i_f32) -> [*shape, 4]``, ``shape`` [W, H]
     unless given.
 
     ``mode="segment"`` marches front to back and returns the raw (C, T)
-    pair, the associative unit of sample-axis composition.
+    pair, the associative unit of sample-axis composition.  With ``chunk``
+    the front-to-back scan runs each ``chunk`` samples under non-reentrant
+    ``torch.utils.checkpoint``, which sees the tensors the sampler closes
+    over: the same operations in the same order, so values and gradients
+    equal the unchunked scan's bit for bit.
     """
     shape = shape or (config.width, config.height)
     spr = config.samples_per_ray if s_count is None else s_count
     steps = range(s_start, s_start + spr)
     bg = torch.tensor(config.background, dtype=_f32, device=device)
+    # every sample index as a float32 on the device, made at once: exact
+    # integers, as float(i) rounds them
+    step_values = torch.arange(s_start, s_start + spr, dtype=_f32,
+                               device=device)
 
     def step_value(i):
-        return torch.tensor(float(i), dtype=_f32, device=device)
+        return step_values[i - s_start]
 
     if mode == "reference":
         acc = bg[:3].expand(*shape, 3)
@@ -355,8 +410,21 @@ def _march(sample_rgba_fn, config: RenderConfig, mode: str, device,
 
     if mode in ("fast", "segment"):
         seg = comp.segment_identity(shape, device)
-        for i in steps:
-            seg = comp.segment_update(seg, sample_rgba_fn(step_value(i)))
+        if chunk:
+            def run(c, t, lo, hi):
+                seg = (c, t)
+                for i in range(lo, hi):
+                    seg = comp.segment_update(seg,
+                                              sample_rgba_fn(step_value(i)))
+                return seg
+
+            for lo in range(steps.start, steps.stop, chunk):
+                seg = checkpoint(run, *seg, lo, min(lo + chunk, steps.stop),
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            for i in steps:
+                seg = comp.segment_update(seg, sample_rgba_fn(step_value(i)))
         if mode == "segment":
             return seg
         return comp.segment_finalize(seg, bg)
@@ -379,8 +447,9 @@ def _vrc_sampler(volume: Volume, tf: TransferFunction, camera: Camera,
     shading = None
     if is_lit(config, light):
         light = default_light(dev) if light is None else light
-        shading = (_gradient_flat(volume, config), light, -dirs)
-    lut = tf.to_lut(config.tf_lut) if config.tf_lut else None
+        shading = (_gradient_flat(volume, config), light,
+                   phong.shade_directions(-dirs, light))
+    lut = tf.lut_intervals(config.tf_lut) if config.tf_lut else None
     scatter = (_make_scatter(volume, tf, config, light, dirs)
                if config.scattering else None)
 
@@ -405,7 +474,8 @@ def render_vrc(volume: Volume, tf: TransferFunction, camera: Camera,
     classify through the dense LUT; with ``config.scattering`` they gain
     the light's single-scattered radiance along each ray's ``dir``."""
     return _march(_vrc_sampler(volume, tf, camera, config, light, 0, None),
-                  config, mode, camera.device)
+                  config, mode, camera.device,
+                  chunk=scan_chunk(volume, tf, camera, light))
 
 
 def render_vrc_segment(volume: Volume, tf: TransferFunction, camera: Camera,
@@ -421,7 +491,7 @@ def render_vrc_segment(volume: Volume, tf: TransferFunction, camera: Camera,
     return _march(
         _vrc_sampler(volume, tf, camera, config, light, x_offset, w_local),
         config, "segment", camera.device, (w_local, config.height), s_start,
-        s_count)
+        s_count, scan_chunk(volume, tf, camera, light))
 
 
 def render_test(volume: Volume, tf: TransferFunction, camera: Camera,
@@ -435,7 +505,8 @@ def render_test(volume: Volume, tf: TransferFunction, camera: Camera,
     the first X*Y*Z values), and lit on the gradient of channel 0."""
     x, y = pixel_grid(config, camera.device)
     return _march(_a5_sample_fn(volume, tf, camera, config, x, y, light),
-                  config, mode, camera.device)
+                  config, mode, camera.device,
+                  chunk=scan_chunk(volume, tf, camera, light))
 
 
 def render_test_segment(volume: Volume, tf: TransferFunction,
@@ -450,7 +521,7 @@ def render_test_segment(volume: Volume, tf: TransferFunction,
     x, y = pixel_grid(config, camera.device, x_offset, w_local)
     return _march(_a5_sample_fn(volume, tf, camera, config, x, y, light),
                   config, "segment", camera.device, (w_local, config.height),
-                  s_start, s_count)
+                  s_start, s_count, scan_chunk(volume, tf, camera, light))
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +551,9 @@ def render(volume: Volume, tf: TransferFunction, camera: Camera,
     (``Interp.TRILINEAR``, a1) runs the smooth march (``ops/smooth.py``)
     in fast mode, which takes the plain smooth classify of one channel
     only: lit, LUT, ``density_scale != 1`` and 4-D smooth renders raise
-    there and render in ``mode="scan"``.
+    there and render in ``mode="scan"``.  An a1 render with
+    ``Interp.TRILINEAR_COLOR`` raises in fast mode, as no kernel samples
+    it (raycast.py:683), and renders in ``mode="scan"``.
     """
     dev = resolve_device(device)
     test = config.algorithm is Algorithm.TEST

@@ -61,31 +61,29 @@ segment_launches = 0
 
 def check_diff_supported(config: RenderConfig, channels: int,
                          num_intervals: int) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for what the
-    differentiable a5 march of this slice does not compute (cf.
+    """Raise NotImplementedError, naming ``mode='scan'``, which fits it, for
+    what the differentiable a5 march does not compute (cf.
     ``a5_diff_config_ok``): it takes unlit, unscattered, one-channel renders
     of at most 16 intervals."""
     if channels != 1:
         raise NotImplementedError(
-            "a5 fits of 4-D volumes are not ported yet: ROADMAP.md item 11a "
-            "(the scan route for fits; the JAX package's a5 diff kernels take "
-            "one channel, and it fits 4-D volumes through its XLA scan)")
+            "the a5 diff kernels take one channel, as the JAX package's do "
+            "(it fits 4-D volumes through its XLA scan): mode='scan' fits "
+            "a5 renders of 4-D volumes")
     if config.scattering:
         raise NotImplementedError(
-            "scattered a5 fits are not ported yet: ROADMAP.md item 11a (the "
-            "scan route for fits; the JAX package's a5 diff kernels exclude "
-            "scattering, and it fits them through its XLA scan)")
+            "the a5 diff kernels exclude scattering, as the JAX package's do "
+            "(it fits scattered a5 renders through its XLA scan): "
+            "mode='scan' fits them")
     if config.lighting:
         raise NotImplementedError(
-            "lit a5 fits are not ported yet: ROADMAP.md item 11a (the scan "
-            "route for fits; the JAX package has no baked-light a5 backward "
-            "kernel and fits them through its XLA scan) and item 9 "
-            "(lighting, LUT and scattering)")
+            "no a5 backward kernel takes a baked light, as in the JAX "
+            "package (it fits lit a5 renders through its XLA scan): "
+            "mode='scan' fits them")
     if num_intervals > MAX_INTERVALS:
         raise NotImplementedError(
             f"the differentiable a5 march takes at most {MAX_INTERVALS} TF "
-            f"intervals, got {num_intervals}: ROADMAP.md item 11 (K6 "
-            "variants)")
+            f"intervals, got {num_intervals}: mode='scan' fits more")
 
 
 def prepare_a5_diff(volume, tf: TransferFunction, camera,
@@ -217,8 +215,8 @@ def march_a5_bwd_kernel(a: A5Args, g_rgb: torch.Tensor,
     samples."""
     global launches, segment_launches
     if a.mgrid is not None:
-        raise ValueError("the a5 backward march is unlit: ROADMAP.md item "
-                         "11a")
+        raise ValueError("the a5 backward march is unlit: mode='scan' fits "
+                         "lit a5 renders")
     a5.check_kernel_args(a, MAX_INTERVALS, extra=(
         ("g_rgb", g_rgb, _f32, (a.width, a.height, 3)),
         ("g_t", g_t, _f32, (a.width, a.height))))

@@ -348,19 +348,16 @@ def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
 def check_supported(config: RenderConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
     what the port's a1 path does not render yet: the plain scan computes
-    one-channel a1 with nearest-voxel or smooth (``Interp.TRILINEAR``)
-    sampling, lit or not, scattered or not, through the interval scan or a
-    LUT, and 4-D volumes by nearest voxel.  (The fused march adds
+    one-channel a1 with nearest-voxel, smooth (``Interp.TRILINEAR``) or
+    colour-space trilinear (``Interp.TRILINEAR_COLOR``) sampling, lit or
+    not, scattered or not, through the interval scan or a LUT, and 4-D
+    volumes by nearest voxel.  (The fused march adds
     :func:`check_fused_supported`, the smooth march
     ``ops/smooth.check_smooth_supported``.)"""
     if config.algorithm is Algorithm.POINT:
         raise NotImplementedError(
             "Algorithm.POINT is not ported yet: ROADMAP.md item 15 "
             "(point_splat)")
-    if config.interp is Interp.TRILINEAR_COLOR:
-        raise NotImplementedError(
-            "Interp.TRILINEAR_COLOR is not ported yet: ROADMAP.md item 8 "
-            "(a5 sampling)")
 
 
 def check_fused_supported(config: RenderConfig, light: Light | None,
@@ -375,7 +372,11 @@ def check_fused_supported(config: RenderConfig, light: Light | None,
     no lighting or LUT (the JAX package's rules, pallas_march.py:1356-1379,
     1463-1469).  (A LUT of more than 1024 entries raises in
     :func:`lut_ids`.)  Smooth mode is not this march's: a ValueError
-    (``ops/smooth`` marches it)."""
+    (``ops/smooth`` marches it).  ``Interp.TRILINEAR_COLOR`` on one channel
+    raises naming ``mode='scan'``: the JAX package's kernels sample the
+    nearest voxel only (raycast.py:683); a 4-D volume samples its channels
+    at the nearest voxel whatever ``config.interp`` says, here as in the
+    scan."""
     if config.interp is Interp.TRILINEAR:
         raise ValueError("the nearest-voxel march does not sample "
                          "Interp.TRILINEAR: ops/smooth marches smooth mode")
@@ -391,6 +392,11 @@ def check_fused_supported(config: RenderConfig, light: Light | None,
                 "a lit 4-D volume (and ignores a LUT there, as the JAX scan "
                 "does)")
         return "mc"
+    if config.interp is Interp.TRILINEAR_COLOR:
+        raise NotImplementedError(
+            "the fused march samples the nearest voxel, as the JAX package's "
+            "kernels do (raycast.py:683); mode='scan' renders "
+            "Interp.TRILINEAR_COLOR (the a5 colour mix on the a1 rays)")
     if config.scattering:
         if config.conic:
             raise NotImplementedError(
@@ -418,16 +424,17 @@ def check_fused_supported(config: RenderConfig, light: Light | None,
 
 
 def check_slab_supported(config: RenderConfig, light: Light | None) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md item 14b.2, for what the
+    """Raise NotImplementedError, naming ``mode='scan'``, for what the
     x-slab march does not compute by itself: lighting and scattering, whose
     gradients and transmittance cross the slab's faces (the JAX package
-    takes its slab scan with halos there, render_dist.py:563-580).  The
-    differentiable march supplies a lit slab's cropped bake instead
-    (:func:`prepare`'s ``baked_grids``)."""
+    takes its slab scan with halos there, render_dist.py:563-580; the
+    port's is ``parallel/render_dist``'s slab scan).  The differentiable
+    march supplies a lit slab's cropped bake instead (:func:`prepare`'s
+    ``baked_grids``)."""
     if is_lit(config, light) or config.scattering:
         raise NotImplementedError(
             "lighting and scattering on the volume axis need the slab scan "
-            "with x-halos: ROADMAP.md item 14b.2")
+            "with x-halos: mode='scan' renders them")
 
 
 def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
@@ -810,7 +817,7 @@ def march_kernel(a: MarchArgs):
                          "grids (the last with interval ids)")
     if a.slab_x and (lit or (baked and a.ids.dtype != torch.uint8)):
         raise ValueError("an x-slab takes no in-kernel light, and baked "
-                         "(M, S) with interval ids: ROADMAP.md item 14b.2")
+                         "(M, S) with interval ids")
     grid = (a.slab_x or a.dims[0],) + tuple(a.dims[1:])
     checks = [("scal", a.scal, _f32, (SCAL_LEN,)),
               ("colors", a.colors, _f32, None),

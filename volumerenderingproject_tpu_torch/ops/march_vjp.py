@@ -111,8 +111,8 @@ def check_mc_fit_supported(config: RenderConfig, channels: int) -> None:
     """A fit of a 4-D volume (cf. ``diff_pallas_mc_eligible``,
     pallas_march_vjp.py:2228-2245): an a1 nearest-voxel render with ortho
     rays, unlit, unscattered, without a LUT; the rest raises
-    NotImplementedError, naming its ROADMAP.md item or, for scattering,
-    the JAX package's reason."""
+    NotImplementedError naming ``mode='scan'``, which fits it, or, for
+    scattering, the JAX package's reason."""
     if channels == 1:
         return
     if config.scattering:
@@ -128,17 +128,18 @@ def check_mc_fit_supported(config: RenderConfig, channels: int) -> None:
         what = "smooth fits of 4-D volumes"
     if what is not None:
         raise NotImplementedError(
-            f"{what} are not ported yet: ROADMAP.md item 11a (the scan route "
-            "for fits; the JAX package's multichannel diff kernels take "
-            "ortho, unlit, unscattered nearest-voxel a1 renders, and it fits "
-            "the rest through its XLA scan)")
+            f"no differentiable kernel computes {what} (the JAX package's "
+            "multichannel diff kernels take ortho, unlit, unscattered "
+            "nearest-voxel a1 renders, and it fits the rest through its XLA "
+            "scan): mode='scan' fits them")
 
 
 def check_diff_supported(config: RenderConfig, channels: int,
                          num_intervals: int) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for what the
-    differentiable march does not compute (cf. ``diff_pallas_eligible``
-    and ``diff_pallas_mc_eligible``): it takes nearest-voxel renders of at
+    """Raise NotImplementedError, naming the route that computes it
+    (``mode='scan'``, or the smooth marches), for what the differentiable
+    march does not compute (cf. ``diff_pallas_eligible`` and
+    ``diff_pallas_mc_eligible``): it takes nearest-voxel renders of at
     most 16 intervals, one-channel ones lit through the bake (ortho) or
     not, through the interval scan or a LUT, and 4-D ones as
     :func:`check_mc_fit_supported` says."""
@@ -150,16 +151,20 @@ def check_diff_supported(config: RenderConfig, channels: int,
             "Interp.TRILINEAR: smooth renders differentiate through "
             "ops/smooth_vjp.render_vrc_smooth_diff (ROADMAP.md item 12, "
             "smooth mode)")
+    if config.interp is Interp.TRILINEAR_COLOR:
+        raise NotImplementedError(
+            "the differentiable march samples the nearest voxel, as the JAX "
+            "package's kernels do (raycast.py:683): mode='scan' fits "
+            "Interp.TRILINEAR_COLOR")
     if config.lighting and config.conic:
         raise NotImplementedError(
-            "conic lit fits are not ported yet: ROADMAP.md item 11a (the "
-            "scan route for fits; the JAX package fits them through its XLA "
-            "scan, having no backward of its in-kernel lighting)")
+            "no differentiable kernel computes conic lit fits (the JAX "
+            "package fits them through its XLA scan, having no backward of "
+            "its in-kernel lighting): mode='scan' fits them")
     if num_intervals > MAX_INTERVALS:
         raise NotImplementedError(
             f"the differentiable march takes at most {MAX_INTERVALS} TF "
-            f"intervals, got {num_intervals}: ROADMAP.md item 11d (the scan "
-            "route for fits)")
+            f"intervals, got {num_intervals}: mode='scan' fits more")
 
 
 def check_light_fit_supported(config: RenderConfig, channels: int,
@@ -167,34 +172,34 @@ def check_light_fit_supported(config: RenderConfig, channels: int,
     """What a fit of the light parameters adds to
     :func:`check_diff_supported` (cf. ``diff_pallas_light_eligible``): an
     a1 render with ortho rays, no LUT and a uniform light colour; the rest
-    raises NotImplementedError naming its ROADMAP.md item."""
+    raises NotImplementedError naming ``mode='scan'``, which fits it (the
+    JAX package's XLA scan does)."""
     if config.algorithm is not Algorithm.VRC or (
-            config.interp is Interp.TRILINEAR) or channels > 1:
+            config.interp is not Interp.NEAREST) or channels > 1:
         raise NotImplementedError(
-            "light fits of a5, smooth or 4-D renders are not ported yet: "
-            "ROADMAP.md item 11a (the scan route for fits; the JAX package "
-            "fits them through its XLA scan)")
+            "no differentiable kernel computes light fits of a5, smooth, "
+            "Interp.TRILINEAR_COLOR or 4-D renders (the JAX package fits "
+            "them through its XLA scan): mode='scan' fits them")
     check_diff_supported(config, channels, num_intervals)
     if config.conic:
         raise NotImplementedError(
-            "conic light fits are not ported yet: ROADMAP.md item 11a (the "
-            "scan route for fits; the JAX package fits them through its XLA "
-            "scan)")
+            "no differentiable kernel computes conic light fits (the JAX "
+            "package fits them through its XLA scan): mode='scan' fits them")
     if config.tf_lut:
         raise NotImplementedError(
             "a light fit through a LUT is not computed by the fused marches "
-            "(the JAX package raises too, pallas_march_vjp.py:1661-1664): "
-            "ROADMAP.md item 11a (the scan route for fits)")
+            "(the JAX package's kernels refuse it too, "
+            "pallas_march_vjp.py:1661-1664): mode='scan' fits it")
     if config.scattering:
         raise NotImplementedError(
-            "light fits of scattered renders are not ported yet: ROADMAP.md "
-            "item 11a (the scan route for fits; the JAX package fits a traced "
-            "light of a scattered render through its XLA scan)")
+            "no differentiable kernel computes light fits of scattered "
+            "renders (the JAX package fits a traced light of a scattered "
+            "render through its XLA scan): mode='scan' fits them")
     if not phong.uniform_light(light):
         raise NotImplementedError(
-            "a light fit from a non-uniform light colour is not ported yet: "
-            "ROADMAP.md item 11a (the scan route for fits; the baked march "
-            "shades with one colour)")
+            "the baked march shades with one light colour: mode='scan' fits "
+            "from a light colour that is not uniform, shading each channel "
+            "with its own")
 
 
 def check_scatter_fit_supported(config: RenderConfig, channels: int,
@@ -203,14 +208,14 @@ def check_scatter_fit_supported(config: RenderConfig, channels: int,
     (cf. ``diff_pallas_scatter_eligible``, pallas_march_vjp.py:1333-1366):
     an a1 nearest-voxel render with ortho rays, no LUT and a static light
     of a uniform colour (the default one where ``light`` is None); the rest
-    raises NotImplementedError naming its ROADMAP.md item."""
+    raises NotImplementedError naming ``mode='scan'``, which fits it."""
     if config.algorithm is not Algorithm.VRC or (
             config.interp is Interp.TRILINEAR):
         raise NotImplementedError(
-            "scattered fits of a5 or smooth renders are not ported yet: "
-            "ROADMAP.md item 11a (the scan route for fits; the JAX package's "
-            "a5 and smooth diff kernels exclude scattering, and it fits them "
-            "through its XLA scan)")
+            "no differentiable kernel computes scattered fits of a5 or smooth "
+            "renders (the JAX package's a5 and smooth diff kernels exclude "
+            "scattering, and it fits them through its XLA scan): mode='scan' "
+            "fits them")
     check_diff_supported(config, channels, num_intervals)
     what = None
     if config.conic:
@@ -223,8 +228,8 @@ def check_scatter_fit_supported(config: RenderConfig, channels: int,
         what = "scattered fits under a non-uniform light colour"
     if what is not None:
         raise NotImplementedError(
-            f"{what} are not ported yet: ROADMAP.md item 11a (the scan route "
-            "for fits; the JAX package fits them through its XLA scan)")
+            f"no differentiable kernel computes {what} (the JAX package fits "
+            "them through its XLA scan): mode='scan' fits them")
 
 
 def diff_eligible(volume, tf: TransferFunction, config: RenderConfig) -> bool:
@@ -577,7 +582,7 @@ def march_bwd_kernel(a: MarchArgs, g_rgb: torch.Tensor,
                          "its channel grids go with interval ids, unlit")
     if a.slab_x and (lut or mc):
         raise ValueError("an x-slab's backward takes interval ids, plain or "
-                         "baked: ROADMAP.md item 11a")
+                         "baked")
     grid = (a.slab_x or a.dims[0],) + tuple(a.dims[1:])
     checks = [("scal", a.scal, _f32, (SCAL_LEN,)),
               ("colors", a.colors, _f32, None),
@@ -856,9 +861,9 @@ def render_vrc_diff(volume, tf: TransferFunction, camera,
     if config.scattering:
         if unit:
             raise NotImplementedError(
-                "sharded scattered fits are not ported yet: ROADMAP.md item "
-                "11a (the JAX package fits them through its XLA scan "
-                "segments)")
+                "no differentiable work unit computes sharded scattered fits "
+                "(the JAX package fits them through its XLA scan segments): "
+                "mode='scan' fits them")
         return render_vrc_scatter_diff(volume, tf, camera, config,
                                        device=device, light=light)
     dev = resolve_device(device)
@@ -868,8 +873,8 @@ def render_vrc_diff(volume, tf: TransferFunction, camera,
         return _MarchFn.apply(colors, args)
     if unit.get("slab_x"):
         raise NotImplementedError(
-            "a light fit on the volume axis is not ported yet: ROADMAP.md "
-            "item 14b.2 (the JAX package fits it through its slab scan)")
+            "no differentiable slab unit takes an explicit light (the JAX "
+            "package fits it through its slab scan): mode='scan' fits it")
     light = light.to(dev)
     check_light_fit_supported(config, volume.channels, tf.num_intervals,
                               light)

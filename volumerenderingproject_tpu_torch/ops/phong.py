@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..utils.config import RenderConfig
-from ..utils.device import resolve_device
+from ..utils.device import const, resolve_device
 from . import conv3d
 
 _f32 = torch.float32
@@ -121,22 +121,34 @@ def safe_pow(base: torch.Tensor, exponent) -> torch.Tensor:
 def _fade(n_norm: torch.Tensor) -> torch.Tensor:
     """The shading weight clip(|g| / GRAD_THRESHOLD, 0, 1)."""
     # a device divisor: CUDA divides by a host scalar as a reciprocal product
-    thr = torch.tensor(GRAD_THRESHOLD, dtype=_f32, device=n_norm.device)
+    thr = const(float(GRAD_THRESHOLD), n_norm.device)
     return (n_norm / thr).clamp(0.0, 1.0)
 
 
-def phong_shade(rgb: torch.Tensor, normal: torch.Tensor,
-                view_dir: torch.Tensor, light: Light) -> torch.Tensor:
-    """Shade colours [..., 3] with normals [..., 3]; ``view_dir`` points
-    from the sample toward the camera ([..., 3] or [3])."""
+def shade_directions(view_dir: torch.Tensor, light: Light
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(l, h): the unit light direction and the unit half vector of
+    :func:`phong_shade` for ``view_dir`` ([..., 3] or [3]), which depend on
+    the ray and the light only: a scan takes them once a render."""
     l = light.direction / norm3(light.direction)
+    v = view_dir / norm3(view_dir, keepdim=True).clamp_min(1e-8)
+    h = l + v
+    return l, h / norm3(h, keepdim=True).clamp_min(1e-8)
+
+
+def phong_shade(rgb: torch.Tensor, normal: torch.Tensor,
+                view_dir: torch.Tensor | None, light: Light,
+                directions: Tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """Shade colours [..., 3] with normals [..., 3]; ``view_dir`` points
+    from the sample toward the camera ([..., 3] or [3]), or ``directions``
+    gives :func:`shade_directions` of it."""
+    l, h = (shade_directions(view_dir, light) if directions is None
+            else directions)
     n = normal
     n_norm = norm3(n, keepdim=True)
     n = n / n_norm.clamp_min(1e-8)
     ndotl = dot3(n, l, keepdim=True).abs()
-    v = view_dir / norm3(view_dir, keepdim=True).clamp_min(1e-8)
-    h = l + v
-    h = h / norm3(h, keepdim=True).clamp_min(1e-8)
     ndoth = dot3(n, h, keepdim=True).abs()
     spec = light.specular * safe_pow(ndoth, light.shininess)
     shaded = (light.ambient * rgb
@@ -281,7 +293,7 @@ def henyey_greenstein(cos_theta: torch.Tensor, g: torch.Tensor
     g = torch.as_tensor(g, dtype=_f32)
     cos_theta = torch.as_tensor(cos_theta, dtype=_f32, device=g.device)
     denom = (1.0 + g * g) - (2.0 * g) * cos_theta
-    four_pi = torch.tensor(np.float32(4.0 * math.pi), device=g.device)
+    four_pi = const(float(np.float32(4.0 * math.pi)), g.device)
     return (1.0 - g * g) / (four_pi * denom.clamp_min(1e-8) ** 1.5)
 
 
@@ -364,6 +376,20 @@ def light_transmittance_grid(alpha: torch.Tensor, light_dir: torch.Tensor,
         planes.append(t_k)
     t = torch.stack(planes[::-1] if sign > 0 else planes)
     return t.permute(tuple(int(i) for i in np.argsort(perm)))
+
+
+def light_transmittance_grid_slab(alpha: torch.Tensor,
+                                  light_dir: torch.Tensor, x0: int,
+                                  slab_x: int,
+                                  sweep: Tuple[int, float] | None = None
+                                  ) -> torch.Tensor:
+    """The x-slab [x0, x0 + slab_x) of the whole volume's transmittance
+    grid, [slab_x, Y, Z] (phong.py:114).  The JAX package stitches the
+    slabs' sweeps across devices and documents the result as numerically
+    identical to the whole volume's sweep (phong.py:120-125); every rank
+    of the port holds the whole volume, so it sweeps ``alpha`` [X, Y, Z]
+    whole (:func:`light_transmittance_grid`) and crops it."""
+    return light_transmittance_grid(alpha, light_dir, sweep)[x0:x0 + slab_x]
 
 
 def bake_scatter_grid(data: torch.Tensor, tf, config: RenderConfig,

@@ -74,12 +74,11 @@ class SmoothArgs(NamedTuple):
 
 def check_smooth_supported(config: RenderConfig, num_intervals: int,
                            light=None) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item, for a smooth
-    render the fused march does not compute (the exclusions of
+    """Raise NotImplementedError, naming ``mode='scan'``, for a smooth
+    render or fit the fused marches do not compute (the exclusions of
     ``smooth_pallas_eligible``, pallas_smooth.py:706-721); ``mode="scan"``
-    renders each of them.  ``Interp.TRILINEAR_COLOR`` raises earlier, in
-    ``march.check_supported``, and a 4-D volume in :func:`prepare_smooth`;
-    a config that is not smooth is a ValueError."""
+    renders and fits each of them.  A 4-D volume raises in
+    :func:`prepare_smooth`; a config that is not smooth is a ValueError."""
     if config.interp is not Interp.TRILINEAR:
         raise ValueError("the smooth march samples Interp.TRILINEAR only")
     what = None
@@ -97,7 +96,7 @@ def check_smooth_supported(config: RenderConfig, num_intervals: int,
         raise NotImplementedError(
             f"the fused smooth march (K8) computes the plain smooth classify; "
             f"{what} is not in it, as in the JAX package's kernel: ROADMAP.md "
-            f"item 12 (smooth mode); mode='scan' renders it")
+            f"item 12 (smooth mode); mode='scan' renders and fits it")
 
 
 def scal_vector(camera, config: RenderConfig, dims, cal_max: torch.Tensor,

@@ -35,13 +35,17 @@ JAX package routes it (``_pallas_segment_eligible``, render_dist.py:65-161):
   * a5 on the rays and samples axes: K3's segment mode
     (``ops/a5.render_test_fused``, ``segment=True``), unlit and baked.
 
-On CPU tensors the kernels' plain versions run instead.  What no segment
-kernel computes raises: on the rays and samples axes smooth mode
-(``Interp.TRILINEAR``) and an explicit ``light`` render through the plain
-scan segments (``models/raycast.render_vrc_segment``,
-``render_test_segment``) under ``mode="scan"`` only; on the volume axis
-lighting, scattering, smooth mode and a5 need the JAX package's slab scan
-with x-halos (render_dist.py:563-580), ROADMAP.md item 14b.2.
+On CPU tensors the kernels' plain versions run instead.  ``mode="scan"``
+runs the scans instead of the kernels (render_dist.py:583-625): on the rays
+and samples axes the plain scan segments
+(``models/raycast.render_vrc_segment``, ``render_test_segment``), on the
+volume axis the slab scan (:func:`render_segment_volume_slab`,
+render_dist.py:736), which marches each unit's rays against its x-slab
+with x-halos, the samples of other slabs the over identity.  What no
+segment kernel computes raises in ``mode="fast"``, naming ``mode='scan'``:
+smooth mode (``Interp.TRILINEAR``, ``TRILINEAR_COLOR``) and an explicit
+``light`` on the rays and samples axes, and lighting, scattering, smooth
+mode, a5 and an explicit light on the volume axis.
 
 ``differentiable=True`` (a sharded fit, diff/fit.py's mesh path) runs each
 rank's work unit through the autograd functions of the differentiable
@@ -59,13 +63,21 @@ and backward K4 (``ops/march_vjp.render_vrc_diff``), or K3 and K6
   * a5 unlit on the rays and samples axes.
 
 The fold differentiates through ``Mesh.all_gather`` (each rank takes the
-cotangent of its own slice).  The other sharded fits raise: LUT, 4-D,
-smooth, scattered, more than 16 intervals and conic lit ones, which the
-JAX package differentiates through its XLA scan segments (ROADMAP.md item
-11a), and a light on the volume axis or a5 slabs (its slab scan, item
-14b.2).  The TPU's memory predicates (``packed_geometry``,
+cotangent of its own slice).  The other sharded fits raise in
+``mode="fast"``, naming ``mode='scan'``: LUT, 4-D, smooth, scattered, more
+than 16 intervals, conic lit and lit a5 ones, which the JAX package
+differentiates through its XLA scan segments, and a light on the volume
+axis or a5 slabs (its slab scan).  ``differentiable=True`` with
+``mode="scan"`` runs the scan segments and the slab scan under autograd,
+checkpointed in chunks of samples (``models/raycast.SCAN_CHUNK``), for
+every config.  The TPU's memory predicates (``packed_geometry``,
 ``baked_light_feasible``) have no counterpart: the volume stays in device
 memory.
+
+The JAX slab scan ignores ``config.tf_lut``; the port's applies it, as
+its LUT slab kernels and every single-device path do, and it scatters a5
+slabs, which the JAX slab scan leaves unscattered: the folded slabs equal
+the single-device render in every config.
 """
 
 from __future__ import annotations
@@ -75,9 +87,10 @@ from typing import List, Tuple
 import torch
 
 from ..models import raycast
-from ..ops import a5, a5_vjp, march, march_vjp
+from ..ops import a5, a5_vjp, conv3d, march, march_vjp, phong, sampling
 from ..ops import composite as comp
 from ..ops.phong import Light
+from ..scene.transfer_function import take_rows
 from ..utils.config import Algorithm, Interp, RenderConfig
 from .mesh import Mesh
 
@@ -102,7 +115,9 @@ def shard_sizes(volume, config: RenderConfig, shape: Tuple[int, int, int]
             or config.interp is not Interp.NEAREST):
         raise NotImplementedError(
             "volume-axis sharding of multi-channel volumes supports the "
-            "nearest-neighbor a1 path (the only multi-channel sampler)")
+            "nearest-neighbor a1 path (the only multi-channel sampler), as "
+            "in the JAX package; the rays and samples axes render the rest "
+            "(mode='scan')")
     if n_vol > 1 and config.scattering and (
             config.interp is not Interp.NEAREST or volume.channels != 1):
         raise NotImplementedError(
@@ -112,48 +127,55 @@ def shard_sizes(volume, config: RenderConfig, shape: Tuple[int, int, int]
             volume.dims[0] // n_vol if n_vol > 1 else 0)
 
 
-def _check_route(config: RenderConfig, mode: str, slab: bool,
-                 light: Light | None) -> None:
-    """Raise for a work unit that no segment kernel computes, naming
-    ``mode="scan"`` (rays and samples axes) or ROADMAP.md item 14b.2 (the
-    volume axis)."""
+def _check_mode(mode: str) -> None:
     if mode not in ("fast", "scan"):
         raise ValueError(f"unknown mode {mode!r}: a sharded render takes "
                          "'fast' or 'scan'")
+
+
+def _check_route(config: RenderConfig, mode: str, slab: bool,
+                 light: Light | None) -> None:
+    """Raise, naming ``mode='scan'``, for a work unit that no segment
+    kernel computes in ``mode="fast"``."""
+    _check_mode(mode)
+    if mode == "scan":
+        return
     test = config.algorithm is Algorithm.TEST
     if slab:
-        if (mode == "scan" or test or light is not None or config.lighting
+        if (test or light is not None or config.lighting
                 or config.scattering or config.interp is not Interp.NEAREST):
             raise NotImplementedError(
-                "this volume-axis render (the slab scan with x-halos: "
-                "lighting, scattering, smooth mode, a5, an explicit light, "
-                "mode='scan') is not ported yet: ROADMAP.md item 14b.2")
+                "no slab kernel renders lighting, scattering, smooth mode, "
+                "Interp.TRILINEAR_COLOR, a5 or an explicit light on the "
+                "volume axis, as in the JAX package (render_dist.py:563-580); "
+                "mode='scan' renders them through the slab scan with x-halos")
         return
-    if mode == "fast" and (light is not None or (
-            not test and config.interp is Interp.TRILINEAR)):
+    if light is not None or (not test
+                             and config.interp is not Interp.NEAREST):
         raise NotImplementedError(
-            "no segment kernel renders smooth mode (Interp.TRILINEAR) or an "
-            "explicit light on the rays and samples axes, as in the JAX "
-            "package (render_dist.py:376-381); mode='scan' renders them "
-            "through the plain scan segments")
+            "no segment kernel renders smooth mode (Interp.TRILINEAR, "
+            "TRILINEAR_COLOR) or an explicit light on the rays and samples "
+            "axes, as in the JAX package (render_dist.py:376-381); "
+            "mode='scan' renders them through the plain scan segments")
 
 
 def check_diff_route(volume, tf, config: RenderConfig, mode: str,
                      slab: bool, light: Light | None) -> None:
-    """Raise NotImplementedError for a sharded fit's work unit that no
-    differentiable kernel computes (the module docstring), naming ROADMAP.md
-    item 11a (the JAX package's XLA scan segments) or 14b.2 (its slab
-    scan)."""
-    if mode != "fast":
-        raise NotImplementedError(
-            "a sharded fit runs the differentiable kernels (mode='fast'); "
-            "fits through the scan segments are ROADMAP.md item 11a")
+    """Raise NotImplementedError, naming ``mode='scan'``, for a sharded
+    fit's work unit that no differentiable kernel computes in
+    ``mode="fast"`` (the module docstring); ``mode="scan"`` fits every
+    config (the JAX package's XLA scan segments and slab scan)."""
+    _check_mode(mode)
+    if mode == "scan":
+        return
     test = config.algorithm is Algorithm.TEST
     what = None
     if volume.channels != 1:
         what = "fits of 4-D volumes"
-    elif not test and config.interp is not Interp.NEAREST:
+    elif not test and config.interp is Interp.TRILINEAR:
         what = "smooth fits"
+    elif not test and config.interp is Interp.TRILINEAR_COLOR:
+        what = "Interp.TRILINEAR_COLOR fits"
     elif config.scattering:
         what = "scattered fits"
     elif config.tf_lut:
@@ -167,14 +189,14 @@ def check_diff_route(volume, tf, config: RenderConfig, mode: str,
         what = "lit a5 fits"
     if what is not None:
         raise NotImplementedError(
-            f"sharded {what} are not ported yet: ROADMAP.md item 11a (the "
-            "scan route for fits; the JAX package differentiates them "
-            "through its XLA scan segments, render_dist.py:189-254)")
+            f"no differentiable work unit computes sharded {what} (the JAX "
+            "package differentiates them through its XLA scan segments, "
+            "render_dist.py:189-254): mode='scan' fits them")
     if slab and (test or light is not None):
         raise NotImplementedError(
-            "a sharded fit on the volume axis with an explicit light or a5 "
-            "is not ported yet: ROADMAP.md item 14b.2 (the JAX package "
-            "differentiates it through its slab scan)")
+            "no differentiable slab unit takes an explicit light or a5 (the "
+            "JAX package differentiates them through its slab scan): "
+            "mode='scan' fits them")
 
 
 def render_segment(volume, tf, camera, config: RenderConfig,
@@ -186,9 +208,10 @@ def render_segment(volume, tf, camera, config: RenderConfig,
     which a volume-axis unit keeps its slab's planes.  ``mode="fast"`` runs
     the segment kernels (their plain versions on CPU tensors) at
     ``config.early_termination``; ``mode="scan"`` the plain scan segments,
-    rays and samples axes only.  ``differentiable=True`` runs the
+    or on the volume axis the slab scan.  ``differentiable=True`` runs the
     differentiable kernels at eps 0, the pair differentiable with respect to
-    ``tf.colors`` (and ``light``'s fields)."""
+    ``tf.colors`` (and ``light``'s fields); with ``mode="scan"`` the scans
+    under autograd, differentiable with respect to every parameter."""
     w_local, s_local, slab_x = shard_sizes(volume, config, shape)
     ri, si, vi = coords
     unit = dict(x_offset=ri * w_local, local_width=w_local,
@@ -196,6 +219,17 @@ def render_segment(volume, tf, camera, config: RenderConfig,
     test = config.algorithm is Algorithm.TEST
     if differentiable:
         check_diff_route(volume, tf, config, mode, slab_x > 0, light)
+    else:
+        _check_route(config, mode, slab_x > 0, light)
+    if mode == "scan":
+        if slab_x:
+            return render_segment_volume_slab(
+                volume, tf, camera, config, x0=vi * slab_x, slab_x=slab_x,
+                light=light, **unit)
+        scan = raycast.render_test_segment if test else (
+            raycast.render_vrc_segment)
+        return scan(volume, tf, camera, config, light=light, **unit)
+    if differentiable:
         if test:
             return a5_vjp.render_test_diff(volume, tf, camera, config,
                                            device=volume.data.device,
@@ -205,11 +239,6 @@ def render_segment(volume, tf, camera, config: RenderConfig,
         return march_vjp.render_vrc_diff(volume, tf, camera, config,
                                          device=volume.data.device,
                                          light=light, segment=True, **unit)
-    _check_route(config, mode, slab_x > 0, light)
-    if mode == "scan":
-        scan = raycast.render_test_segment if test else (
-            raycast.render_vrc_segment)
-        return scan(volume, tf, camera, config, light=light, **unit)
     if test:
         return a5.render_test_fused(volume, tf, camera, config, segment=True,
                                     **unit)
@@ -217,6 +246,206 @@ def render_segment(volume, tf, camera, config: RenderConfig,
         unit.update(x0=vi * slab_x, slab_x=slab_x)
     return march.render_vrc_fused(volume, tf, camera, config, segment=True,
                                   **unit)
+
+
+def _slab_halo_width(config: RenderConfig) -> int:
+    """x-halo planes of a slab unit (render_dist.py:703): 2 (the a5 and
+    trilinear corners' reach with their row wraps), widened to the
+    Gaussian radius + 1 under presmoothing, so that the owned voxels'
+    smoothed gradients see their whole neighbourhood."""
+    hw = 2
+    if config.presmooth_sigma > 0.0:
+        hw = max(hw, 1 + max(1, int(3.0 * config.presmooth_sigma + 0.5)))
+    return hw
+
+
+def _with_x_halo(data: torch.Tensor, x0: int, slab_x: int, hw: int
+                 ) -> torch.Tensor:
+    """The planes [x0 - hw, x0 + slab_x + hw) of ``data`` [X, ...], zero
+    planes past the volume's faces (render_dist.py:671).  Every rank holds
+    the whole volume, so the halo is a slice of it, not a message between
+    ranks."""
+    d1 = data.shape[0]
+    lo, hi = x0 - hw, x0 + slab_x + hw
+    parts = [data[max(lo, 0):min(hi, d1)]]
+    if lo < 0:
+        parts.insert(0, data.new_zeros((-lo,) + data.shape[1:]))
+    if hi > d1:
+        parts.append(data.new_zeros((hi - d1,) + data.shape[1:]))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _slab_gradient_from_ext(ext: torch.Tensor, config: RenderConfig,
+                            hw: int, x0: int, d1: int) -> torch.Tensor:
+    """Normals [slab_x + 2 hw, Y, Z, 3] on a halo-extended slab, equal to
+    the whole volume's at the slab's voxels (render_dist.py:714): under
+    presmoothing the smoothed planes outside the volume are zeroed before
+    the gradient, as the whole volume's gradient reads zero padding
+    there."""
+    if config.presmooth_sigma > 0.0:
+        sm = conv3d.gaussian_smooth(ext, config.presmooth_sigma)
+        gx = torch.arange(-hw, ext.shape[0] - hw, device=ext.device) + x0
+        sm = torch.where(((gx >= 0) & (gx < d1))[:, None, None], sm,
+                         torch.zeros((), dtype=_f32, device=ext.device))
+        if config.gradient_filter == "sobel":
+            return conv3d.sobel_gradient(sm)
+        return conv3d.central_difference_gradient(sm)
+    return conv3d.gradient_field(ext, config.gradient_filter, 0.0)
+
+
+def render_segment_volume_slab(volume, tf, camera, config: RenderConfig, *,
+                               x_offset: int, local_width: int, s_start: int,
+                               s_count: int, x0: int, slab_x: int,
+                               light: Light | None = None):
+    """The slab scan (``_render_segment_volume_slab``, render_dist.py:736):
+    the work unit of columns [x_offset, x_offset + local_width) and samples
+    [s_start, s_start + s_count) against the x-slab [x0, x0 + slab_x) of
+    ``volume`` (the whole volume) -> its (C [w, H, 3], T [w, H, 1]) pair.
+
+    A sample the slab does not own is the over identity (rgba 0), so the
+    slabs folded in visibility order equal the single-device scan.
+    Trilinear taps, a5 corners and the gradient normals of lighting read a
+    slab extended by x-halos (:func:`_slab_halo_width` planes each side);
+    scattering reads the slab of the whole volume's transmittance grid
+    (``phong.light_transmittance_grid_slab``).  Each sample is classified
+    as :func:`models.raycast._vrc_sample_rgba` or the a5 sampler classify
+    it: a LUT, scattering and ``density_scale`` too (the module
+    docstring).  Under autograd it marches in checkpointed chunks."""
+    dev = volume.data.device
+    d1, d2, d3 = dims = volume.dims
+    data3d = volume.data if volume.channels == 1 else volume.data[..., 0]
+    test = config.algorithm is Algorithm.TEST
+    lit = phong.is_lit(config, light)
+    if lit or config.scattering:
+        light = phong.default_light(dev) if light is None else light
+    hw = _slab_halo_width(config) if lit else 2
+    ext = _with_x_halo(data3d, x0, slab_x, hw)
+    ext_flat = ext.reshape(-1)
+    ext_base = (x0 - hw) * (d2 * d3)
+    ext_total = ext_flat.shape[0]
+    zero = torch.zeros((), dtype=_f32, device=dev)
+    grad_ext = (_slab_gradient_from_ext(ext, config, hw, x0, d1).reshape(-1, 3)
+                if lit else None)
+    tl_flat = None
+    if config.scattering:
+        phong.check_scatter_channels(volume.channels)
+        alpha = tf.classify(volume.data.clamp_min(0.0)
+                            / torch.trunc(volume.cal_max))[..., 3]
+        alpha = phong.clip01(alpha * torch.tensor(
+            config.density_scale, dtype=_f32, device=dev))
+        tl_flat = phong.light_transmittance_grid_slab(
+            alpha, light.direction, x0, slab_x).reshape(-1)
+
+    def ext_index(flat, valid):
+        """Global flat voxel index -> (index into the extended slab, ok)."""
+        lflat = flat - ext_base
+        ok = valid & (lflat >= 0) & (lflat < ext_total)
+        return lflat.clamp(0, ext_total - 1), ok
+
+    def shade(rgba, flat, valid, directions):
+        lflat, ok = ext_index(flat, valid)
+        normal = torch.where(ok[..., None], grad_ext[lflat], zero)
+        return torch.cat([phong.phong_shade(rgba[..., :3], normal, None, light,
+                                            directions), rgba[..., 3:4]],
+                         dim=-1)
+
+    def scatter(rgba, flat, valid, ray_dirs, v_norm):
+        lflat = (flat - x0 * (d2 * d3)).clamp(0, slab_x * d2 * d3 - 1)
+        return raycast._apply_scattering(rgba, tf, config,
+                                         (tl_flat, light, ray_dirs), lflat,
+                                         valid, v_norm)
+
+    if test:
+        x, y = raycast.pixel_grid(config, dev, x_offset, local_width)
+        mats = a5.stage_matrices(camera, dims, config)
+        if lit:
+            a5_dirs = phong.shade_directions(-camera.front, light)
+        dimv = torch.tensor(dims, dtype=_f32, device=dev)
+        hi = torch.tensor(dims, dtype=torch.int64, device=dev) - 1
+
+        def sample_rgba(i):
+            pos = a5.apply_stages(mats, x, y, i)
+            rgba, owned = sampling.trilinear_color_sample_slab(
+                ext_flat, dims, pos, tf.classify, volume.cal_max, x0, slab_x,
+                hw)
+            if not lit and tl_flat is None:
+                return rgba
+            inside = ((pos >= 0.0) & (pos < dimv)).all(dim=-1) & owned
+            ijk = torch.minimum(torch.trunc(pos).to(torch.int64).clamp_min(0),
+                                hi)
+            flat = ijk[..., 0] * (d2 * d3) + ijk[..., 1] * d3 + ijk[..., 2]
+            if lit:
+                rgba = shade(rgba, flat, inside, a5_dirs)
+            if tl_flat is not None:
+                lflat, ok = ext_index(flat, inside)
+                v = torch.where(ok, ext_flat[lflat].clamp_min(0.0), zero)
+                rgba = scatter(rgba, flat, inside, camera.front,
+                               v / volume.cal_max)
+            return torch.where(owned[..., None], rgba, zero)
+    else:
+        origins = raycast.ray_origins(camera, config, x_offset, local_width)
+        dirs = raycast.primary_ray_dirs(camera, config, x_offset,
+                                        local_width)
+        ds = torch.tensor(config.sample_distance, dtype=_f32, device=dev)
+        clip = torch.tensor(config.front_clip, dtype=_f32, device=dev)
+        if lit:
+            a1_dirs = phong.shade_directions(-dirs, light)
+        lut = tf.lut_intervals(config.tf_lut) if config.tf_lut else None
+        depth = volume.octree_depth
+        slab_flat = volume.data[x0:x0 + slab_x].reshape(
+            -1, volume.channels).squeeze(-1)
+        cal_trunc = torch.trunc(volume.cal_max)
+
+        def sample_rgba(i):
+            p = (origins + (i * ds + clip) * dirs) + 0.5
+            v_norm = None
+            if volume.channels > 1:
+                lflat, valid, owned = sampling.octree_nn_index_slab(
+                    dims, depth, p, x0, slab_x)
+                v = slab_flat[lflat].clamp_min(0.0)
+                v = torch.where((valid & owned)[..., None], v, zero)
+                norm = v / volume.cal_max
+                rgb = norm[..., :3] if volume.channels >= 3 else (
+                    norm[..., :1].expand(*norm.shape[:-1], 3))
+                alpha = tf.classify(march.channel_mean(norm))[..., 3:4]
+                rgba = torch.cat([rgb, alpha], dim=-1)
+            elif config.interp is Interp.TRILINEAR:
+                v, owned = sampling.trilinear_intensity_sample_slab(
+                    ext, dims, raycast._to_volume_space(p, volume), x0,
+                    slab_x, hw)
+                rgba = tf.classify_smooth(v / volume.cal_max,
+                                          config.tf_sharpness)
+            elif config.interp is Interp.TRILINEAR_COLOR:
+                rgba, owned = sampling.trilinear_color_sample_slab(
+                    ext_flat, dims, raycast._to_volume_space(p, volume),
+                    tf.classify, volume.cal_max, x0, slab_x, hw)
+            else:
+                v, owned = sampling.octree_nn_sample_slab(
+                    slab_flat, dims, depth, p, x0, slab_x)
+                v_norm = v / cal_trunc
+                if lut is not None:
+                    n = lut.shape[0]
+                    rgba = take_rows(tf.colors, lut[
+                        torch.round(v_norm * (n - 1)).to(torch.int64)
+                        .clamp(0, n - 1)])
+                else:
+                    rgba = tf.classify(v_norm)
+            if lit or tl_flat is not None:
+                flat, valid = sampling.octree_nn_index(dims, depth, p)
+                valid = valid & owned
+            if lit:
+                rgba = shade(rgba, flat, valid, a1_dirs)
+            if tl_flat is not None:
+                rgba = scatter(rgba, flat, valid, dirs, v_norm)
+            if config.density_scale != 1.0:
+                a = rgba[..., 3:4] * torch.tensor(config.density_scale,
+                                                  dtype=_f32, device=dev)
+                rgba = torch.cat([rgba[..., :3], a.clamp(0.0, 1.0)], dim=-1)
+            return torch.where(owned[..., None], rgba, zero)
+
+    return raycast._march(sample_rgba, config, "segment", dev,
+                          (local_width, config.height), s_start, s_count,
+                          raycast.scan_chunk(volume, tf, camera, light))
 
 
 def fold_volume(segs_c: List[torch.Tensor], segs_t: List[torch.Tensor],
