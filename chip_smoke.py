@@ -319,8 +319,8 @@ computes; the volume axis's slab scan), with its own seeds:
      and light 700x700x500, (b) lit a5 ``a5_500``, (c) a light fit at
      ``lut_phong_300``, (d) a smooth lit bound fit 700x700x500, (e) conic
      scattered 700x700x250, (f) lit 4-D ``multichannel_304``, (g) 20
-     intervals and ``Interp.TRILINEAR_COLOR`` 700x700x500; each 1 warm-up
-     and 2 timed steps (CUDA events), finite losses, its peak device memory
+     intervals and ``Interp.TRILINEAR_COLOR`` 700x700x500; each 1 timed
+     step (CUDA events), finite losses, its peak device memory
      at most 8 GiB above the start and no hand-written kernel launched; (a)
      with its steps repeated (equal losses) and a central difference of its
      gradient within TOL_FD; then the scan route against K1/K4 baked
@@ -364,10 +364,33 @@ outside, K6 folds the constant samples once a ray) and index width:
      the kernels' index-width rule against ``a5.index32`` at the 2^31
      edge, and K3 and K6 on a 1300^3 id grid whose rays read past 2^31.
 
+The a0 point cloud, the CLI's remaining commands, the default route and
+the multi-device dry run, which add no kernel and no launch, with their own
+seeds:
+
+  8a. ``render()`` with ``Algorithm.POINT`` at 700x700 on both volumes:
+     ms/frame (CUDA events around 8 orbit frames, mean), no kernel
+     launched; the first frame against the same inputs on the CPU (at most
+     0.1 % of the pixels may differ, their count printed); the exact native
+     rasterizer's ms and more than 70 % of its pixels within 0.2 of the
+     approximation; ``render_points_depth`` and ``render_depth_vrc`` (500
+     samples a ray) finite, in [0, 1] and grey, with their ms;
+  8b. in this process (``cli.main``), on a seeded MNI-dims NIfTI that it
+     writes and on the sphere: ``render --algorithm point`` (with
+     ``--depth``, ``--orbit``, ``--exact-points``), the ray caster's
+     ``render --depth``, ``orbit --frames 2``, ``bench --repeats 2`` (its
+     rays/s line), ``info`` and ``compare`` (exit 1 below its threshold);
+     every PNG valid;
+  8c. ``mode="auto"``: a conic scattered a1 frame at 700x700x250 takes
+     the scan route (logged, no kernel launched), a plain a1 frame the
+     kernel (one K1 launch);
+  8d. ``parallel/dryrun.dryrun_multichip(8)`` on 8 gloo ranks sharing
+     the card: both configs' gates, its seconds.
+
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
-of 3 windows; a plain version's time is one call after an untimed one, or
-after the check that has just run it on the same inputs.
+of 3 windows; a plain version's time is one call, most of them after the
+check that has just run it on the same inputs.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the main paths, its error against its plain version, its
@@ -394,6 +417,7 @@ W = H = 700
 SPR = 500
 FRAMES = 8
 TOL_EXACT = 2e-5  # kernel vs plain, eps = 0 (and at equal eps)
+POINT_CPU_SHARE = 1e-3  # point cloud: pixels that may differ card vs CPU
 TOL_EPS = 1.1e-3  # kernel at eps = 1e-3 vs the exact plain render
 TOL_GRAD = 5e-3  # backward kernel vs plain, relative to max |dplain|
 # K4's per-block partials vs the float64 sums of march_bwd_plain's float32
@@ -664,12 +688,12 @@ def timed_ms(fn, reps: int, prefill: bool = False,
     return sorted(times)[len(times) // 2]
 
 
-def time_plain(fn, warm: bool = False) -> float:
-    """ms of one call of a plain version after one untimed call (none with
-    ``warm``: the caller has just run it on the same inputs): its time is
-    its host launches, seconds at the main paths' shapes, so one window is
-    enough (and keeps the script inside its time limit)."""
-    return timed_ms(fn, 1, windows=1, warm_up=not warm)
+def time_plain(fn) -> float:
+    """ms of one call of a plain version, with no untimed call before it
+    (most callers have just run it on the same inputs): its time is its
+    host launches, seconds at the main paths' shapes, so one call is enough
+    (and keeps the script inside its time limit)."""
+    return timed_ms(fn, 1, windows=1, warm_up=False)
 
 
 def orbit_cameras(P, rng, frames: int = FRAMES, radius: float = 1.5):
@@ -2049,8 +2073,8 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             smooth.march_smooth_plain(x, stats)
             live += stats["samples"] / FRAMES
             inside += stats["inside"] / FRAMES
-        plain_ms = time_plain(lambda: smooth.march_smooth_plain(args[0]),
-                              warm=True)  # the stats loop ran it
+        # the stats loop ran it
+        plain_ms = time_plain(lambda: smooth.march_smooth_plain(args[0]))
         orbits[vname] = (cams, main_cfg)
         k = tf.num_intervals
         rays = W * H
@@ -2106,10 +2130,9 @@ def smooth_kernel_phases(P, smooth, smooth_vjp, volumes, tf, from_text, rng,
             # the check above ran the plain backward with the splat, whose
             # operations without it are a part
             plain_ms = time_plain(
-                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g), warm=True)
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g))
             plain_splat_ms = time_plain(
-                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g, True),
-                warm=True)
+                lambda: smooth_vjp.march_smooth_bwd_plain(a, *g, True))
             fwd_ms = timed_ms(lambda: smooth.march_smooth_kernel(a), 5,
                               prefill=True)
             stats = {}
@@ -2913,8 +2936,8 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
         # the plain versions are timed at the first size only: their time is
         # host launches, the same at both (the rays and samples are)
         timed = vol.dims[0] == LARGE_SIZES[0]
-        plain_ms = time_plain(lambda: smooth.march_smooth_plain(a),
-                              warm=True) if timed else None  # the check ran it
+        plain_ms = time_plain(  # the check ran it
+            lambda: smooth.march_smooth_plain(a)) if timed else None
         in_range = range_share(smooth, a, stats["inside"], f"{vname}/k8")
         k = tf.num_intervals
         b = bound(stats["inside"] * (FLOPS_PER_SMOOTH_SAMPLE + (k - 1)
@@ -2940,8 +2963,8 @@ def large_kernel_phases(P, march, march_vjp, a5, a5_vjp, smooth, smooth_vjp,
         # the check ran the plain backward with the splat, whose operations
         # without it are a part
         plain_ms = time_plain(
-            lambda: smooth_vjp.march_smooth_bwd_plain(a, *g),
-            warm=True) if timed else None
+            lambda: smooth_vjp.march_smooth_bwd_plain(a, *g)
+        ) if timed else None
         total = rays * cfg.samples_per_ray
         b = bound(smooth_bwd_ops(k, stats["inside"], total, rays, False,
                                  smooth_alpha0(smooth, a)),
@@ -4347,7 +4370,7 @@ def bwd_unit_timing(march, march_vjp, a5, a5_vjp, units, label,
 
     ms = timed_ms(launch_all, 5, prefill=True, label=label) / len(units)
     a, g = units[0]
-    plain_ms = time_plain(lambda: plain(a, *g), warm=True)  # the check ran it
+    plain_ms = time_plain(lambda: plain(a, *g))  # the check ran it
     if a5_unit:
         inside = samples_needed(a5.march_a5_plain, [u[0] for u in units])
         owned = a.width * a.height * a.spr
@@ -5079,7 +5102,7 @@ def a5_span_phase(P, a5, a5_vjp, volumes, tf) -> dict:
 # SCAN_PEAK_MIB; the scan route agrees with the kernels where both apply
 # within TOL_SCAN_LOSS (the loss, relative) and TOL_GRAD (each gradient, of
 # its largest component)
-SCAN_FIT_TIMED = 2
+SCAN_FIT_TIMED = 1
 SCAN_PEAK_MIB = 8192
 TOL_SCAN_LOSS = 1e-4
 # two identical scan fits, where an autograd op's CUDA backward is not
@@ -5094,8 +5117,9 @@ def kernel_counts(mods) -> tuple:
 
 def scan_fit_case(P, fit, mods, label, vol, cam, cfg, start_tf, target,
                   fit_bounds=False, light=None, repeat=False) -> dict:
-    """One full-width fit through the scan route: 1 warm-up step and
-    SCAN_FIT_TIMED timed steps (CUDA events), the peak device memory above
+    """One full-width fit through the scan route: SCAN_FIT_TIMED timed
+    steps (CUDA events; no warm-up: the scan compiles and builds nothing,
+    and earlier phases warmed the allocator), the peak device memory above
     the start, no hand-written kernel launched; with ``repeat`` the timed
     steps once more, their losses equal."""
     import torch
@@ -5108,7 +5132,6 @@ def scan_fit_case(P, fit, mods, label, vol, cam, cfg, start_tf, target,
 
     base = mem_reset()
     before = kernel_counts(mods)
-    run(1)  # warm-up step
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -5301,6 +5324,242 @@ def scan_route_phase(P, fit, phong, mods, volumes, mc_vols, tf, rng) -> dict:
         res[label.split(",")[0]] = scan_vs_kernels(
             P, fit, mods, label, vol, cam, cfg, start, target,
             fit_bounds=bounds)
+    return res
+
+
+def write_nifti_3d(path: str, data: np.ndarray, cal_max: float) -> None:
+    """A NIfTI-1 float32 file of an [X, Y, Z] array (x fastest on disk, as
+    the reader expects)."""
+    import struct
+
+    hdr = bytearray(348)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, 3, *data.shape, 1, 1, 1, 1)
+    struct.pack_into("<h", hdr, 70, 16)
+    struct.pack_into("<h", hdr, 72, 32)
+    struct.pack_into("<f", hdr, 108, 352.0)
+    struct.pack_into("<f", hdr, 124, cal_max)
+    with open(path, "wb") as f:
+        f.write(bytes(hdr))
+        f.write(b"\x00" * 4)
+        f.write(np.ascontiguousarray(data, np.float32).tobytes())
+
+
+def grey_depth(img, label: str) -> float:
+    """A depth map: finite, in [0, 1], grey (r = g = b), alpha 1, and not
+    blank -> its least depth."""
+    check(bool(img.isfinite().all()), f"{label}: non-finite depth")
+    d = img[..., 0]
+    check(float(d.min()) >= 0.0 and float(d.max()) <= 1.0,
+          f"{label}: depth outside [0, 1]")
+    check(bool((img[..., 1] == d).all() and (img[..., 2] == d).all()),
+          f"{label}: depth not grey")
+    check(bool((img[..., 3] == 1.0).all()), f"{label}: alpha not 1")
+    check(float(d.min()) < 1.0, f"{label}: no depth below the clear value")
+    return float(d.min())
+
+
+def point_phase(P, point_splat, mods, volumes, tf, rng) -> dict:
+    """Phase 8a: the a0 point cloud through ``render()`` with
+    ``Algorithm.POINT`` at 700x700 on both volumes: ms/frame (CUDA events
+    around 8 orbit frames after one warm-up, mean), no hand-written kernel
+    launched; the first frame against the same inputs rendered on the CPU
+    (at most POINT_CPU_SHARE of the pixels differ, their count printed);
+    the exact native rasterizer's ms (host clock, the device synchronized;
+    the ndc and colours copied from the card) and its agreement with the
+    approximation (more than 70 % of the pixels within 0.2,
+    tests/test_native.py:140-142); ``render_points_depth`` and
+    ``render_depth_vrc`` (500 samples per ray): finite, in [0, 1], grey,
+    with their ms."""
+    import torch
+
+    res = {}
+    cfg = P.RenderConfig(width=W, height=H, samples_per_ray=SPR,
+                         algorithm=P.Algorithm.POINT)
+    for vname, vol in volumes.items():
+        cams = orbit_cameras(P, rng)
+        P.render(vol, tf, cams[0], cfg)
+        before = kernel_counts(mods)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        frames = [P.render(vol, tf, cam, cfg) for cam in cams]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / len(cams)
+        check(kernel_counts(mods) == before,
+              f"point/{vname}: a hand-written kernel launched")
+        img = frames[0]
+        check(tuple(img.shape) == (W, H, 4)
+              and bool(img.isfinite().all())
+              and bool((img[..., 3] == 1.0).all()),
+              f"point/{vname}: bad frame")
+        cpu = P.render(vol, tf, cams[0], cfg, device="cpu")
+        differ = int((img.cpu() != cpu).any(-1).sum())
+        check(differ <= POINT_CPU_SHARE * W * H,
+              f"point/{vname}: {differ} pixels differ from the CPU's")
+        fg = int((img[..., :3] != cpu.new_tensor(cfg.background[:3])
+                  .to(img.device)).any(-1).sum())
+        check(fg > 0, f"point/{vname}: no voxel drawn")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exact = point_splat.render_points(vol, tf, cams[0], cfg, exact=True)
+        torch.cuda.synchronize()
+        exact_ms = (time.perf_counter() - t0) * 1e3
+        close = float(torch.isclose(exact[..., :3], img[..., :3], atol=0.2)
+                      .all(-1).float().mean())
+        check(close > 0.7, f"point/{vname}: exact vs approximation {close}")
+        depth_cfg = cfg.replace(algorithm=P.Algorithm.VRC)
+        d_pts = point_splat.render_points_depth(vol, cams[0], cfg)
+        d_vrc = point_splat.render_depth_vrc(vol, tf, cams[0], depth_cfg)
+        near = (grey_depth(d_pts, f"point depth/{vname}"),
+                grey_depth(d_vrc, f"vrc depth/{vname}"))
+        depth_ms = timed_ms(
+            lambda: point_splat.render_points_depth(vol, cams[0], cfg), 1,
+            windows=1)
+        vrc_ms = timed_ms(
+            lambda: point_splat.render_depth_vrc(vol, tf, cams[0], depth_cfg),
+            1, windows=1, warm_up=False)
+        res[vname] = dict(ms=ms, cpu_differ=differ, foreground=fg,
+                          exact_ms=exact_ms, exact_close=close,
+                          depth_ms=depth_ms, depth_vrc_ms=vrc_ms,
+                          least_depth=near)
+        log(f"point/{vname}: {ms:.4f} ms/frame (8 frames, {W}x{H}, {fg} "
+            f"pixels drawn); vs the CPU {differ} pixels differ (limit "
+            f"{POINT_CPU_SHARE:g} of {W * H}); exact {exact_ms:.2f} ms, "
+            f"{close:.4f} of pixels within 0.2 of the approximation; depth "
+            f"{depth_ms:.4f} ms, ray-cast depth {vrc_ms:.4f} ms (least "
+            f"depths {near[0]:.4f}, {near[1]:.4f})")
+    return res
+
+
+def point_cli_phase(tmp: str) -> dict:
+    """Phase 8b: the CLI's new commands in this process
+    (``cli.main``): ``render --algorithm point`` on a seeded MNI-dims
+    NIfTI that it writes (the native loader), with ``--depth``, with
+    ``--orbit``, ``--exact-points`` and the ray caster's ``--depth``;
+    ``orbit --frames 2``; ``bench --repeats 2`` (its rays/s JSON line);
+    ``info`` on the NIfTI; ``compare`` (exit 0 against itself at 0.999,
+    exit 1 below an unreachable threshold).  Every PNG passes
+    ``check_png``."""
+    import contextlib
+    import io
+
+    from volumerenderingproject_tpu_torch.harness import cli
+
+    nii = os.path.join(tmp, "mni_dims.nii")
+    data = mni_like_volume(7)
+    write_nifti_3d(nii, data, 255.0)
+
+    size = ["--width", str(W), "--height", str(H), "--spr", str(SPR)]
+
+    def run(argv, want=0) -> str:
+        if argv[0] in ("render", "orbit", "bench"):
+            argv = argv[:1] + size + argv[1:]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        out = buf.getvalue()
+        log(f"cli {' '.join(argv)}: exit {rc}; "
+            f"{out.strip().splitlines()[-1] if out.strip() else ''}")
+        check(rc == want, f"cli {argv}: exit {rc}, want {want}")
+        return out
+
+    pngs = {}
+    for name, flags in (
+            ("point", ["--data", nii, "--algorithm", "point"]),
+            ("point_depth", ["--data", nii, "--algorithm", "point",
+                             "--depth"]),
+            ("point_orbit", ["--data", nii, "--algorithm", "point",
+                             "--orbit", "30,-20,0.1"]),
+            ("point_exact", ["--algorithm", "point", "--exact-points"]),
+            ("vrc_depth", ["--data", nii, "--depth", "--spr", "250"])):
+        pngs[name] = os.path.join(tmp, f"cli_{name}.png")
+        run(["render", *flags, "--out", pngs[name]])
+        check_png(pngs[name], W, H)
+    prefix = os.path.join(tmp, "cli_orbit_")
+    run(["orbit", "--algorithm", "point", "--frames", "2", "--out-prefix",
+         prefix])
+    for i in range(2):
+        check_png(f"{prefix}{i:04d}.png", W, H)
+    out = run(["bench", "--repeats", "2"])
+    line = json.loads(out.strip().splitlines()[-1])
+    check(line["metric"] == f"rays_per_sec_{W}x{H}_spr{SPR}"
+          and line["value"] > 0, f"bench line {line}")
+    out = run(["info", "--data", nii])
+    dims = ", ".join(str(d) for d in data.shape)
+    check("SIZEOF_HDR: 348" in out and f"DIM: (3, {dims}, 1" in out,
+          "info: header fields")
+    run(["compare", "--ours", pngs["point"], "--golden", pngs["point"],
+         "--threshold", "0.999"])
+    run(["compare", "--ours", pngs["point"], "--golden", pngs["point_depth"],
+         "--threshold", "1.5"], want=1)
+    return dict(bench_rays_per_sec=line["value"])
+
+
+def auto_route_phase(P, march, mods, vol, tf, rng) -> dict:
+    """Phase 8c: the default route (``mode="auto"``) on MNI-dims: one frame
+    of a conic scattered a1 render at 700x700x250, which ``mode="fast"``
+    refuses: the scan route, logged, no kernel launched, finite; then one
+    plain a1 frame at 700x700x500: the kernel route, one K1 launch."""
+    import logging
+
+    import torch
+
+    from volumerenderingproject_tpu_torch.models.raycast import route_log
+
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    keep = Keep()
+    route_log.addHandler(keep)
+    level = route_log.level
+    route_log.setLevel(logging.INFO)
+    cam = orbit_cameras(P, rng, 1)[0]
+    try:
+        cfg = P.RenderConfig(width=W, height=H, samples_per_ray=250,
+                             conic=True, scattering=True)
+        before = kernel_counts(mods)
+        t0 = time.perf_counter()
+        img = P.render(vol, tf, cam, cfg)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        check(kernel_counts(mods) == before,
+              "auto/conic scattered: a kernel launched")
+        check(bool(img.isfinite().all()) and tuple(img.shape) == (W, H, 4),
+              "auto/conic scattered: bad frame")
+        check(len(seen) == 1 and "takes the scan route" in seen[0],
+              f"auto/conic scattered: route {seen}")
+        k1 = march.launches
+        P.render(vol, tf, cam, P.RenderConfig(width=W, height=H,
+                                              samples_per_ray=SPR))
+        check(march.launches == k1 + 1 and "kernel route" in seen[-1],
+              f"auto/plain: route {seen[-1:]}")
+    finally:
+        route_log.removeHandler(keep)
+        route_log.setLevel(level)
+    log(f"auto route: conic scattered 700x700x250 -> {seen[0]} "
+        f"({scan_s:.2f} s a frame); plain a1 -> {seen[-1]}")
+    return dict(scan_s=scan_s, routes=seen)
+
+
+def dryrun_phase(dryrun) -> dict:
+    """Phase 8d: ``dryrun_multichip(8)``, both configs' gates, on 8 gloo
+    ranks that share the card (``parallel/launch.spawn``)."""
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(8)
+    secs = time.perf_counter() - t0
+    check(out["a"]["err"] < 1e-5 and out["b"]["err"] < 1e-4,
+          f"dryrun render errors {out['a']['err']}, {out['b']['err']}")
+    res = dict(seconds=secs, a_err=out["a"]["err"], b_err=out["b"]["err"],
+               a_loss=out["a"]["loss"], a_s=out["a"]["seconds"],
+               b_s=out["b"]["seconds"])
+    log(f"dryrun_multichip(8) on 8 gloo ranks on the card: {secs:.1f} s "
+        f"(rank 0: config A {res['a_s']:.1f} s, B {res['b_s']:.1f} s)")
     return res
 
 
@@ -5975,6 +6234,30 @@ def main(argv) -> int:
         volumes, mc_vols, tf, np.random.default_rng(60))
     clock("7n scan route")
 
+    # ---- 8a. the a0 point cloud and its depth maps --------------------------
+    from volumerenderingproject_tpu_torch.models import point_splat
+    from volumerenderingproject_tpu_torch.parallel import dryrun
+
+    all_mods = (march, march_vjp, a5, a5_vjp, smooth, smooth_vjp)
+    point_res = point_phase(P, point_splat, all_mods, volumes, tf,
+                            np.random.default_rng(70))
+    clock("8a point cloud and depth maps")
+
+    # ---- 8b. the CLI's orbit, bench, info, compare and point renders --------
+    with tempfile.TemporaryDirectory() as tmp:
+        point_cli = point_cli_phase(tmp)
+    clock("8b CLI orbit, bench, info, compare, point")
+
+    # ---- 8c. the default route ---------------------------------------------
+    auto_res = auto_route_phase(P, march, all_mods,
+                                volumes["mni_dims_182x218x182"], tf,
+                                np.random.default_rng(71))
+    clock("8c auto route")
+
+    # ---- 8d. the multi-device dry run --------------------------------------
+    dryrun_res = dryrun_phase(dryrun)
+    clock("8d dryrun_multichip(8)")
+
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
         "name": "march_a1",
@@ -6237,6 +6520,9 @@ def main(argv) -> int:
         f"single-device {json.dumps(shard_fit_res['grad_errs'])}")
     log(f"sharded renders: units {json.dumps(shard_res)}")
     log(f"scan route (7n): {json.dumps(scan_res)}")
+    log(f"point cloud (8a): {json.dumps(point_res)}; CLI (8b) "
+        f"{json.dumps(point_cli)}; auto route (8c) {json.dumps(auto_res)}; "
+        f"dry run (8d) {json.dumps(dryrun_res)}")
     log(f"multichannel: {json.dumps(mc_res)}; K4 mc max relative err "
         f"{mc_errs['k4_rel']:.3e}; in-kernel lighting: {json.dumps(lit_res)};"
         f" small 4-D and conic lit renders vs the reference scan "

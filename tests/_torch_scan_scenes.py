@@ -125,7 +125,14 @@ CASES = {
     "trilinear_color_lit_conic": (dict(interp=J.Interp.TRILINEAR_COLOR,
                                        lighting=True, conic=True), 1, 4,
                                   None, False),
+    # density_scale 1.7 clips scaled alphas at both bounds (TF(0)'s alpha
+    # 0 off the volume): the fused routes fit these too
+    "density_nearest": (dict(density_scale=1.7), 1, 4, None, False),
+    "density_lut": (dict(density_scale=1.7, tf_lut=64), 1, 4, None, False),
 }
+
+# the cases the fused routes fit as well (mode="fast" does not raise)
+FAST_CASES = ("density_nearest", "density_lut")
 
 
 def case(name):
@@ -145,7 +152,9 @@ def loose(jcfg):
 def check_case(name):
     """The loss and every parameter's gradient of case ``name`` through the
     port's scan route against ``jax.value_and_grad`` of the JAX
-    ``render_loss``; the fast route raises, naming ``mode='scan'``."""
+    ``render_loss``; the fast route raises, naming ``mode='scan'``, and
+    the default route's check (``diff/fit.diff_refusal``) sends the case
+    to the scan, but on :data:`FAST_CASES`, which the kernels fit."""
     jv, jtf, jc, jcfg, jl, bounds = case(name)
     tgt = target()
     jparams = jfit.FitParams.init(jtf, fit_bounds=bounds, light=jl)
@@ -181,10 +190,16 @@ def check_case(name):
         assert np.abs(want).max() > 0
         np.testing.assert_allclose(got, want, rtol=RTOL_LIGHT,
                                    atol=1e-6 * np.abs(want).max())
+    refusal = pfit.diff_refusal(pv, ptf, pcfg, params.light)
+    if name in FAST_CASES:
+        assert refusal is None
+        return
+    assert "mode='scan'" in refusal
     with pytest.raises(NotImplementedError, match="mode='scan'"):
         pfit.render_loss(pfit.FitParams.init(ptf, fit_bounds=bounds,
                                              light=pl),
-                         ptf, pv, pc, torch.from_numpy(tgt), pcfg)
+                         ptf, pv, pc, torch.from_numpy(tgt), pcfg,
+                         mode="fast")
 
 
 # the a5 and smooth families (tests/test_torch_scan_fit_a5_smooth.py)

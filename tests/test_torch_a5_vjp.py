@@ -17,6 +17,8 @@ import torch
 
 import volumerenderingproject_tpu as J
 from volumerenderingproject_tpu.diff import fit as jfit
+from volumerenderingproject_tpu.ingest import synthetic as jsynthetic
+from volumerenderingproject_tpu.models.raycast import render as jrender_any
 from volumerenderingproject_tpu.models.raycast import render_test as jrender
 from volumerenderingproject_tpu.ops.pallas_a5 import render_test_pallas_diff
 
@@ -220,7 +222,7 @@ def test_unported_diff_options_raise(scene, kw, item):
         a5_vjp.render_test_diff(pv, tf, pc, pcfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         pfit.fit_transfer_function(pv, pc, target, tf, pcfg, steps=1,
-                                   device="cpu")
+                                   device="cpu", mode="fast")
     params, losses = pfit.fit_transfer_function(pv, pc, target, tf, pcfg,
                                                 steps=1, device="cpu",
                                                 mode="scan")
@@ -299,6 +301,15 @@ def test_cli_render_and_fit_algorithm_test(tmp_path):
         fitted = from_text(f.read(), device="cpu")
     np.testing.assert_allclose(fitted.colors.numpy(),
                                params.tf_colors.detach().numpy(), rtol=1e-8)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["render", *size, "--algorithm", "point", "--device", "cpu",
-                  "--out", png])
+    # the a0 point cloud renders (tests/test_torch_point.py): its PNG is
+    # the JAX package's render of the same scene
+    assert cli.main(["render", *size, "--algorithm", "point", "--device",
+                     "cpu", "--out", png]) == 0
+    jcfg = J.RenderConfig(width=20, height=14, samples_per_ray=24,
+                          algorithm=J.Algorithm.POINT)
+    jimg = np.asarray(jrender_any(jsynthetic.centered_sphere(),
+                                  J.default_transfer_function(),
+                                  J.reset_preset(), jcfg))
+    want = imageio.to_uint8(imageio.to_display(jimg, Algorithm.POINT))
+    np.testing.assert_array_equal(imageio.load_png(png),
+                                  want[..., :3].astype(np.float32) / 255.0)

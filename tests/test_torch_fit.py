@@ -213,7 +213,7 @@ def test_unported_fit_options_raise(scene):
     lut = RenderConfig.from_json(cfg.to_json()).replace(tf_lut=64)
     with pytest.raises(NotImplementedError, match="mode='scan'"):
         pfit.render_loss(params, tf, pv, pc, torch.from_numpy(target), lut,
-                         mesh=mesh)
+                         mesh=mesh, mode="fast")
     one = pmesh.Mesh(shape=(1, 1, 1), coords=(0, 0, 0), groups={})
     sharded = pfit.render_loss(params, tf, pv, pc, torch.from_numpy(target),
                                lut, mesh=one, mode="scan")
@@ -486,7 +486,8 @@ def test_cli_fit_unported_flags_raise(flag, item, tmp_path, capsys):
                              interp=Interp.TRILINEAR,
                              lighting=True).to_json())
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(["fit", "--config", cfg, "--device", "cpu", flag])
+        cli.main(["fit", "--config", cfg, "--device", "cpu", flag,
+                  "--mode", "fast"])
     assert cli.main(["fit", "--config", cfg, "--device", "cpu", flag,
                      "--steps", "2", "--mode", "scan"]) == 0
     assert "fit: loss" in capsys.readouterr().out

@@ -30,7 +30,10 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(m.name)
 for name in ("ops.march", "ops.march_vjp", "ops.a5", "ops.a5_vjp",
              "ops.conv3d", "ops.phong", "ops.smooth", "ops.smooth_vjp",
-             "diff.fit", "interop", "harness.cli", "utils.imageio"):
+             "diff.fit", "interop", "harness.cli", "utils.imageio",
+             "models.point_splat", "models.debug_colors",
+             "scene.voxel_colors", "native", "native.build", "ingest.vvi",
+             "harness.goldens", "harness.profiling", "parallel.dryrun"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))

@@ -176,7 +176,7 @@ def test_unsupported_lighting_raises(kw):
     args = (vol, P.default_transfer_function(device="cpu"),
             P.Camera.initial(position=(0.9, 0.5, 1.0), device="cpu"), cfg)
     with pytest.raises(NotImplementedError, match="mode='scan'"):
-        P.render(*args, device="cpu", light=light)
+        P.render(*args, mode="fast", device="cpu", light=light)
     assert P.render(*args, mode="scan", device="cpu",
                     light=light).shape == (8, 8, 4)
 

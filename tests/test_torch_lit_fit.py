@@ -462,7 +462,7 @@ def test_unported_light_fits_raise(scene, cfg_kw, light_kw, item):
     assert not march_vjp.diff_light_eligible(pv, tf, pcfg, light)
     with pytest.raises(NotImplementedError, match=item):
         pfit.fit_transfer_function(pv, pc, target, tf, pcfg, steps=1,
-                                   device="cpu", light=light)
+                                   device="cpu", light=light, mode="fast")
     params, losses = pfit.fit_transfer_function(
         pv, pc, target, tf, pcfg, steps=1, device="cpu", light=light,
         mode="scan")
@@ -484,7 +484,8 @@ def test_light_fit_eligible_and_16_intervals(scene):
     with pytest.raises(NotImplementedError, match="mode='scan'"):
         pfit.fit_transfer_function(pv, pc, target, tf17, _port_cfg(cfg),
                                    steps=1, device="cpu",
-                                   light=phong.default_light(device="cpu"))
+                                   light=phong.default_light(device="cpu"),
+                                   mode="fast")
     _, losses = pfit.fit_transfer_function(
         pv, pc, target, tf17, _port_cfg(cfg), steps=1, device="cpu",
         light=phong.default_light(device="cpu"), mode="scan")

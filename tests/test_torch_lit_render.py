@@ -179,7 +179,7 @@ def test_fast_mode_limits_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         P.render(vol, P.default_transfer_function(device="cpu"),
                  P.Camera.initial(position=(0.9, 0.5, 1.0), device="cpu"),
-                 cfg, device="cpu")
+                 cfg, mode="fast", device="cpu")
 
 
 @pytest.mark.parametrize("alg", [Algorithm.VRC, Algorithm.TEST])
@@ -200,7 +200,7 @@ def test_non_uniform_light_colour_raises_in_fast_mode(alg):
     assert scan.shape == (8, 8, 4)
     if alg is Algorithm.TEST:
         with pytest.raises(NotImplementedError, match="mode='scan'"):
-            P.render(*args, device="cpu", light=light)
+            P.render(*args, mode="fast", device="cpu", light=light)
         return
     fast = P.render(*args, device="cpu", light=light)
     assert float((fast - scan).abs().max()) <= TOL_FUSED
@@ -221,7 +221,7 @@ def test_lit_and_lut_fits_raise(kw):
             np.zeros((8, 8, 4), np.float32),
             P.default_transfer_function(device="cpu"), cfg)
     with pytest.raises(NotImplementedError, match="mode='scan'"):
-        pfit.fit_transfer_function(*args, steps=1, device="cpu")
+        pfit.fit_transfer_function(*args, steps=1, device="cpu", mode="fast")
     _, losses = pfit.fit_transfer_function(*args, steps=1, device="cpu",
                                            mode="scan")
     assert np.isfinite(losses[0])

@@ -315,7 +315,8 @@ def test_raises():
                dict(lighting=True, conic=True),
                dict(interp=Interp.TRILINEAR)):
         with pytest.raises(NotImplementedError, match="mode='scan'"):
-            P.render(pv, tf, cam, cfg.replace(**kw), device="cpu")
+            P.render(pv, tf, cam, cfg.replace(**kw), mode="fast",
+                     device="cpu")
         assert P.render(pv, tf, cam, cfg.replace(**kw), mode="scan",
                         device="cpu").shape == (6, 5, 4)
     for kw, match in ((dict(scattering=True), "single-channel"),
@@ -326,7 +327,7 @@ def test_raises():
                       (dict(algorithm=Algorithm.TEST), "mode='scan'")):
         with pytest.raises(NotImplementedError, match=match):
             pfit.fit_transfer_function(pv, cam, target, tf, cfg.replace(**kw),
-                                       steps=1, device="cpu")
+                                       steps=1, device="cpu", mode="fast")
         if kw.get("scattering"):  # the JAX package's reason, in every mode
             with pytest.raises(NotImplementedError, match=match):
                 pfit.fit_transfer_function(pv, cam, target, tf,
@@ -340,7 +341,7 @@ def test_raises():
     light = phong.default_light(device="cpu")
     with pytest.raises(NotImplementedError, match="mode='scan'"):
         pfit.fit_transfer_function(pv, cam, target, tf, cfg, steps=1,
-                                   device="cpu", light=light)
+                                   device="cpu", light=light, mode="fast")
     _, losses = pfit.fit_transfer_function(pv, cam, target, tf, cfg, steps=1,
                                            device="cpu", light=light,
                                            mode="scan")

@@ -15,6 +15,7 @@ from volumerenderingproject_tpu.utils import imageio as jimageio
 
 import volumerenderingproject_tpu_torch as P
 from volumerenderingproject_tpu_torch import interop
+from volumerenderingproject_tpu_torch.diff import fit as pfit
 from volumerenderingproject_tpu_torch.ingest import synthetic as psynthetic
 from volumerenderingproject_tpu_torch.utils import imageio as pimageio
 from volumerenderingproject_tpu_torch.utils.config import Algorithm, Interp
@@ -125,25 +126,95 @@ def test_fused_sphere_matches_jax_fast():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("kw,item", [
+UNPORTED = [
     (dict(scattering=True, conic=True), "item 9"),
-    (dict(algorithm=Algorithm.POINT), "item 15"),
+    (dict(algorithm=Algorithm.POINT), None),
     (dict(lighting=True, conic=True, gradient_filter="sobel"), "mode='scan'"),
     (dict(scattering=True, conic=True, lighting=True), "item 9"),
     (dict(interp=Interp.TRILINEAR, tf_lut=256), "item 12"),
-])
+]
+
+
+@pytest.mark.parametrize("kw,item", UNPORTED)
 def test_unported_options_raise(kw, item):
     """Lit, LUT and scattered renders are ported
     (tests/test_torch_lit_render.py, tests/test_torch_scatter.py), and
     smooth renders (tests/test_torch_smooth.py), conic lighting with central
     differences (tests/test_torch_kernel_lighting.py); conic scattering,
     conic lighting with another gradient filter (the JAX kernel's rule) and
-    a smooth LUT render in fast mode are not."""
-    vol = psynthetic.centered_sphere(8, device="cpu")
+    a smooth LUT render in ``mode="fast"`` are not.  ``Algorithm.POINT``
+    is ported (the a0 point cloud, tests/test_torch_point.py): it renders
+    in every mode, equal to the JAX package's ``render``."""
+    jv = jsynthetic.centered_sphere(8)
+    jtf = J.default_transfer_function()
+    jc = J.reset_preset()
     cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
+    jcfg = J.RenderConfig.from_json(cfg.to_json())
+    pv, ptf, pc = _port(jv, jtf, jc)
+    if item is None:
+        got = P.render(pv, ptf, pc, cfg, mode="fast", device="cpu")
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jraycast.render(jv, jtf, jc, jcfg)))
+        return
     with pytest.raises(NotImplementedError, match=item):
-        P.render(vol, P.default_transfer_function(device="cpu"),
-                 P.reset_preset(device="cpu"), cfg, device="cpu")
+        P.render(pv, ptf, pc, cfg, mode="fast", device="cpu")
+
+
+@pytest.mark.parametrize("kw", [kw for kw, item in UNPORTED if item])
+def test_auto_route_takes_the_scan_for_former_raises(kw, caplog):
+    """The default route (``mode="auto"``) renders and fits each config
+    ``mode="fast"`` refuses through the scan, bit for bit, and logs it."""
+    vol = psynthetic.centered_sphere(8, device="cpu")
+    tf = P.default_transfer_function(device="cpu")
+    cam = P.reset_preset(device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=4, **kw)
+    with caplog.at_level("INFO", logger="volumerenderingproject_tpu_torch"):
+        got = P.render(vol, tf, cam, cfg, device="cpu")
+    assert "mode='auto' takes the scan route" in caplog.text
+    np.testing.assert_array_equal(
+        got.numpy(), P.render(vol, tf, cam, cfg, mode="scan",
+                              device="cpu").numpy())
+    target = torch.full((8, 8, 4), 0.3)
+
+    def fit(mode):
+        params = pfit.FitParams.init(tf)
+        loss = pfit.render_loss(params, tf, vol, cam, target, cfg, mode=mode)
+        loss.backward()
+        return [loss.detach(), params.tf_colors.grad,
+                params.density_scale.grad]
+
+    for a, b in zip(fit("auto"), fit("scan")):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("kw", [{}, dict(lighting=True), dict(tf_lut=64),
+                                dict(interp=Interp.TRILINEAR),
+                                dict(algorithm=Algorithm.TEST)])
+def test_auto_route_takes_the_kernels_where_they_compute(kw, caplog):
+    """Where a kernel renders (and differentiates) the config, the default
+    route is ``mode="fast"`` bit for bit."""
+    vol = psynthetic.centered_sphere(8, device="cpu")
+    tf = P.default_transfer_function(device="cpu")
+    cam = P.reset_preset(device="cpu")
+    cfg = P.RenderConfig(width=8, height=8, samples_per_ray=6, **kw)
+    with caplog.at_level("INFO", logger="volumerenderingproject_tpu_torch"):
+        got = P.render(vol, tf, cam, cfg, device="cpu")
+    assert "mode='auto' takes the kernel route" in caplog.text
+    np.testing.assert_array_equal(
+        got.numpy(), P.render(vol, tf, cam, cfg, mode="fast",
+                              device="cpu").numpy())
+    target = torch.full((8, 8, 4), 0.3)
+
+    def fit(mode):
+        params = pfit.FitParams.init(tf)
+        loss = pfit.render_loss(params, tf, vol, cam, target, cfg, mode=mode)
+        loss.backward()
+        return [loss.detach(), params.tf_colors.grad,
+                params.density_scale.grad]
+
+    assert pfit.diff_refusal(vol, tf, cfg) is None
+    for a, b in zip(fit("auto"), fit("fast")):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_multichannel_raises():
@@ -162,7 +233,8 @@ def test_multichannel_raises():
             P.render(*args, cfg.replace(scattering=True), mode=mode,
                      device="cpu")
     with pytest.raises(NotImplementedError, match="mode='scan'"):
-        P.render(*args, cfg.replace(lighting=True), device="cpu")
+        P.render(*args, cfg.replace(lighting=True), mode="fast",
+                 device="cpu")
 
 
 def test_render_keeps_image_layout():

@@ -117,7 +117,7 @@ def test_trilinear_color_renders_match_jax(over):
     np.testing.assert_allclose(seg.numpy(), want[4:10], rtol=0,
                                atol=TOL_RENDER)
     with pytest.raises(NotImplementedError, match="mode='scan'"):
-        P.render(pv, ptf, pc, pcfg, device="cpu")
+        P.render(pv, ptf, pc, pcfg, mode="fast", device="cpu")
 
 
 def test_cli_fit_mode_scan_conic_lit(tmp_path, capsys):
@@ -138,7 +138,7 @@ def test_cli_fit_mode_scan_conic_lit(tmp_path, capsys):
     assert fitted.num_intervals == 4
     assert "loss 0.000000" in printed  # the self-target is the scan's
     with pytest.raises(NotImplementedError, match="mode='scan'"):
-        cli.main(args)
+        cli.main(args + ["--mode", "fast"])
     png = str(tmp_path / "tc.png")
     assert cli.main(["render", "--width", "12", "--height", "10", "--spr",
                      "16", "--interp", "trilinear_color", "--mode", "scan",

@@ -218,7 +218,7 @@ def test_unported_scatter_fits_raise(scene, cfg_kw, fit_light, item):
         assert not march_vjp.diff_eligible(pv, ptf, pcfg) or fit_light
     with pytest.raises(NotImplementedError, match=item):
         pfit.fit_transfer_function(pv, pc, target, ptf, pcfg, steps=1,
-                                   device="cpu", light=light)
+                                   device="cpu", light=light, mode="fast")
     params, losses = pfit.fit_transfer_function(
         pv, pc, target, ptf, pcfg, steps=1, device="cpu", light=light,
         mode="scan")

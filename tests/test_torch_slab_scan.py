@@ -212,3 +212,6 @@ def test_slab_kernel_check_names_the_scan():
         march.check_slab_supported(cfg.replace(lighting=True), None)
     assert render_dist._slab_halo_width(cfg) == 2
     assert render_dist._slab_halo_width(cfg.replace(presmooth_sigma=1.0)) == 4
+    for interp in (J.Interp.TRILINEAR, J.Interp.TRILINEAR_COLOR):
+        assert render_dist._slab_halo_width(cfg.replace(
+            presmooth_sigma=1.0, interp=interp)) == 5

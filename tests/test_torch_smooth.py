@@ -303,7 +303,7 @@ def test_fast_mode_raises_what_the_kernel_lacks(scene, kw):
     pv, ptf, pc = _port(jv, jtf, jc)
     pcfg = RenderConfig.from_json(cfg.to_json()).replace(**kw)
     with pytest.raises(NotImplementedError, match="item 12"):
-        P.render(pv, ptf, pc, pcfg, device="cpu")
+        P.render(pv, ptf, pc, pcfg, mode="fast", device="cpu")
     img = P.render(pv, ptf, pc, pcfg, mode="scan", device="cpu")
     assert bool(torch.isfinite(img).all())
 
@@ -316,7 +316,7 @@ def test_more_than_16_intervals_raise_in_fast_mode(scene):
     pv, ptf, pc = _port(jv, jtf, jc)
     pcfg = RenderConfig.from_json(cfg.to_json())
     with pytest.raises(NotImplementedError, match="item 12"):
-        P.render(pv, ptf, pc, pcfg, device="cpu")
+        P.render(pv, ptf, pc, pcfg, mode="fast", device="cpu")
     assert bool(torch.isfinite(P.render(pv, ptf, pc, pcfg, mode="scan",
                                         device="cpu")).all())
 
@@ -365,7 +365,7 @@ def test_cli_render_trilinear(tmp_path):
     assert not torch.equal(img, nearest)
     with pytest.raises(NotImplementedError, match="mode='scan'"):
         cli.main(["render", *size, "--interp", "trilinear_color", "--device",
-                  "cpu", "--out", str(tmp_path / "x.png")])
+                  "cpu", "--mode", "fast", "--out", str(tmp_path / "x.png")])
     tc = str(tmp_path / "tc.png")
     assert cli.main(["render", *size, "--interp", "trilinear_color",
                      "--mode", "scan", "--device", "cpu", "--out", tc]) == 0

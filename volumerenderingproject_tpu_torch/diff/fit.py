@@ -35,12 +35,16 @@ whole target and computes the same loss; after ``loss.backward()`` each
 parameter's gradient is summed over the mesh (``Mesh.all_reduce_``), so
 every rank takes the same Adam step and the parameters stay replicated.
 
-``mode="scan"`` is the scan route: every config, the kernels' ones
+``mode="auto"`` (the default) takes the kernels wherever they
+differentiate the config (:func:`diff_refusal`) and the scan route
+otherwise, as the JAX package's ``_render_with_density`` does, and logs the
+route once a call (``models/raycast.resolve_mode``).  ``mode="scan"`` is
+the scan route: every config, the kernels' ones
 included, renders through the plain scans (``models/raycast.render_vrc``
 / ``render_test``, the JAX package's XLA scan fallback, fit.py:124-226)
 under autograd, checkpointed in chunks of samples, and with ``mesh``
 through the scan segments and the volume-axis slab scan.  ``mode="fast"``
-(the default) runs the kernels above and raises, naming ``mode='scan'``,
+runs the kernels above and raises, naming ``mode='scan'``,
 for what only the JAX package's XLA scan fits: conic lit fits, light fits
 of a5, smooth, 4-D, conic, LUT or scattered renders or from a non-uniform
 light colour, scattered fits of a5, smooth, conic or LUT renders, lit a5
@@ -62,7 +66,9 @@ import numpy as np
 import torch
 
 from ..models import raycast
+from ..ops import a5_vjp, march_vjp, smooth
 from ..ops.a5_vjp import render_test_diff
+from ..parallel import render_dist
 from ..parallel.render_dist import render_vrc_sharded
 from ..ops.march_vjp import render_vrc_diff, render_vrc_scatter_diff
 from ..ops.phong import Light
@@ -123,18 +129,55 @@ def _apply_params(tf: TransferFunction, params: FitParams
 
 
 def _check_mode(mode: str) -> None:
-    if mode not in ("fast", "scan"):
-        raise ValueError(f"unknown mode {mode!r}: a fit takes 'fast' or "
-                         "'scan'")
+    if mode not in ("auto", "fast", "scan"):
+        raise ValueError(f"unknown mode {mode!r}: a fit takes 'auto', "
+                         "'fast' or 'scan'")
+
+
+def diff_refusal(volume, tf: TransferFunction, config: RenderConfig,
+                 light: Optional[Light] = None) -> Optional[str]:
+    """Why :func:`_render_with_density`'s ``mode="fast"`` would refuse this
+    fit (the message of the differentiable march's check that raises), or
+    None where kernels differentiate it, by the same dispatch: a 4-D a1
+    volume, a scattered render or a fitted ``light`` through
+    ``ops/march_vjp`` (``check_scatter_fit_supported``,
+    ``check_light_fit_supported``, ``check_diff_supported``), then a5
+    (``ops/a5_vjp.check_diff_supported``), smooth mode
+    (``ops/smooth.check_smooth_supported``) and the nearest-voxel a1
+    march."""
+    ch, k = volume.channels, tf.num_intervals
+    test = config.algorithm is Algorithm.TEST
+    try:
+        if (ch > 1 and not test) or config.scattering or light is not None:
+            if config.scattering:
+                march_vjp.check_scatter_fit_supported(config, ch, k, light)
+            elif light is not None:
+                march_vjp.check_light_fit_supported(config, ch, k, light)
+            else:
+                march_vjp.check_diff_supported(config, ch, k)
+        elif test:
+            a5_vjp.check_diff_supported(config, ch, k)
+        elif config.interp is Interp.TRILINEAR:
+            smooth.check_smooth_supported(config, k, None, ch)
+        else:
+            march_vjp.check_diff_supported(config, ch, k)
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 def render_loss(params: FitParams, tf: TransferFunction, volume, camera,
                 target: torch.Tensor, config: RenderConfig,
-                mesh=None, mode: str = "fast") -> torch.Tensor:
+                mesh=None, mode: str = "auto") -> torch.Tensor:
     """MSE between the differentiable render and the target image, on the
     device that holds the volume; with ``mesh``, the sharded render of this
-    rank's mesh; ``mode`` the route (the module docstring)."""
+    rank's mesh; ``mode`` the route (the module docstring; ``"auto"``
+    resolved and logged once a call)."""
     _check_mode(mode)
+    if mesh is None:
+        mode = raycast.resolve_mode(
+            mode, lambda: diff_refusal(volume, tf, config, params.light),
+            "fit")
     tf2 = _apply_params(tf, params)
     zero = torch.zeros((), dtype=_f32, device=params.density_scale.device)
     density = torch.maximum(params.density_scale, zero)  # jnp.clip(d, 0, None)
@@ -208,7 +251,7 @@ def make_optimizer(params: FitParams, learning_rate: float
 
 def make_train_step(tf: TransferFunction, config: RenderConfig,
                     optimizer: torch.optim.Optimizer, mesh=None,
-                    mode: str = "fast"):
+                    mode: str = "auto"):
     """A train step ``(params, volume, camera, target) -> loss``: one
     forward and one backward march (or scan, with ``mode="scan"``), then
     one update of ``optimizer``, which holds ``params``' tensors and its own
@@ -238,7 +281,7 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
                           checkpoint_dir: Optional[str] = None,
                           checkpoint_every: int = 0, resume: bool = False,
                           fit_bounds: bool = False, light=None,
-                          device=None, mode: str = "fast"
+                          device=None, mode: str = "auto"
                           ) -> Tuple[FitParams, list]:
     """Optimise TF colours and density (and with ``fit_bounds`` the interval
     bounds, with ``light`` the light's parameters, starting from it) against
@@ -270,6 +313,12 @@ def fit_transfer_function(volume, camera, target, tf: TransferFunction,
     optimizer = make_optimizer(params, learning_rate)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
+    if mesh is None:
+        refusal = (lambda: diff_refusal(volume, tf, config, params.light))
+    else:
+        refusal = (lambda: render_dist.sharded_refusal(
+            volume, tf, config, mesh.shape, params.light, True))
+    mode = raycast.resolve_mode(mode, refusal, "fit")
     train_step = make_train_step(tf, config, optimizer, mesh, mode)
 
     losses = []

@@ -1,16 +1,27 @@
 """Command-line harness of the port.
 
-  render   one frame to PNG
+  render   one frame to PNG (``--depth``: the depth map; ``--exact-points``:
+           the point cloud through the native GL rasterizer)
+  orbit    a camera-orbit frame sequence (the WASD loop, myApp.cu:1088-1112)
   fit      fit TF colours and density (``--fit-bounds``: and the interval
            bounds, in smooth mode ``--interp trilinear``; ``--fit-light``:
            and the light's 10 parameters, from the default light) to a
            target PNG; lit (``--lighting``), LUT (``--config``) and
            scattered (``--scattering``) renders fit too, and a 4-D volume's
            alpha column
+  bench    a timed render with a per-stage report and a rays/s JSON line
+           (``--profile DIR``: a torch.profiler Chrome trace of the frames)
+  info     dump a NIfTI header (displayNIFTI2Header, BinaryLoader.cu:166)
+  compare  score a render against a golden PNG; exit 1 below
+           ``--threshold``
 
-``--mode fast`` (the default) runs the CUDA kernels; ``--mode scan`` the
-plain scans, which render and fit every config (``fit``'s self-target is
-rendered in the same mode).
+``--mode auto`` (the default) takes the CUDA kernels where they compute the
+config and the plain scans otherwise, and prints the route it took;
+``--mode fast`` runs the kernels and raises for the rest; ``--mode scan``
+the plain scans, which render and fit every config (``fit``'s self-target
+is rendered in the same mode).  ``--algorithm point`` renders the a0
+voxel point cloud.  ``--orbit yaw,pitch,zoom`` (degrees) moves the camera
+before the first frame.
 
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
 subcommand runs on CUDA unless ``--device cpu`` is given.  ``--data`` takes
@@ -25,6 +36,9 @@ the PNG.
 from __future__ import annotations
 
 import argparse
+import json
+import logging
+import math
 import sys
 import time
 
@@ -43,12 +57,20 @@ def _camera(args, config, device):
     from ..scene.camera import Camera, default_camera, reset_preset
 
     if args.camera == "preset":
-        return reset_preset(device)
-    if args.camera == "default":
-        return default_camera(device)
-    pos = tuple(float(v) for v in args.camera.split(","))
-    return Camera.initial(position=pos, screen_w=config.real_screen_width,
-                          screen_h=config.real_screen_height, device=device)
+        cam = reset_preset(device)
+    elif args.camera == "default":
+        cam = default_camera(device)
+    else:
+        pos = tuple(float(v) for v in args.camera.split(","))
+        cam = Camera.initial(position=pos, screen_w=config.real_screen_width,
+                             screen_h=config.real_screen_height,
+                             device=device)
+    if args.orbit:
+        yaw, pitch, zoom = (float(v) for v in args.orbit.split(","))
+        cam = cam.orbit(math.radians(yaw), math.radians(pitch), zoom,
+                        screen_w=config.real_screen_width,
+                        screen_h=config.real_screen_height)
+    return cam
 
 
 def _config(args):
@@ -111,6 +133,41 @@ def parse_mesh(spec: str, backend: str) -> dict:
     return sizes
 
 
+def _render(volume, tf, cam, cfg, args, device):
+    """One frame of ``render``, ``orbit`` or ``bench`` -> [W, H, 4]: the
+    depth map with ``--depth`` (the point cloud's depth buffer for
+    ``--algorithm point``, the ray caster's E[t] otherwise), the native
+    point rasterizer with ``--exact-points``, else ``render``."""
+    from ..models import point_splat
+    from ..models.raycast import render
+    from ..utils.config import Algorithm
+
+    point = cfg.algorithm is Algorithm.POINT
+    if getattr(args, "depth", False):
+        if point:
+            return point_splat.render_points_depth(volume, cam, cfg)
+        return point_splat.render_depth_vrc(volume, tf, cam, cfg)
+    if getattr(args, "exact_points", False) and point:
+        return point_splat.render_points(volume, tf, cam, cfg, exact=True)
+    return render(volume, tf, cam, cfg, mode=args.mode, device=device)
+
+
+def _scene(args):
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    return (device, cfg, _load_volume(args, device), _tf(args, device),
+            _camera(args, cfg, device))
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def render_rank(rank: int, args) -> None:
     """One rank of ``render --mesh`` (``parallel/launch.cli_render_worker``):
     the scene on this rank's device, the sharded frame; rank 0 writes the
@@ -149,35 +206,108 @@ def _out_name(args, cfg) -> str:
 
 
 def cmd_render(args) -> int:
-    import torch
-
-    from ..models.raycast import render
+    from ..parallel.render_dist import POINT_MESH_MESSAGE
     from ..utils import imageio
-    from ..utils.device import resolve_device
+    from ..utils.config import Algorithm
 
     if args.mesh:
         from ..parallel import launch
 
+        if _config(args).algorithm is Algorithm.POINT:
+            raise SystemExit(f"error: {POINT_MESH_MESSAGE}")
         sizes = parse_mesh(args.mesh, args.backend)
         world = sizes["rays"] * sizes["samples"] * sizes["volume"]
         launch.check_devices(world, args.backend, args.device)
         launch.spawn(launch.cli_render_worker, world, args.backend, args)
         return 0
-    device = resolve_device(args.device)
-    cfg = _config(args)
-    volume = _load_volume(args, device)
-    tf = _tf(args, device)
-    cam = _camera(args, cfg, device)
+    device, cfg, volume, tf, cam = _scene(args)
     t0 = time.time()
-    img = render(volume, tf, cam, cfg, mode=args.mode, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    img = _render(volume, tf, cam, cfg, args, device)
+    _sync(device)
     dt = time.time() - t0
     out = _out_name(args, cfg)
     imageio.save_png(out, img, cfg.algorithm)
     print(f"rendered {cfg.width}x{cfg.height} spr={cfg.samples_per_ray} "
           f"alg={cfg.algorithm.name} on {device} in {dt:.2f}s -> {out}")
     return 0
+
+
+def cmd_orbit(args) -> int:
+    """``--frames`` frames, the camera turned ``--step-deg`` degrees of yaw
+    between them, to ``<out-prefix>0000.png``, ..."""
+    from ..utils import imageio
+
+    device, cfg, volume, tf, cam = _scene(args)
+    step = math.radians(args.step_deg)
+    for i in range(args.frames):
+        img = _render(volume, tf, cam, cfg, args, device)
+        path = f"{args.out_prefix}{i:04d}.png"
+        imageio.save_png(path, img, cfg.algorithm)
+        print(f"frame {i}: {path}")
+        cam = cam.orbit(yaw_rad=step, screen_w=cfg.real_screen_width,
+                        screen_h=cfg.real_screen_height)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """The first frame, then ``--repeats`` frames of cameras 1e-6 apart,
+    each a stage of :class:`profiling.StageTimer` (the device synchronized
+    around it); the report and ``{"metric": "rays_per_sec_WxH_sprN",
+    ...}`` of the best frame.  ``--profile DIR`` traces the timed frames
+    (``profiling.trace``)."""
+    import contextlib
+    import dataclasses
+
+    from .profiling import StageTimer, trace
+
+    device, cfg, volume, tf, cam = _scene(args)
+    timer = StageTimer()
+    with timer.stage("first") as out:
+        out["img"] = _render(volume, tf, cam, cfg, args, device)
+    ctx = trace(args.profile) if args.profile else contextlib.nullcontext()
+    with ctx:
+        for r in range(args.repeats):
+            cam_r = dataclasses.replace(cam,
+                                        position=cam.position + 1e-6 * (r + 1))
+            with timer.stage(f"frame{r}") as out:
+                out["img"] = _render(volume, tf, cam_r, cfg, args, device)
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
+    print(timer.report())
+    frames = [t for n, t in timer.stages if n.startswith("frame")]
+    if frames:
+        print(json.dumps({
+            "metric": f"rays_per_sec_{cfg.width}x{cfg.height}"
+                      f"_spr{cfg.samples_per_ray}",
+            "value": round(cfg.num_rays / min(frames), 1),
+            "unit": "rays/s"}))
+    return 0
+
+
+def cmd_info(args) -> int:
+    from ..ingest.nifti import parse_header
+
+    with open(args.data, "rb") as f:
+        hdr = parse_header(f.read(1024))
+    for field in ("sizeof_hdr", "magic", "datatype", "bitpix", "dim",
+                  "pixdim", "vox_offset", "scl_slope", "scl_inter",
+                  "cal_max", "cal_min", "byteorder"):
+        print(f"{field.upper()}: {getattr(hdr, field)}")
+    return 0
+
+
+def cmd_compare(args) -> int:
+    from ..utils import imageio
+    from . import goldens
+
+    ours = imageio.load_png(args.ours)
+    golden = imageio.load_png(args.golden)
+    meta = goldens.parse_golden_name(args.golden)
+    if meta:
+        print(f"golden config: {meta}")
+    sim = goldens.similarity(ours, golden)
+    print(f"similarity (ncc): {sim:.4f}")
+    return 0 if sim >= args.threshold else 1
 
 
 def cmd_fit(args) -> int:
@@ -245,8 +375,10 @@ def _common(sp) -> None:
                     help="'preset', 'default', or a position x,y,z")
     sp.add_argument("--tf", help="transfer-function text file")
     sp.add_argument("--algorithm", choices=["point", "vrc", "test"],
-                    help="vrc (a1, the default) or test (a5); point is "
-                         "not ported yet (the renderer raises)")
+                    help="vrc (a1, the default), test (a5) or point (a0, "
+                         "the voxel point cloud)")
+    sp.add_argument("--orbit", help="yaw_deg,pitch_deg,zoom: orbit the "
+                    "camera before the first frame")
     sp.add_argument("--device", help="torch device (default: cuda)")
     sp.add_argument("--config", help="RenderConfig JSON path (the flags "
                     "override its fields; tf_lut is set here)")
@@ -267,8 +399,11 @@ def _common(sp) -> None:
                     help="single scattering of the default light (HG phase "
                          "x light transmittance)")
     sp.add_argument("--scattering-strength", type=float)
-    sp.add_argument("--mode", choices=["fast", "scan"], default="fast",
-                    help="fast: the CUDA kernels (the default); scan: the "
+    sp.add_argument("--mode", choices=["auto", "fast", "scan"],
+                    default="auto",
+                    help="auto (the default): the CUDA kernels where they "
+                         "compute the config, else the plain scans, the "
+                         "route printed; fast: the kernels; scan: the "
                          "plain scans, which render and fit every config")
 
 
@@ -285,7 +420,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the process group of --mesh: nccl (one GPU a "
                          "rank) or gloo (ranks may share a GPU or run on "
                          "the CPU)")
+    sp.add_argument("--depth", action="store_true",
+                    help="render the depth map (the z-buffer shader's "
+                         "analog) instead of colours")
+    sp.add_argument("--exact-points", action="store_true",
+                    help="--algorithm point: exact GL draw-order blending "
+                         "(the native rasterizer, on the host)")
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("orbit", help="render an orbit sequence")
+    _common(sp)
+    sp.add_argument("--frames", type=int, default=8)
+    sp.add_argument("--step-deg", type=float, default=45.0)
+    sp.add_argument("--out-prefix", default="orbit_")
+    sp.set_defaults(fn=cmd_orbit)
 
     sp = sub.add_parser("fit", help="optimize TF colors to a target image")
     _common(sp)
@@ -302,11 +450,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="optimize the light parameters too, from the "
                          "default light (a1, ortho, no LUT)")
     sp.set_defaults(fn=cmd_fit)
+
+    sp = sub.add_parser("bench", help="timed render with per-stage report")
+    _common(sp)
+    sp.add_argument("--repeats", type=int, default=3)
+    sp.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the timed "
+                         "frames to DIR/trace.json")
+    sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("info", help="dump a NIfTI header")
+    sp.add_argument("--data", required=True)
+    sp.set_defaults(fn=cmd_info)
+
+    sp = sub.add_parser("compare", help="compare a render to a golden PNG")
+    sp.add_argument("--ours", required=True)
+    sp.add_argument("--golden", required=True)
+    sp.add_argument("--threshold", type=float, default=0.0)
+    sp.set_defaults(fn=cmd_compare)
     return p
 
 
+class _RoutePrinter(logging.Handler):
+    """Prints ``mode="auto"``'s route (``models/raycast.route_log``)."""
+
+    def emit(self, record: logging.LogRecord) -> None:
+        print(f"route: {record.getMessage()}", flush=True)
+
+
 def main(argv=None) -> int:
+    from ..models.raycast import route_log
+
     args = build_parser().parse_args(argv)
+    if not any(isinstance(h, _RoutePrinter) for h in route_log.handlers):
+        route_log.addHandler(_RoutePrinter())
+    route_log.setLevel(logging.INFO)
     return args.fn(args)
 
 

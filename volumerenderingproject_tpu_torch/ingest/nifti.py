@@ -121,6 +121,7 @@ def load_nifti(
     *,
     apply_scaling: bool = False,
     dtype_override: int | None = None,
+    backend: str = "auto",
     device=None,
 ) -> Volume:
     """Load a ``.nii`` file into a :class:`Volume` on ``device`` (CUDA by
@@ -129,8 +130,22 @@ def load_nifti(
     ``apply_scaling`` applies ``scl_slope * v + scl_inter`` when the slope is
     not 0 (the reference ignores scaling).  ``dtype_override`` forces a
     datatype code (16 replicates the reference's float32 reinterpretation,
-    BinaryLoader.cu:313-323).
+    BinaryLoader.cu:313-323).  ``backend``: ``"native"`` reads through the
+    native library (``native/vrputils.cpp``, built at first use; its
+    multithreaded conversion), ``"python"`` with numpy, ``"auto"`` (the
+    default) natively unless ``dtype_override`` is given or the native
+    reader does not take the file (a ValueError), as the JAX package's
+    loader does (nifti.py:152-170).  A native library that cannot be
+    built raises.
     """
+    if backend not in ("auto", "python", "native"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend != "python" and dtype_override is None:
+        try:
+            return _load_native(os.fspath(path), apply_scaling, device)
+        except ValueError:
+            if backend == "native":
+                raise
     with open(path, "rb") as f:
         buf = f.read()
     hdr = parse_header(buf)
@@ -155,20 +170,38 @@ def load_nifti(
     if apply_scaling and hdr.scl_slope not in (0.0,):
         data = data * np.float32(hdr.scl_slope) + np.float32(hdr.scl_inter)
 
-    # the file's flat order is x-major (BinaryLoader.cu:234-238): C-order
-    # [X, Y, Z]; a 4-D file keeps its 4th axis as channels, last
-    if ndim == 3:
+    return _volume(data, shape, hdr.cal_max, hdr.cal_min, hdr.pixdim, device)
+
+
+def _volume(data: np.ndarray, shape, cal_max: float, cal_min: float, pixdim,
+            device) -> Volume:
+    """The Volume of a file's flat float32 payload.  The flat order is
+    x-major (BinaryLoader.cu:234-238): C-order [X, Y, Z]; a 4-D file keeps
+    its 4th axis as channels, last.  A ``cal_max`` of 0 becomes the data's
+    maximum (1 where that is 0)."""
+    if len(shape) == 3:
         arr = data.reshape(shape)
     else:
         spatial = shape[:3]
         chans = int(np.prod(shape[3:]))
         arr = data.reshape((chans,) + spatial).transpose(1, 2, 3, 0)
+    if cal_max in (0.0,):
+        cal_max = float(np.max(data) or 1.0)
+    return make_volume(arr, cal_max=cal_max, cal_min=cal_min,
+                       pixdim=tuple(pixdim[1:4]), device=device)
 
-    cal_max = hdr.cal_max if hdr.cal_max not in (0.0,) else float(np.max(data) or 1.0)
-    return make_volume(
-        arr,
-        cal_max=cal_max,
-        cal_min=hdr.cal_min,
-        pixdim=tuple(hdr.pixdim[1:4]),
-        device=device,
-    )
+
+def _load_native(path: str, apply_scaling: bool, device) -> Volume:
+    """The native reader's Volume (JAX nifti.py:207-228)."""
+    from .. import native
+
+    hdr, data = native.nifti_read(path)
+    ndim = int(hdr["dim"][0])
+    if ndim < 3:
+        raise ValueError(f"need >= 3 spatial dims, got dim[0]={ndim}")
+    shape = tuple(int(d) for d in hdr["dim"][1:1 + ndim])
+    if apply_scaling and hdr["scl_slope"] not in (0.0,):
+        data = (data * np.float32(hdr["scl_slope"])
+                + np.float32(hdr["scl_inter"]))
+    return _volume(data, shape, hdr["cal_max"], hdr["cal_min"],
+                   hdr["pixdim"], device)

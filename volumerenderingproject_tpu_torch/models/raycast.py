@@ -45,6 +45,7 @@ raycast.py:358-401).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Tuple
 
 import torch
@@ -53,9 +54,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ingest.volume import Volume
 from ..ops import a5
 from ..ops import composite as comp
-from ..ops import conv3d, sampling, smooth
+from ..ops import conv3d, march, sampling, smooth
 from ..ops import phong
-from ..ops.march import channel_mean, check_supported, render_vrc_fused
+from ..ops.march import (channel_mean, check_fused_supported,
+                         render_vrc_fused)
 from ..ops.phong import Light, default_light, is_lit, phong_shade
 from ..scene.camera import Camera
 from ..scene.transfer_function import TransferFunction, take_rows
@@ -221,7 +223,7 @@ def _vrc_sample_rgba(positions: torch.Tensor, volume: Volume,
                                  v / torch.trunc(volume.cal_max))
     if config.density_scale != 1.0:
         a = rgba[..., 3:4] * const(float(config.density_scale), rgba.device)
-        rgba = torch.cat([rgba[..., :3], a.clamp(0.0, 1.0)], dim=-1)
+        rgba = torch.cat([rgba[..., :3], phong.clip01(a)], dim=-1)
     return rgba
 
 
@@ -438,7 +440,6 @@ def _vrc_sampler(volume: Volume, tf: TransferFunction, camera: Camera,
     """The a1 per-step sampler ``i_f32 -> [w_local, H, 4]`` of columns
     [x_offset, x_offset + local_width); the gradient field, LUT and
     transmittance grid are built once."""
-    check_supported(config)
     origins = ray_origins(camera, config, x_offset, local_width)
     dirs = primary_ray_dirs(camera, config, x_offset, local_width)
     dev = origins.device
@@ -529,12 +530,69 @@ def render_test_segment(volume: Volume, tf: TransferFunction,
 # ---------------------------------------------------------------------------
 
 
+# the log of the route ``mode="auto"`` takes (module docstring, ``render``)
+route_log = logging.getLogger("volumerenderingproject_tpu_torch.route")
+
+
+def fast_refusal(volume: Volume, tf: TransferFunction, config: RenderConfig,
+                 light: Light | None = None) -> str | None:
+    """Why :func:`render`'s ``mode="fast"`` would refuse this config (the
+    message of the fused march's check that raises), or None where a
+    kernel renders it: ``ops/march.check_fused_supported`` (and the id
+    grid's 256 intervals and 1024 LUT entries) for a1,
+    ``ops/smooth.check_smooth_supported`` in smooth mode,
+    ``ops/a5.check_fused_supported`` for a5.  ``Algorithm.POINT`` has no
+    kernel and no refusal."""
+    try:
+        if config.algorithm is Algorithm.TEST:
+            a5.check_fused_supported(volume.channels, light)
+        elif config.algorithm is Algorithm.POINT:
+            return None
+        elif config.interp is Interp.TRILINEAR:
+            smooth.check_smooth_supported(config, tf.num_intervals, light,
+                                          volume.channels)
+        else:
+            check_fused_supported(config, light, volume.channels)
+            if tf.num_intervals > march.MAX_INTERVALS:
+                return (f"the fused march's id grid holds at most "
+                        f"{march.MAX_INTERVALS} intervals")
+            if config.tf_lut > march.MAX_LUT:
+                return (f"the fused march takes a LUT of at most "
+                        f"{march.MAX_LUT} entries")
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def resolve_mode(mode: str, refusal, what: str) -> str:
+    """The route of a call given ``mode``: ``"auto"`` becomes ``"fast"``
+    where ``refusal()`` (a thunk of the fast route's checks, e.g.
+    :func:`fast_refusal`) is None, else ``"scan"``, as the JAX package's
+    default takes a fused kernel where one is eligible and its XLA scan
+    otherwise; the route is logged once a call on :data:`route_log`, at
+    INFO (a scan step takes seconds where a kernel step takes
+    milliseconds).  Any other mode is returned as it is."""
+    if mode != "auto":
+        return mode
+    why = refusal()
+    route = "fast" if why is None else "scan"
+    route_log.info("%s: mode='auto' takes the %s route%s", what,
+                   "kernel" if why is None else "scan",
+                   "" if why is None else f" ({why})")
+    return route
+
+
 def render(volume: Volume, tf: TransferFunction, camera: Camera,
-           config: RenderConfig, *, mode: str = "fast",
+           config: RenderConfig, *, mode: str = "auto",
            device=None, light: Light | None = None) -> torch.Tensor:
     """Render one frame -> [W, H, 4] on ``device`` (CUDA unless given),
-    dispatching on ``config.algorithm``: a1/VRC or a5/TEST.
+    dispatching on ``config.algorithm``: a1/VRC, a5/TEST or the a0 voxel
+    point cloud (``Algorithm.POINT``, ``models/point_splat.render_points``
+    in every mode, as the JAX package's ``render`` does).
 
+    ``mode="auto"`` (the default) takes ``"fast"`` where a kernel renders
+    the config and ``"scan"`` otherwise (:func:`fast_refusal`), and logs
+    the route (:func:`resolve_mode`).
     ``mode="fast"`` runs the fused march with ``config.early_termination``
     as its epsilon: the CUDA kernel on the GPU, its plain version on the
     CPU.  ``mode="scan"`` runs the plain front-to-back scan (no early
@@ -556,14 +614,18 @@ def render(volume: Volume, tf: TransferFunction, camera: Camera,
     it (raycast.py:683), and renders in ``mode="scan"``.
     """
     dev = resolve_device(device)
-    test = config.algorithm is Algorithm.TEST
-    if not test:
-        check_supported(config)
-    if mode not in ("fast", "scan", "reference"):
+    if mode not in ("auto", "fast", "scan", "reference"):
         raise ValueError(f"unknown mode {mode!r}")
     volume, tf, camera = volume.to(dev), tf.to(dev), camera.to(dev)
+    if config.algorithm is Algorithm.POINT:
+        from . import point_splat
+
+        return point_splat.render_points(volume, tf, camera, config)
+    test = config.algorithm is Algorithm.TEST
     if light is not None:
         light = light.to(dev)
+    mode = resolve_mode(
+        mode, lambda: fast_refusal(volume, tf, config, light), "render")
     if mode == "fast":
         if test:
             fused = a5.render_test_fused

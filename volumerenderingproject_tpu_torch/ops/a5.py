@@ -266,6 +266,19 @@ def scal_vector(camera, dims: Tuple[int, int, int], config: RenderConfig,
     ])
 
 
+def check_fused_supported(channels: int, light: Light | None = None) -> None:
+    """Raise NotImplementedError, naming ``mode='scan'``, for an a5 render
+    the fused march does not compute: a 4-D volume (the JAX package's a5
+    kernel rejects it, pallas_a5.py:914-915, and its scan renders it) and
+    a light colour that is not uniform (the bake folds one colour)."""
+    if channels != 1:
+        raise NotImplementedError(
+            "the fused a5 march reads one channel, as the JAX package's a5 "
+            "kernel does (pallas_a5.py:914-915); mode='scan' renders a 4-D "
+            "volume as the JAX scan reads it")
+    check_uniform_light(light)
+
+
 def prepare_a5(volume, tf, camera, config: RenderConfig,
                early_eps: float, light: Light | None = None, *,
                x_offset: int = 0, local_width: int | None = None,
@@ -277,12 +290,7 @@ def prepare_a5(volume, tf, camera, config: RenderConfig,
     rejects it (pallas_a5.py:914-915) and its scan renders it.  The
     keywords select a sharded render's work unit (this module's
     docstring); ``segment`` marches to (C, T)."""
-    if volume.channels != 1:
-        raise NotImplementedError(
-            "the fused a5 march reads one channel, as the JAX package's a5 "
-            "kernel does (pallas_a5.py:914-915); mode='scan' renders a 4-D "
-            "volume as the JAX scan reads it")
-    check_uniform_light(light)
+    check_fused_supported(volume.channels, light)
     w_local = config.width if local_width is None else local_width
     s_count = config.samples_per_ray if s_count is None else s_count
     if not (0 <= x_offset and 0 < w_local and x_offset + w_local <= config.width

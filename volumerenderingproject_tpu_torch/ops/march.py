@@ -80,7 +80,7 @@ import numpy as np
 import torch
 
 from ..utils import transforms as T
-from ..utils.config import Algorithm, Interp, RenderConfig
+from ..utils.config import Interp, RenderConfig
 from . import _build
 from .phong import (Light, bake_light_grids, bake_scatter_grid,
                     check_scatter_channels, default_light, is_lit,
@@ -345,25 +345,10 @@ def scal_vector(camera, config: RenderConfig, dims, depth, cal_max_trunc,
     ])
 
 
-def check_supported(config: RenderConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item (queue 1), for
-    what the port's a1 path does not render yet: the plain scan computes
-    one-channel a1 with nearest-voxel, smooth (``Interp.TRILINEAR``) or
-    colour-space trilinear (``Interp.TRILINEAR_COLOR``) sampling, lit or
-    not, scattered or not, through the interval scan or a LUT, and 4-D
-    volumes by nearest voxel.  (The fused march adds
-    :func:`check_fused_supported`, the smooth march
-    ``ops/smooth.check_smooth_supported``.)"""
-    if config.algorithm is Algorithm.POINT:
-        raise NotImplementedError(
-            "Algorithm.POINT is not ported yet: ROADMAP.md item 15 "
-            "(point_splat)")
-
-
 def check_fused_supported(config: RenderConfig, light: Light | None,
                           channels: int = 1) -> str:
-    """What the fused march adds to :func:`check_supported` -> the kernel's
-    route for colour: ``"none"``, ``"baked"`` (the (M, S) bakes: lighting
+    """What the fused march renders -> the kernel's route for colour:
+    ``"none"``, ``"baked"`` (the (M, S) bakes: lighting
     on ortho rays under a uniform light colour, and scattering), ``"lit"``
     (in-kernel lighting: conic rays or any light colour) or ``"mc"`` (a 4-D
     volume).  What it does not compute raises NotImplementedError, naming
@@ -452,7 +437,6 @@ def prepare(volume, tf, camera, config: RenderConfig, early_eps: float,
     ``baked_grids`` are the (M, S) of a baked march, given by the caller in
     place of the bake: a lit slab's, the whole volume's bake cropped to the
     slab's planes (``ops/march_vjp.prepare_diff``)."""
-    check_supported(config)
     route = check_fused_supported(config, light, volume.channels)
     dev = volume.data.device
     tf = tf.to(dev)

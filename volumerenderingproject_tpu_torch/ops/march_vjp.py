@@ -143,7 +143,6 @@ def check_diff_supported(config: RenderConfig, channels: int,
     most 16 intervals, one-channel ones lit through the bake (ortho) or
     not, through the interval scan or a LUT, and 4-D ones as
     :func:`check_mc_fit_supported` says."""
-    march.check_supported(config)
     check_mc_fit_supported(config, channels)
     if config.interp is Interp.TRILINEAR:
         raise NotImplementedError(

@@ -73,14 +73,22 @@ class SmoothArgs(NamedTuple):
 
 
 def check_smooth_supported(config: RenderConfig, num_intervals: int,
-                           light=None) -> None:
+                           light=None, channels: int = 1) -> None:
     """Raise NotImplementedError, naming ``mode='scan'``, for a smooth
     render or fit the fused marches do not compute (the exclusions of
-    ``smooth_pallas_eligible``, pallas_smooth.py:706-721); ``mode="scan"``
-    renders and fits each of them.  A 4-D volume raises in
-    :func:`prepare_smooth`; a config that is not smooth is a ValueError."""
+    ``smooth_pallas_eligible``, pallas_smooth.py:706-721): a 4-D volume
+    (the JAX package's smooth kernel takes one channel, pallas_smooth.py:
+    712), lighting, scattering, a LUT, ``density_scale != 1`` and more
+    than 16 intervals; ``mode="scan"`` renders and fits each of them.  A
+    config that is not smooth is a ValueError."""
     if config.interp is not Interp.TRILINEAR:
         raise ValueError("the smooth march samples Interp.TRILINEAR only")
+    if channels != 1:
+        raise NotImplementedError(
+            "the smooth march samples one channel, as the JAX package's "
+            "smooth kernel does; mode='scan' renders a 4-D volume (by "
+            "nearest voxel, as the JAX scan does whatever config.interp "
+            "says)")
     what = None
     if is_lit(config, light):
         what = "lighting"
@@ -133,14 +141,8 @@ def prepare_smooth(volume, tf, camera, config: RenderConfig,
     detaches them itself).  A 4-D volume raises: the JAX package's smooth
     kernel takes one channel (pallas_smooth.py:712) and its scan samples a
     4-D volume by nearest voxel whatever ``config.interp`` says."""
-    march.check_supported(config)
-    if volume.channels != 1:
-        raise NotImplementedError(
-            "the smooth march samples one channel, as the JAX package's "
-            "smooth kernel does; mode='scan' renders a 4-D volume (by "
-            "nearest voxel, as the JAX scan does whatever config.interp "
-            "says)")
-    check_smooth_supported(config, tf.num_intervals, light)
+    check_smooth_supported(config, tf.num_intervals, light,
+                           volume.channels)
     dev = volume.data.device
     camera = camera.to(dev)
     scal = scal_vector(camera, config, volume.dims,

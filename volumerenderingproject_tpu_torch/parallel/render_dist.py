@@ -250,12 +250,20 @@ def render_segment(volume, tf, camera, config: RenderConfig,
 
 def _slab_halo_width(config: RenderConfig) -> int:
     """x-halo planes of a slab unit (render_dist.py:703): 2 (the a5 and
-    trilinear corners' reach with their row wraps), widened to the
-    Gaussian radius + 1 under presmoothing, so that the owned voxels'
-    smoothed gradients see their whole neighbourhood."""
+    trilinear corners' reach with their row wraps), widened under
+    presmoothing to the Gaussian radius + 1, so that the owned voxels'
+    smoothed gradients see their whole neighbourhood, and to radius + 2
+    where the a1 samples are trilinear (``Interp.TRILINEAR``,
+    ``TRILINEAR_COLOR``): a slab owns such a sample by its corners and
+    shades it at its octree-NN voxel, which may lie one plane past the
+    slab.  The JAX slab scan keeps radius + 1 (render_dist.py:703-710),
+    and leaves its own single render there."""
     hw = 2
     if config.presmooth_sigma > 0.0:
-        hw = max(hw, 1 + max(1, int(3.0 * config.presmooth_sigma + 0.5)))
+        radius = max(1, int(3.0 * config.presmooth_sigma + 0.5))
+        trilinear = (config.algorithm is Algorithm.VRC
+                     and config.interp is not Interp.NEAREST)
+        hw = max(hw, radius + (2 if trilinear else 1))
     return hw
 
 
@@ -440,7 +448,7 @@ def render_segment_volume_slab(volume, tf, camera, config: RenderConfig, *,
             if config.density_scale != 1.0:
                 a = rgba[..., 3:4] * torch.tensor(config.density_scale,
                                                   dtype=_f32, device=dev)
-                rgba = torch.cat([rgba[..., :3], a.clamp(0.0, 1.0)], dim=-1)
+                rgba = torch.cat([rgba[..., :3], phong.clip01(a)], dim=-1)
             return torch.where(owned[..., None], rgba, zero)
 
     return raycast._march(sample_rgba, config, "segment", dev,
@@ -463,24 +471,67 @@ def fold_volume(segs_c: List[torch.Tensor], segs_t: List[torch.Tensor],
     return comp.fold_segments(segs_c, segs_t, bool(camera.front[0] < 0.0))
 
 
+# the JAX CLI's refusal of a sharded POINT render (cli.py:113-118)
+POINT_MESH_MESSAGE = ("--mesh supports the ray-cast algorithms (vrc/test); "
+                      "POINT splatting is a single-device path")
+
+
+def sharded_refusal(volume, tf, config: RenderConfig,
+                    shape: Tuple[int, int, int], light: Light | None = None,
+                    differentiable: bool = False) -> str | None:
+    """Why ``mode="fast"`` would refuse this sharded render (or, with
+    ``differentiable``, fit) on a ``shape`` mesh, or None where the work
+    units' kernels compute it: the unit checks (:func:`_check_route`,
+    :func:`check_diff_route`) and the fused marches' own
+    (``models/raycast.fast_refusal``, ``diff/fit.diff_refusal``).  Every
+    rank decides alike, from the config alone."""
+    slab = shard_sizes(volume, config, shape)[2] > 0
+    try:
+        if differentiable:
+            check_diff_route(volume, tf, config, "fast", slab, light)
+        else:
+            _check_route(config, "fast", slab, light)
+    except NotImplementedError as e:
+        return str(e)
+    if differentiable:
+        from ..diff.fit import diff_refusal
+
+        return diff_refusal(volume, tf, config, light)
+    return raycast.fast_refusal(volume, tf, config, light)
+
+
 def render_vrc_sharded(volume, tf, camera, config: RenderConfig, mesh: Mesh,
-                       *, mode: str = "fast", light: Light | None = None,
+                       *, mode: str = "auto", light: Light | None = None,
                        differentiable: bool = False) -> torch.Tensor:
     """Distributed a1/VRC or a5/TEST render over ``mesh`` -> the full
-    [W, H, 4] image (alpha 1) on every rank.
+    [W, H, 4] image (alpha 1) on every rank; ``Algorithm.POINT`` raises
+    (:data:`POINT_MESH_MESSAGE`).
 
     Every rank passes the same ``volume`` (the whole volume; a volume-axis
     rank keeps its slab), TF, camera and config, on its own device.  The
     work unit of each rank and what raises are as the module docstring
     says; ``mode="scan"`` runs the plain scan segments on the rays and
-    samples axes.  The gathers run on the mesh's groups: NCCL on CUDA
-    tensors, gloo on CPU tensors (or on CUDA tensors through the host).
+    samples axes, and ``mode="auto"`` (the default) takes ``"fast"``
+    where the units' kernels compute the config and ``"scan"`` otherwise
+    (:func:`sharded_refusal`; the route is logged, as
+    ``models/raycast.resolve_mode`` says).  The gathers run on the mesh's
+    groups: NCCL on CUDA tensors, gloo on CPU tensors (or on CUDA tensors
+    through the host).
     ``differentiable=True`` renders at eps 0 through the differentiable
     kernels, the image differentiable with respect to ``tf.colors`` (and
     ``light``'s fields on the rays and samples axes); each rank's gradients
     are then its own units' share, which ``Mesh.all_reduce_`` sums.
     """
+    if config.algorithm is Algorithm.POINT:
+        raise NotImplementedError(POINT_MESH_MESSAGE)
+    if mode not in ("auto", "fast", "scan"):
+        raise ValueError(f"unknown mode {mode!r}: a sharded render takes "
+                         "'auto', 'fast' or 'scan'")
     shape = mesh.shape
+    mode = raycast.resolve_mode(
+        mode, lambda: sharded_refusal(volume, tf, config, shape, light,
+                                      differentiable),
+        "sharded fit" if differentiable else "sharded render")
     w_local = config.width // shape[0]
     c, t = render_segment(volume, tf, camera, config, shape, mesh.coords,
                           mode=mode, light=light,

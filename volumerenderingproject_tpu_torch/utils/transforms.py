@@ -38,13 +38,23 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.cross`` as XLA compiles it on the CPU: each component one
+    fused multiply-add, ``fma(a_i, b_j, -(a_k * b_l))``, taken in float64
+    (the product of two float32 is exact there) and rounded once, the same
+    on the CPU and the GPU.  Rounding both products first leaves the JAX
+    package's cross by up to an ulp of the products where they cancel
+    (a view matrix's near-zero entry), which moves a voxel of the point
+    cloud that lies on a pixel's edge to the next pixel."""
     a = _t(a)
     b = _t(b, a)
-    return torch.stack([
-        a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
-    ], dim=-1)
+    f64 = torch.float64
+
+    def fma_sub(i, j, k, m):
+        prod = (a[..., k] * b[..., m]).to(f64)
+        return (a[..., i].to(f64) * b[..., j].to(f64) - prod).to(_f32)
+
+    return torch.stack([fma_sub(1, 2, 2, 1), fma_sub(2, 0, 0, 2),
+                        fma_sub(0, 1, 1, 0)], dim=-1)
 
 
 def identity(device=None) -> torch.Tensor:
@@ -174,6 +184,25 @@ def inverse(m) -> torch.Tensor:
     det = (dot0[0] + dot0[1]) + (dot0[2] + dot0[3])
     one_over_det = torch.ones((), dtype=_f32, device=g.device) / det
     return (cols * one_over_det).T
+
+
+def ortho(left, right, bottom, top, znear, zfar, device=None
+          ) -> torch.Tensor:
+    """glm::ortho, the orthographic projection (myApp.cu:182), each entry
+    a float32 quotient as the JAX package takes it."""
+    left, right, bottom, top, znear, zfar = (
+        torch.tensor(float(x), dtype=_f32, device=device)
+        for x in (left, right, bottom, top, znear, zfar))
+    two = torch.tensor(2.0, dtype=_f32, device=device)
+    m = torch.zeros((4, 4), dtype=_f32, device=device)
+    m[0, 0] = two / (right - left)
+    m[1, 1] = two / (top - bottom)
+    m[2, 2] = -two / (zfar - znear)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = -(top + bottom) / (top - bottom)
+    m[2, 3] = -(zfar + znear) / (zfar - znear)
+    m[3, 3] = 1.0
+    return m
 
 
 def apply(m, p) -> torch.Tensor:
