@@ -39,9 +39,12 @@ Phases, each of which exits non-zero on failure:
      bench.py orbit, radius 1.5, early_termination=1e-3), with the kernels'
      launch counts set to 0 just before and read just after;
   5. the CLI: ``python -m volumerenderingproject_tpu_torch render ...``
-     must write a valid 700x700 PNG;
-  5b. the CLI: ``python -m volumerenderingproject_tpu_torch fit ...``
-     against that PNG must write a TF file that parses;
+     in a process of its own must write a valid 700x700 PNG;
+  5b. the CLI's ``fit ...`` against that PNG must write a TF file that
+     parses (this and the CLI's other phases but 5 and 5j, whose command
+     spawns its ranks, run ``cli.main`` in this process, while 5 and 5j
+     run in threads; 5's PNG must equal the same render's from
+     ``cli.main`` byte for byte);
   6. the kernel's render of a small input against the back-to-front
      reference scan;
   7. the fit path: on each volume, 5 ``fit_transfer_function`` steps at
@@ -153,8 +156,7 @@ K1 baked), on both volumes, with their own seeds:
      ``lut_phong_300``; each variant's time, the plain version's and the
      bound;
   5g. the CLI ``fit --lighting``, ``fit --config <json with tf_lut 256>``
-     and ``fit --fit-light``, started together (the CLI's phases 5-5g run
-     their chains of processes at the same time);
+     and ``fit --fit-light``;
   7f. 5 ``fit_transfer_function`` steps after one warm-up at each K4
      variant's config, with the launches of each K1 and K4 variant set to
      0 just before and read just after, the same steps under
@@ -386,6 +388,29 @@ seeds:
      kernel (one K1 launch);
   8d. ``parallel/dryrun.dryrun_multichip(8)`` on 8 gloo ranks sharing
      the card: both configs' gates, its seconds.
+
+The render server, camera recovery and the last utilities, which launch K1
+and K3 through ``render()`` and add no kernel:
+
+  9a. ``harness/server.serve`` of 8b's NIfTI on port 0, from a thread:
+     ``/health``; ``GET /render`` at the viewer's 300x300x300 for vrc, test,
+     point, and vrc with lighting, conic, scattering and depth; ``POST
+     /render`` with an orbit; 400 and 404; K1's and K3's launches rise by
+     the requests that take them; each PNG, decoded with ``decode_png``,
+     equal to ``to_uint8(to_display(...))`` of the same config rendered
+     directly (0 pixels may differ); the mean ms of 8 requests that step
+     the orbit as the viewer does;
+  9b. ``camera_recovery.recover_camera`` of an a1 and an a5 target
+     rendered at 100x100 from known cameras on a seeded asymmetric
+     MNI-dims volume, 200 directions x 8 rolls and one refinement round:
+     refined NCC >= 0.99, its seconds, its K1 / K3 launches equal to the
+     renders it scored;
+  9c. in this process, ``render --window 1400x1400`` (a valid 1400x1400
+     PNG) and ``recover-golden`` over 9b's goldens (JSON that parses);
+  9d. on the card against the CPU: ``accel/pyramid.build_pyramid`` bit
+     for bit against ``native.build_pyramid``, ``conv3d(reference_kernel())``
+     within 1e-6 of max |native.conv3d|, both composites and
+     ``texture_quad_display`` within 1e-6.
 
 Each phase's seconds are printed on a line of their own.  Kernel times are
 CUDA events around repeated launches queued behind a GPU spin, the median
@@ -623,7 +648,35 @@ def check(cond: bool, msg: str) -> None:
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # the process's standard output, also while a CLI command run in this
+    # process (``run_cli``) has its own output captured
+    print(msg, file=sys.__stdout__, flush=True)
+
+
+def run_cli(argv, want: int = 0) -> str:
+    """The CLI in this process (``cli.main``), its standard output captured
+    -> that output; it must exit ``want``.  The route printer that
+    ``cli.main`` puts on ``route_log`` is taken off again, so that the
+    later phases' renders print no route lines."""
+    import contextlib
+    import io
+
+    from volumerenderingproject_tpu_torch.harness import cli
+    from volumerenderingproject_tpu_torch.models.raycast import route_log
+
+    handlers, level = list(route_log.handlers), route_log.level
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+    finally:
+        route_log.handlers[:] = handlers
+        route_log.setLevel(level)
+    out = buf.getvalue()
+    lines = out.strip().splitlines()
+    log(f"cli {' '.join(argv)}: exit {rc}; {lines[-1] if lines else ''}")
+    check(rc == want, f"cli {argv}: exit {rc}, want {want}")
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -1241,10 +1294,10 @@ def a5_render_phase(P, a5, volumes, tf, rng, per_volume) -> int:
     return launches
 
 
-def a1_cli_phase(tmp: str, tf, from_text) -> None:
-    """Phases 5, 5b and 5j: the CLI ``render`` must write a valid 700x700
-    PNG; then, at the same time, ``fit`` against that PNG a TF file that
-    parses, and the sharded render (5j) a PNG that matches it."""
+def a1_cli_render(tmp: str) -> str:
+    """Phase 5: ``python -m volumerenderingproject_tpu_torch render`` in a
+    process of its own (the module entry) must write a valid 700x700 PNG
+    -> its path."""
     out = os.path.join(tmp, "sphere.png")
     proc = subprocess.run(
         [sys.executable, "-m", "volumerenderingproject_tpu_torch",
@@ -1255,11 +1308,7 @@ def a1_cli_phase(tmp: str, tf, from_text) -> None:
         f"{proc.stderr.strip()[-2000:]}")
     check(proc.returncode == 0, "cli render failed")
     check_png(out, W, H)
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(a1_cli_fit, tmp, out, tf, from_text),
-                pool.submit(shard_cli_phase, tmp, out)]
-        for job in jobs:
-            job.result()
+    return out
 
 
 def a1_cli_fit(tmp: str, target: str, tf, from_text) -> None:
@@ -1268,15 +1317,9 @@ def a1_cli_fit(tmp: str, target: str, tf, from_text) -> None:
     import torch
 
     out_tf = os.path.join(tmp, "fitted.txt")
-    proc = subprocess.run(
-        [sys.executable, "-m", "volumerenderingproject_tpu_torch",
-         "fit", "--data", "sphere", "--width", str(W), "--height",
-         str(H), "--spr", str(SPR), "--target", target, "--steps", "3",
-         "--out-tf", out_tf],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    log(f"cli fit exit {proc.returncode}: {proc.stdout.strip()} "
-        f"{proc.stderr.strip()[-2000:]}")
-    check(proc.returncode == 0, "cli fit failed")
+    run_cli(["fit", "--data", "sphere", "--width", str(W), "--height",
+             str(H), "--spr", str(SPR), "--target", target, "--steps", "3",
+             "--out-tf", out_tf])
     with open(out_tf) as f:
         fitted = from_text(f.read())
     check(fitted.num_intervals == tf.num_intervals
@@ -1291,23 +1334,12 @@ def a5_cli_phase(tmp: str, tf, from_text) -> None:
 
     size = ["--width", str(A5_W), "--height", str(A5_H), "--spr", str(A5_SPR)]
     out = os.path.join(tmp, "sphere_a5.png")
-    proc = subprocess.run(
-        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "render",
-         "--data", "sphere", *size, "--algorithm", "test", "--out", out],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    log(f"cli a5 render exit {proc.returncode}: {proc.stdout.strip()} "
-        f"{proc.stderr.strip()[-2000:]}")
-    check(proc.returncode == 0, "cli a5 render failed")
+    run_cli(["render", "--data", "sphere", *size, "--algorithm", "test",
+             "--out", out])
     check_png(out, A5_W, A5_H)
     out_tf = os.path.join(tmp, "fitted_a5.txt")
-    proc = subprocess.run(
-        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "fit",
-         "--data", "sphere", *size, "--algorithm", "test", "--target", out,
-         "--steps", "3", "--out-tf", out_tf],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    log(f"cli a5 fit exit {proc.returncode}: {proc.stdout.strip()} "
-        f"{proc.stderr.strip()[-2000:]}")
-    check(proc.returncode == 0, "cli a5 fit failed")
+    run_cli(["fit", "--data", "sphere", *size, "--algorithm", "test",
+             "--target", out, "--steps", "3", "--out-tf", out_tf])
     with open(out_tf) as f:
         fitted = from_text(f.read())
     check(fitted.num_intervals == tf.num_intervals
@@ -1585,13 +1617,7 @@ def lit_cli_phase(tmp: str) -> None:
             ("config_lut_a5", ["--config", cfg_path, "--lighting",
                                "--algorithm", "test"], 300)):
         out = os.path.join(tmp, f"{name}.png")
-        proc = subprocess.run(
-            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
-             "render", "--data", "sphere", *flags, "--out", out],
-            cwd=ROOT, capture_output=True, text=True, timeout=300)
-        log(f"cli {name} exit {proc.returncode}: {proc.stdout.strip()} "
-            f"{proc.stderr.strip()[-2000:]}")
-        check(proc.returncode == 0, f"cli {name} failed")
+        run_cli(["render", "--data", "sphere", *flags, "--out", out])
         check_png(out, size, size)
 
 
@@ -1600,16 +1626,12 @@ def scan_cli_phase(tmp: str, from_text) -> None:
     at 64x64 pixels and 64 samples a ray, against its own scan render: the
     TF file parses, the fitted light is printed."""
     out = os.path.join(tmp, "scan_fit_tf.txt")
-    proc = subprocess.run(
-        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "fit",
-         "--data", "sphere", "--width", "64", "--height", "64", "--spr",
-         "64", "--steps", "2", "--mode", "scan", "--lighting", "--conic",
-         "--camera", "0.9,0.5,1.0", "--fit-light", "--out-tf", out],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    log(f"cli fit --mode scan exit {proc.returncode}: {proc.stdout.strip()} "
-        f"{proc.stderr.strip()[-2000:]}")
-    check(proc.returncode == 0, "cli fit --mode scan failed")
-    check("fitted light:" in proc.stdout, "cli fit --mode scan: no light")
+    stdout = run_cli(
+        ["fit", "--data", "sphere", "--width", "64", "--height", "64",
+         "--spr", "64", "--steps", "2", "--mode", "scan", "--lighting",
+         "--conic", "--camera", "0.9,0.5,1.0", "--fit-light", "--out-tf",
+         out])
+    check("fitted light:" in stdout, "cli fit --mode scan: no light")
     with open(out) as f:
         check(from_text(f.read()).num_intervals == 4,
               "cli fit --mode scan: the TF file")
@@ -2223,24 +2245,13 @@ def smooth_cli_phase(tmp: str, tf, from_text) -> None:
 
     size = ["--width", str(W), "--height", str(H), "--spr", str(SPR)]
     out = os.path.join(tmp, "sphere_smooth.png")
-    proc = subprocess.run(
-        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "render",
-         "--data", "sphere", *size, "--interp", "trilinear", "--out", out],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    log(f"cli smooth render exit {proc.returncode}: {proc.stdout.strip()} "
-        f"{proc.stderr.strip()[-2000:]}")
-    check(proc.returncode == 0, "cli smooth render failed")
+    run_cli(["render", "--data", "sphere", *size, "--interp", "trilinear",
+             "--out", out])
     check_png(out, W, H)
     out_tf = os.path.join(tmp, "fitted_bounds.txt")
-    proc = subprocess.run(
-        [sys.executable, "-m", "volumerenderingproject_tpu_torch", "fit",
-         "--data", "sphere", *size, "--interp", "trilinear", "--fit-bounds",
-         "--target", out, "--steps", "3", "--lr", str(RECOVERY_LR),
-         "--out-tf", out_tf],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    log(f"cli smooth fit exit {proc.returncode}: {proc.stdout.strip()} "
-        f"{proc.stderr.strip()[-2000:]}")
-    check(proc.returncode == 0, "cli smooth fit failed")
+    run_cli(["fit", "--data", "sphere", *size, "--interp", "trilinear",
+             "--fit-bounds", "--target", out, "--steps", "3", "--lr",
+             str(RECOVERY_LR), "--out-tf", out_tf])
     with open(out_tf) as f:
         fitted = from_text(f.read())
     check(fitted.num_intervals == tf.num_intervals
@@ -2706,39 +2717,20 @@ def light_recovery_phase(P, fit, march, march_vjp, phong) -> dict:
 
 def lit_fit_cli_phase(tmp: str, from_text) -> None:
     """Phase 5g: the CLI's ``fit --lighting``, ``fit --config <json with
-    tf_lut 256>`` and ``fit --fit-light``, started together (each process
-    spends most of its time starting up); each must exit 0 and write a TF
-    file that parses, the light fit its fitted light."""
+    tf_lut 256>`` and ``fit --fit-light``; each must write a TF file that
+    parses, the light fit its fitted light."""
     cfg_path = os.path.join(tmp, "lut_fit.json")
     with open(cfg_path, "w") as f:
         json.dump({"width": 300, "height": 300, "samples_per_ray": 300,
                    "tf_lut": 256}, f)
     sobel = ["--width", "700", "--height", "700", "--spr", "250",
              "--lighting", "--gradient-filter", "sobel"]
-    procs = {}
     for name, flags in (("lighting", sobel), ("config_lut",
                                               ["--config", cfg_path]),
                         ("fit_light", sobel + ["--fit-light"])):
         out_tf = os.path.join(tmp, f"fit_{name}.txt")
-        procs[name] = (out_tf, subprocess.Popen(
-            [sys.executable, "-m", "volumerenderingproject_tpu_torch",
-             "fit", "--data", "sphere", *flags, "--steps", "2", "--out-tf",
-             out_tf], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    results = {}
-    try:
-        for name, (out_tf, proc) in procs.items():
-            results[name] = proc.communicate(timeout=300)
-    finally:
-        for _, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for name, (out_tf, proc) in procs.items():
-        stdout, stderr = results[name]
-        log(f"cli fit {name} exit {proc.returncode}: {stdout.strip()} "
-            f"{stderr.strip()[-2000:]}")
-        check(proc.returncode == 0, f"cli fit {name} failed")
+        stdout = run_cli(["fit", "--data", "sphere", *flags, "--steps", "2",
+                          "--out-tf", out_tf])
         with open(out_tf) as f:
             fitted = from_text(f.read())
         check(fitted.num_intervals == 4
@@ -3345,35 +3337,16 @@ def scatter_fit_phase(P, fit, march, march_vjp, phong, vname, vol, rng
 
 def scatter_cli_phase(tmp: str, from_text) -> None:
     """Phase 5h: the CLI's ``render --scattering`` (a1 and a5) and ``fit
-    --scattering`` (a1), started together; each must exit 0 and write a
-    valid PNG or a TF file that parses."""
+    --scattering`` (a1); each must write a valid PNG or a TF file that
+    parses."""
     size = ["--width", "304", "--height", "304", "--spr", "300",
             "--scattering", "--scattering-strength", str(SCATTER_STRENGTH)]
-    runs = {
-        "render_a1": ["render", *size, "--out", os.path.join(tmp, "s1.png")],
-        "render_a5": ["render", *size, "--algorithm", "test", "--out",
-                      os.path.join(tmp, "s5.png")],
-        "fit_a1": ["fit", *size, "--steps", "2", "--out-tf",
-                   os.path.join(tmp, "fit_scatter.txt")],
-    }
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-m", "volumerenderingproject_tpu_torch", argv[0],
-         "--data", "sphere", *argv[1:]], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for name, argv in runs.items()}
-    results = {}
-    try:
-        for name, proc in procs.items():
-            results[name] = proc.communicate(timeout=300)
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for name, proc in procs.items():
-        stdout, stderr = results[name]
-        log(f"cli {name} --scattering exit {proc.returncode}: "
-            f"{stdout.strip()} {stderr.strip()[-2000:]}")
-        check(proc.returncode == 0, f"cli {name} --scattering failed")
+    run_cli(["render", "--data", "sphere", *size, "--out",
+             os.path.join(tmp, "s1.png")])
+    run_cli(["render", "--data", "sphere", *size, "--algorithm", "test",
+             "--out", os.path.join(tmp, "s5.png")])
+    run_cli(["fit", "--data", "sphere", *size, "--steps", "2", "--out-tf",
+             os.path.join(tmp, "fit_scatter.txt")])
     check_png(os.path.join(tmp, "s1.png"), 304, 304)
     check_png(os.path.join(tmp, "s5.png"), 304, 304)
     with open(os.path.join(tmp, "fit_scatter.txt")) as f:
@@ -3740,21 +3713,14 @@ def mc_cli_phase(tmp: str, mc_data: np.ndarray, from_text) -> None:
     out = os.path.join(tmp, "mc.png")
     out_tf = os.path.join(tmp, "mc_fit.txt")
     conic = os.path.join(tmp, "conic_lit.png")
-    for name, args, size in (
-            ("render 4-D", ["render", "--data", path, *shape, "--out", out],
-             304),
-            ("fit 4-D", ["fit", "--data", path, *shape, "--target", out,
-                         "--steps", "3", "--out-tf", out_tf], None),
-            ("render --conic --lighting",
-             ["render", "--data", "sphere", "--width", str(W), "--height",
+    for args, size in (
+            (["render", "--data", path, *shape, "--out", out], 304),
+            (["fit", "--data", path, *shape, "--target", out, "--steps", "3",
+              "--out-tf", out_tf], None),
+            (["render", "--data", "sphere", "--width", str(W), "--height",
               str(H), "--spr", str(SPR), "--conic", "--lighting",
               "--camera", "0.9,0.5,1.0", "--out", conic], W)):
-        proc = subprocess.run(
-            [sys.executable, "-m", "volumerenderingproject_tpu_torch", *args],
-            cwd=ROOT, capture_output=True, text=True, timeout=300)
-        log(f"cli {name} exit {proc.returncode}: {proc.stdout.strip()} "
-            f"{proc.stderr.strip()[-2000:]}")
-        check(proc.returncode == 0, f"cli {name} failed")
+        run_cli(args)
         if size:
             check_png(args[-1], size, size)
     with open(out_tf) as f:
@@ -4118,7 +4084,7 @@ def shard_render_phase(P, launch, shard_worker, volumes, tf, rng, res
 def shard_cli_phase(tmp: str, whole: str) -> None:
     """Phase 5j: the CLI ``render --mesh rays=2,samples=2 --backend gloo``
     (4 ranks on the one card) against ``whole``, the PNG of the same render
-    on one device (phase 5's)."""
+    on one device (phase 5's config, from ``cli.main``)."""
     from volumerenderingproject_tpu_torch.utils import imageio
 
     outs = {"whole": whole, "sharded": os.path.join(tmp, "mesh_sharded.png")}
@@ -5443,11 +5409,6 @@ def point_cli_phase(tmp: str) -> dict:
     ``info`` on the NIfTI; ``compare`` (exit 0 against itself at 0.999,
     exit 1 below an unreachable threshold).  Every PNG passes
     ``check_png``."""
-    import contextlib
-    import io
-
-    from volumerenderingproject_tpu_torch.harness import cli
-
     nii = os.path.join(tmp, "mni_dims.nii")
     data = mni_like_volume(7)
     write_nifti_3d(nii, data, 255.0)
@@ -5457,14 +5418,7 @@ def point_cli_phase(tmp: str) -> dict:
     def run(argv, want=0) -> str:
         if argv[0] in ("render", "orbit", "bench"):
             argv = argv[:1] + size + argv[1:]
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        out = buf.getvalue()
-        log(f"cli {' '.join(argv)}: exit {rc}; "
-            f"{out.strip().splitlines()[-1] if out.strip() else ''}")
-        check(rc == want, f"cli {argv}: exit {rc}, want {want}")
-        return out
+        return run_cli(argv, want)
 
     pngs = {}
     for name, flags in (
@@ -5561,6 +5515,344 @@ def dryrun_phase(dryrun) -> dict:
     log(f"dryrun_multichip(8) on 8 gloo ranks on the card: {secs:.1f} s "
         f"(rank 0: config A {res['a_s']:.1f} s, B {res['b_s']:.1f} s)")
     return res
+
+
+# ---- the render server, camera recovery and the last utilities ------------
+
+SERVER_SIZE = {"width": 300, "height": 300, "spr": 300}  # the viewer's
+SERVER_ORBITS = 8  # timed /render requests, stepping the viewer's orbit
+VIEWER_ORBIT_STEP = 4.0  # degrees a keypress (harness/viewer.py)
+# the requests of 9a: name -> (parameters, the kernel each launches once:
+# K1's plain or baked variant (an ortho lit or scattered a1 frame), or K3)
+SERVER_CASES = {
+    "vrc": ({}, "plain"),
+    "test": ({"algorithm": "test"}, "k3"),
+    "point": ({"algorithm": "point"}, None),
+    "lighting": ({"lighting": 1}, "baked"),
+    "conic": ({"conic": 1}, "plain"),
+    "scattering": ({"scattering": 1}, "baked"),
+    "depth": ({"depth": 1}, None),
+}
+SERVER_POST = {"orbit": "30,-20,0.1"}
+RECOVERY_SIZE = 100  # the targets' pixels a side (golden-named PNGs)
+RECOVERY_SPR = 100
+RECOVERY_DIRS, RECOVERY_ROLLS = 200, 8
+# each target's camera: a coarse candidate (direction index, roll index)
+# moved by multiples of the refinement's first step (0.05 rad)
+RECOVERY_TARGETS = {1: (57, 3, (0.05, -0.05, 0.1)),
+                    5: (131, 6, (-0.05, 0.1, -0.05))}
+RECOVERY_NCC = 0.99
+TOL_CONV3D = 1e-6  # conv3d on the card vs native.conv3d, of max |native|
+TOL_UTIL = 1e-6  # composites and the texture quad, card vs CPU
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def asymmetric_volume(seed: int) -> np.ndarray:
+    """The MNI-dims shells (``mni_like_volume``) with an off-centre block of
+    the muscle interval that stands out of the outer shell, so that no
+    rotation maps the volume, or its silhouette, onto itself."""
+    vol = mni_like_volume(seed)
+    vol[140:180, 150:215, 50:110] = 150.0
+    return vol
+
+
+def http(url: str, body: bytes | None = None) -> tuple:
+    """(status, content type, body) of a GET, or a POST of JSON ``body``;
+    an HTTP error's status and body, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def server_phase(P, march, a5, nii: str, dev) -> dict:
+    """Phase 9a: ``harness/server.serve`` of the seeded MNI-dims NIfTI on
+    port 0, answered from a thread: ``/health``; ``GET /render`` at the
+    viewer's 300x300x300 for vrc, test, point, and vrc with lighting,
+    conic, scattering and depth; ``POST /render`` with an orbit; 400 for a
+    bad algorithm and 404 for an unknown path.  K1's and K3's launches rise
+    by the requests that take them.  Each PNG, decoded with the package's
+    ``decode_png``, equals ``to_uint8(to_display(...))`` of the same config
+    rendered directly here (``render()``, ``render_depth_vrc``): 0 pixels
+    may differ.  Then the mean ms of SERVER_ORBITS requests that step the
+    orbit as the viewer's A key does (host clock around each request)."""
+    import threading
+    import urllib.parse
+
+    from volumerenderingproject_tpu_torch.harness import server
+    from volumerenderingproject_tpu_torch.models import point_splat
+    from volumerenderingproject_tpu_torch.utils import imageio
+
+    httpd = server.serve(nii, port=0, device=dev)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    pngs, want = {}, {"plain": 0, "baked": 0, "k3": 0}
+
+    def counts():
+        return {"plain": march.variant_launches["plain"],
+                "baked": march.variant_launches["baked"],
+                "k3": a5.launches, "k1": march.launches}
+    try:
+        code, _, body = http(url + "/health")
+        health = json.loads(body)
+        check(code == 200 and health["volume"] == [182, 218, 182],
+              f"9a: /health {code} {health}")
+        before = counts()
+        for name, (extra, kernel) in SERVER_CASES.items():
+            q = urllib.parse.urlencode({**SERVER_SIZE, **extra})
+            code, ctype, pngs[name] = http(f"{url}/render?{q}")
+            check(code == 200 and ctype == "image/png",
+                  f"9a: GET {name}: {code} {ctype}")
+            if kernel:
+                want[kernel] += 1
+        code, ctype, pngs["post_orbit"] = http(
+            url + "/render", json.dumps({**SERVER_SIZE,
+                                         **SERVER_POST}).encode())
+        check(code == 200 and ctype == "image/png", f"9a: POST {code}")
+        want["plain"] += 1
+        got = {k: v - before[k] for k, v in counts().items()}
+        check(got == {**want, "k1": want["plain"] + want["baked"]},
+              f"9a: launches {got}, want {want}")
+        code, _, _ = http(url + "/render?algorithm=bogus")
+        check(code == 400, f"9a: a bad algorithm answered {code}")
+        code, _, _ = http(url + "/nope")
+        check(code == 404, f"9a: an unknown path answered {code}")
+        k1 = march.variant_launches["plain"]
+        times = []
+        for i in range(SERVER_ORBITS):
+            q = urllib.parse.urlencode(
+                {**SERVER_SIZE, "camera": "preset",
+                 "orbit": f"{VIEWER_ORBIT_STEP * (i + 1):.3f},0.000,0.000"})
+            t0 = time.perf_counter()
+            code, _, png = http(f"{url}/render?{q}")
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(code == 200 and imageio.decode_png(png).shape
+                  == (SERVER_SIZE["height"], SERVER_SIZE["width"], 3),
+                  f"9a: orbit request {i}: {code}")
+        orbit_k1 = march.variant_launches["plain"] - k1
+        check(orbit_k1 == SERVER_ORBITS,
+              f"9a: {orbit_k1} K1 launches for {SERVER_ORBITS} requests")
+        want["plain"] += orbit_k1
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "9a: the server thread did not stop")
+    # the same configs rendered directly in this process
+    vol = P.load_nifti(nii, device=dev)
+    tf = P.default_transfer_function(dev)
+    differ = {}
+    for name in pngs:
+        extra = SERVER_POST if name == "post_orbit" else SERVER_CASES[name][0]
+        cfg = P.RenderConfig(
+            width=SERVER_SIZE["width"], height=SERVER_SIZE["height"],
+            samples_per_ray=SERVER_SIZE["spr"],
+            algorithm=P.Algorithm[extra.get("algorithm", "vrc").upper()],
+            lighting=bool(extra.get("lighting", 0)),
+            scattering=bool(extra.get("scattering", 0)),
+            conic=bool(extra.get("conic", 0)))
+        cam = P.reset_preset(dev)
+        if "orbit" in extra:
+            yaw, pitch, zoom = (float(v) for v in extra["orbit"].split(","))
+            cam = cam.orbit(math.radians(yaw), math.radians(pitch), zoom,
+                            screen_w=cfg.real_screen_width,
+                            screen_h=cfg.real_screen_height)
+        if extra.get("depth"):
+            img = point_splat.render_depth_vrc(vol, tf, cam, cfg)
+        else:
+            img = P.render(vol, tf, cam, cfg, device=dev)
+        direct = imageio.to_uint8(imageio.to_display(img, cfg.algorithm))
+        served = imageio.decode_png(pngs[name])
+        differ[name] = int((served != direct[..., :3]).any(-1).sum())
+    log(f"9a: server PNGs vs direct renders, pixels that differ: {differ}")
+    check(not any(differ.values()), f"9a: served PNGs differ: {differ}")
+    ms = sum(times) / len(times)
+    log(f"9a: {SERVER_ORBITS} orbit requests at "
+        f"{SERVER_SIZE['width']}x{SERVER_SIZE['height']}x{SERVER_SIZE['spr']}"
+        f": mean {ms:.2f} ms a request ({[round(t, 2) for t in times]}); "
+        f"K1 {want['plain']} plain and {want['baked']} baked, K3 "
+        f"{want['k3']} launches; {nvidia_smi_line()}")
+    return dict(request_ms=ms, request_times=times, differ=differ, **want)
+
+
+def recovery_phase(P, march, a5, tmp: str, dev) -> dict:
+    """Phase 9b: ``camera_recovery.recover_camera`` of an a1 and an a5
+    target, each rendered at RECOVERY_SIZE^2 x RECOVERY_SPR from a known
+    camera on a seeded asymmetric volume and written as a golden-named PNG,
+    over RECOVERY_DIRS x RECOVERY_ROLLS candidates and one refinement
+    round: the refined NCC at least RECOVERY_NCC, the seconds, and the K1
+    or K3 launches, which must equal the renders the search scored (the
+    candidates plus the refinement's, counted at the score function) ->
+    the golden directory's path among the results."""
+    from volumerenderingproject_tpu_torch.harness import camera_recovery as rec
+    from volumerenderingproject_tpu_torch.utils import imageio
+
+    vol = P.make_volume(asymmetric_volume(11), device=dev)
+    tf = P.default_transfer_function(dev)
+    goldens = os.path.join(tmp, "goldens")
+    os.makedirs(goldens, exist_ok=True)
+    dirs = rec.fibonacci_directions(RECOVERY_DIRS)
+    rolls = np.linspace(0.0, 2 * math.pi, RECOVERY_ROLLS, endpoint=False,
+                        dtype=np.float32)
+    scored = [0]
+    make_score = rec._make_score_fn
+
+    def counting_score_fn(*args, **kwargs):
+        score = make_score(*args, **kwargs)
+
+        def counted(cam):
+            scored[0] += 1
+            return score(cam)
+        return counted
+
+    res = {"goldens": goldens}
+    rec._make_score_fn = counting_score_fn
+    try:
+        for alg_id, (d, r, moved) in RECOVERY_TARGETS.items():
+            alg = rec.ALGO_BY_ID[alg_id]
+            truth = np.float64([dirs[d][0], dirs[d][1], rolls[r]]) + moved
+            cfg = P.RenderConfig(width=RECOVERY_SIZE, height=RECOVERY_SIZE,
+                                 samples_per_ray=RECOVERY_SPR, algorithm=alg)
+            img = P.render(vol, tf, rec.angles_to_camera(
+                *np.float32(truth), device=dev), cfg, device=dev)
+            path = os.path.join(
+                goldens, f"image_{RECOVERY_SIZE}x{RECOVERY_SIZE}_a{alg_id}"
+                f"_spr{RECOVERY_SPR}.png")
+            imageio.save_png(path, img, alg)
+            mod = a5 if alg is P.Algorithm.TEST else march
+            before, scored[0] = mod.launches, 0
+            sync(dev)
+            t0 = time.perf_counter()
+            out = rec.recover_camera(path, vol, tf, n_dirs=RECOVERY_DIRS,
+                                     n_rolls=RECOVERY_ROLLS, refine_rounds=1,
+                                     verbose=False, device=dev)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            launches = mod.launches - before
+            cands = RECOVERY_DIRS * RECOVERY_ROLLS
+            kname = "k3" if alg is P.Algorithm.TEST else "plain"
+            miss = float(np.abs(np.float32(out["angles"]) - np.float32(truth))
+                         .max())
+            log(f"9b: a{alg_id} recovery: {secs:.2f} s, {launches} "
+                f"{'K3' if kname == 'k3' else 'K1'} launches ({cands} "
+                f"candidates + "
+                f"{scored[0] - cands} refinement renders); NCC "
+                f"{out['ncc_search']:.6f} -> {out['ncc_refined']:.6f}; "
+                f"angles {[round(a, 4) for a in out['angles']]}, truth "
+                f"{[round(a, 4) for a in truth.tolist()]} (largest "
+                f"difference {miss:.2e} rad)")
+            check(launches == scored[0] > cands,
+                  f"9b: a{alg_id}: {launches} launches for {scored[0]} "
+                  f"scored renders")
+            check(out["ncc_refined"] >= RECOVERY_NCC,
+                  f"9b: a{alg_id}: refined NCC {out['ncc_refined']}")
+            res[f"a{alg_id}"] = dict(seconds=secs, launches=launches,
+                                     refine_renders=scored[0] - cands,
+                                     ncc_search=out["ncc_search"],
+                                     ncc_refined=out["ncc_refined"],
+                                     angle_miss=miss)
+            res[kname] = launches
+    finally:
+        rec._make_score_fn = make_score
+    return res
+
+
+def cli_window_phase(tmp: str, nii: str, goldens: str, dev) -> dict:
+    """Phase 9c, in this process: ``render --window 1400x1400`` must write a
+    valid 1400x1400 PNG; ``recover-golden`` over 9b's golden directory with
+    the seeded MNI-dims NIfTI as ``--dataset``, 6 directions x 2 rolls,
+    must write JSON that parses, one record a golden."""
+    out = os.path.join(tmp, "window.png")
+    run_cli(["render", "--data", nii, "--width", "300", "--height", "300",
+             "--spr", "300", "--window", "1400x1400", "--out", out,
+             "--device", str(dev)])
+    check_png(out, 1400, 1400)
+    cams = os.path.join(tmp, "recovered", "cameras.json")
+    run_cli(["recover-golden", "--golden-dir", goldens, "--dataset", nii,
+             "--out", cams, "--n-dirs", "6", "--n-rolls", "2", "--device",
+             str(dev)])
+    with open(cams) as f:
+        recs = json.load(f)
+    names = sorted(f for f in os.listdir(goldens) if f.endswith(".png"))
+    check(sorted(recs) == names
+          and all(len(r["angles"]) == 3 and math.isfinite(r["ncc_refined"])
+                  for r in recs.values()),
+          f"9c: recover-golden wrote {recs}")
+    return {n: r["ncc_refined"] for n, r in recs.items()}
+
+
+def utilities_phase(P, nii: str, dev) -> dict:
+    """Phase 9d, the utilities on the card against the CPU: the min/max
+    pyramid of the seeded MNI-dims volume bit for bit against
+    ``native.build_pyramid`` (and ``trace_query``'s lines against the CPU
+    pyramid's); ``conv3d(reference_kernel())`` within TOL_CONV3D of
+    ``native.conv3d``; both composites of seeded samples and
+    ``texture_quad_display`` of a 300x300 frame onto 1400x1400 within
+    TOL_UTIL of the same calls on the CPU."""
+    import torch
+
+    from volumerenderingproject_tpu_torch import native
+    from volumerenderingproject_tpu_torch.accel import pyramid
+    from volumerenderingproject_tpu_torch.ops import composite, conv3d
+    from volumerenderingproject_tpu_torch.utils import texture
+
+    cpu = torch.device("cpu")
+    vol = P.load_nifti(nii, device=dev)
+    data = vol.data.cpu().numpy()
+    pyr = pyramid.build_pyramid(vol)
+    nmin, nmax = native.build_pyramid(data, vol.octree_depth)
+    same = all(np.array_equal(g.cpu().numpy(), n) for g, n in zip(
+        pyr.levels_min + pyr.levels_max, nmin + nmax))
+    check(same and pyr.depth == len(nmin) - 1,
+          "9d: the pyramid differs from native.build_pyramid")
+    cpu_pyr = pyramid.build_pyramid(vol.to(cpu))
+    for p in np.random.default_rng(90).random((16, 3)).tolist():
+        a, b = [], []
+        pyramid.trace_query(pyr, p, out=a.append)
+        pyramid.trace_query(cpu_pyr, p, out=b.append)
+        check(a == b, f"9d: trace_query at {p}: {a} vs {b}")
+    conv = conv3d.conv3d(vol.data, conv3d.reference_kernel(dev))
+    want = native.conv3d(data, conv3d.reference_kernel(cpu).numpy())
+    conv_err = float(np.abs(conv.cpu().numpy() - want).max())
+    check(conv_err <= TOL_CONV3D * float(np.abs(want).max()),
+          f"9d: conv3d {conv_err}")
+    rng = np.random.default_rng(91)
+    samples = rng.random((64, 64, 128, 4)).astype(np.float32)
+    samples[..., 3] *= 0.1
+    bg = (0.2, 0.2, 0.2, 1.0)
+    comp_err = {}
+    for name in ("composite_back_to_front", "composite_front_to_back"):
+        fn = getattr(composite, name)
+        got = fn(torch.as_tensor(samples, device=dev), bg).cpu()
+        comp_err[name] = float((got - fn(torch.as_tensor(samples), bg))
+                               .abs().max())
+    check(max(comp_err.values()) <= TOL_UTIL, f"9d: composites {comp_err}")
+    frame = P.render(vol, P.default_transfer_function(dev), P.reset_preset(dev),
+                     P.RenderConfig(width=300, height=300,
+                                    samples_per_ray=300), device=dev)
+    quad = texture.texture_quad_display(frame, 1400, 1400).cpu()
+    tex_err = float((quad - texture.texture_quad_display(frame.cpu(), 1400,
+                                                         1400)).abs().max())
+    check(tex_err <= TOL_UTIL, f"9d: texture quad {tex_err}")
+    log(f"9d: pyramid bit-equal to native ({pyr.depth + 1} levels); conv3d "
+        f"max abs err {conv_err:.3e} (max |native| "
+        f"{float(np.abs(want).max()):.1f}); composites {comp_err}; texture "
+        f"quad {tex_err:.3e}")
+    return dict(conv3d_err=conv_err, composite_err=comp_err,
+                texture_err=tex_err)
 
 
 class PhaseClock:
@@ -6005,22 +6297,31 @@ def main(argv) -> int:
                                         np.random.default_rng(52), shard_res)
     clock("4h sharded render path")
 
-    # ---- 5-5g. the CLI: its chains of processes run together, since each
-    # process spends most of its time starting up ----------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        chains = [lambda: a1_cli_phase(tmp, tf, from_text),  # 5, 5b, 5j
-                  lambda: a5_cli_phase(tmp, tf, from_text),  # 5c, 5d
-                  lambda: lit_cli_phase(tmp),  # 5e
-                  lambda: smooth_cli_phase(tmp, tf, from_text),  # 5f
-                  lambda: lit_fit_cli_phase(tmp, from_text),  # 5g
-                  lambda: scatter_cli_phase(tmp, from_text),  # 5h
-                  lambda: mc_cli_phase(  # 5i
-                      tmp, mc_vols["bench3_91"].data.cpu().numpy(),
-                      from_text),
-                  lambda: scan_cli_phase(tmp, from_text)]  # 5k
-        with ThreadPoolExecutor(len(chains)) as pool:
-            for job in [pool.submit(c) for c in chains]:
-                job.result()
+    # ---- 5-5k. the CLI: the module entry (5) and the sharded render (5j),
+    # which spawns its ranks, in processes of their own, in threads while
+    # the other commands run in this process (a process spends most of its
+    # time starting up); 5j against the same render from cli.main, which
+    # must equal 5's PNG byte for byte ----------------------------------
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        entry = pool.submit(a1_cli_render, tmp)  # 5
+        whole = os.path.join(tmp, "sphere_in_process.png")
+        run_cli(["render", "--data", "sphere", "--width", str(W), "--height",
+                 str(H), "--spr", str(SPR), "--out", whole])
+        sharded = pool.submit(shard_cli_phase, tmp, whole)  # 5j
+        a5_cli_phase(tmp, tf, from_text)  # 5c, 5d
+        lit_cli_phase(tmp)  # 5e
+        smooth_cli_phase(tmp, tf, from_text)  # 5f
+        lit_fit_cli_phase(tmp, from_text)  # 5g
+        scatter_cli_phase(tmp, from_text)  # 5h
+        mc_cli_phase(tmp, mc_vols["bench3_91"].data.cpu().numpy(),
+                     from_text)  # 5i
+        scan_cli_phase(tmp, from_text)  # 5k
+        target = entry.result()
+        with open(target, "rb") as a, open(whole, "rb") as b:
+            check(a.read() == b.read(),
+                  "5: the module entry's PNG differs from cli.main's")
+        a1_cli_fit(tmp, target, tf, from_text)  # 5b
+        sharded.result()
     clock("5-5k CLI")
 
     # ---- 6. a small input against the reference scan ----------------------
@@ -6244,8 +6545,10 @@ def main(argv) -> int:
     clock("8a point cloud and depth maps")
 
     # ---- 8b. the CLI's orbit, bench, info, compare and point renders --------
-    with tempfile.TemporaryDirectory() as tmp:
-        point_cli = point_cli_phase(tmp)
+    # (its seeded MNI-dims NIfTI stays for phase 9)
+    tmp8 = tempfile.TemporaryDirectory()
+    point_cli = point_cli_phase(tmp8.name)
+    nii = os.path.join(tmp8.name, "mni_dims.nii")
     clock("8b CLI orbit, bench, info, compare, point")
 
     # ---- 8c. the default route ---------------------------------------------
@@ -6258,13 +6561,29 @@ def main(argv) -> int:
     dryrun_res = dryrun_phase(dryrun)
     clock("8d dryrun_multichip(8)")
 
+    # ---- 9. the render server, camera recovery, the CLI's --window and
+    # recover-golden, the last utilities -------------------------------------
+    cuda = torch.device("cuda")
+    with tmp8:
+        p9 = {"9a": server_phase(P, march, a5, nii, cuda)}
+        clock("9a render server")
+        p9["9b"] = recovery_phase(P, march, a5, tmp8.name, cuda)
+        clock("9b camera recovery")
+        p9["9c"] = cli_window_phase(tmp8.name, nii, p9["9b"]["goldens"],
+                                    cuda)
+        clock("9c CLI render --window, recover-golden")
+        p9["9d"] = utilities_phase(P, nii, cuda)
+        clock("9d pyramid, conv3d, composites, texture vs the CPU")
+    p9_k1 = p9["9a"]["plain"] + p9["9b"]["plain"]
+    p9_k3 = p9["9a"]["k3"] + p9["9b"]["k3"]
+
     main_vol = per_volume["mni_dims_182x218x182"]
     kernels = [{
         "name": "march_a1",
         "route": "cuda",
         "source": "volumerenderingproject_tpu_torch/csrc/march.cu",
         "replaces": "volumerenderingproject_tpu/ops/pallas_march.py:103",
-        "launches": launches + fit_launches["k1"],
+        "launches": launches + fit_launches["k1"] + p9_k1,
         "max_abs_err": max_err,
         "ms": main_vol["ms"],
         "plain_ms": main_vol["plain_ms"],
@@ -6288,7 +6607,7 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "volumerenderingproject_tpu_torch/csrc/a5.cu",
         "replaces": "volumerenderingproject_tpu/ops/pallas_a5.py:67",
-        "launches": a5_launches + a5_fit["k3"],
+        "launches": a5_launches + a5_fit["k3"] + p9_k3,
         "max_abs_err": k3_err,
         "ms": main_vol["a5_ms"],
         "plain_ms": main_vol["a5_plain_ms"],
@@ -6332,7 +6651,8 @@ def main(argv) -> int:
             "route": "cuda",
             "source": f"volumerenderingproject_tpu_torch/csrc/{src}",
             "replaces": f"volumerenderingproject_tpu/ops/{line}",
-            "launches": lit_launches[var] + fit_k1,
+            "launches": lit_launches[var] + fit_k1
+            + (p9["9a"]["baked"] if var == "baked" else 0),
             "max_abs_err": max(lit_errs[var], scatter_errs.get(var, 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -6523,6 +6843,7 @@ def main(argv) -> int:
     log(f"point cloud (8a): {json.dumps(point_res)}; CLI (8b) "
         f"{json.dumps(point_cli)}; auto route (8c) {json.dumps(auto_res)}; "
         f"dry run (8d) {json.dumps(dryrun_res)}")
+    log(f"server, recovery, CLI, utilities (9): {json.dumps(p9)}")
     log(f"multichannel: {json.dumps(mc_res)}; K4 mc max relative err "
         f"{mc_errs['k4_rel']:.3e}; in-kernel lighting: {json.dumps(lit_res)};"
         f" small 4-D and conic lit renders vs the reference scan "

@@ -16,9 +16,10 @@ from volumerenderingproject_tpu_torch.diff import fit
 from volumerenderingproject_tpu_torch.harness import cli
 from volumerenderingproject_tpu_torch.ingest import synthetic
 from volumerenderingproject_tpu_torch import interop
-from volumerenderingproject_tpu_torch.ops import (a5_vjp, march_vjp, phong,
-                                                  smooth_vjp)
-from volumerenderingproject_tpu_torch.utils import imageio
+from volumerenderingproject_tpu_torch.harness import camera_recovery, server
+from volumerenderingproject_tpu_torch.ops import (a5_vjp, conv3d, march_vjp,
+                                                  phong, smooth_vjp)
+from volumerenderingproject_tpu_torch.utils import imageio, texture
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,7 +34,9 @@ for name in ("ops.march", "ops.march_vjp", "ops.a5", "ops.a5_vjp",
              "diff.fit", "interop", "harness.cli", "utils.imageio",
              "models.point_splat", "models.debug_colors",
              "scene.voxel_colors", "native", "native.build", "ingest.vvi",
-             "harness.goldens", "harness.profiling", "parallel.dryrun"):
+             "harness.goldens", "harness.profiling", "parallel.dryrun",
+             "harness.server", "harness.viewer", "harness.camera_recovery",
+             "utils.texture", "accel", "accel.pyramid", "ops.composite"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
@@ -72,6 +75,11 @@ def no_cuda(monkeypatch):
     lambda: phong.default_light(),
     lambda: interop.light_from_numpy([0, 1, 0], [1, 1, 1], 0.3, 0.6, 0.2,
                                      8.0),
+    lambda: texture.stub_blue(2, 2),
+    lambda: conv3d.reference_kernel(),
+    lambda: camera_recovery.angles_to_camera(0.1, 0.2, 0.3),
+    lambda: server.RenderService.from_path("sphere"),
+    lambda: server.serve("sphere", port=0),
 ])
 def test_entry_points_need_cuda_without_a_device(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -14,6 +14,9 @@
   info     dump a NIfTI header (displayNIFTI2Header, BinaryLoader.cu:166)
   compare  score a render against a golden PNG; exit 1 below
            ``--threshold``
+  recover-golden
+           search the orbit manifold for golden captures' cameras
+           (``harness/camera_recovery.py``) and write them as JSON
 
 ``--mode auto`` (the default) takes the CUDA kernels where they compute the
 config and the plain scans otherwise, and prints the route it took;
@@ -21,7 +24,8 @@ config and the plain scans otherwise, and prints the route it took;
 the plain scans, which render and fit every config (``fit``'s self-target
 is rendered in the same mode).  ``--algorithm point`` renders the a0
 voxel point cloud.  ``--orbit yaw,pitch,zoom`` (degrees) moves the camera
-before the first frame.
+before the first frame; ``render --window WxH`` draws the frame through a
+textured fullscreen quad of that many window pixels (``utils/texture.py``).
 
 Run as ``python -m volumerenderingproject_tpu_torch render ...``.  Each
 subcommand runs on CUDA unless ``--device cpu`` is given.  ``--data`` takes
@@ -192,10 +196,22 @@ def render_rank(rank: int, args) -> None:
     dt = time.time() - t0
     if rank == 0:
         out = _out_name(args, cfg)
-        imageio.save_png(out, img, cfg.algorithm)
+        imageio.save_png(out, _windowed(args, img), cfg.algorithm)
         print(f"rendered {cfg.width}x{cfg.height} spr={cfg.samples_per_ray} "
               f"alg={cfg.algorithm.name} on mesh {mesh.shape} "
               f"({args.backend}, rank 0 on {device}) in {dt:.2f}s -> {out}")
+
+
+def _windowed(args, img):
+    """``render --window WxH``: the frame resampled onto a fullscreen quad
+    of that many window pixels (myApp.cu:1732-1901's unfinished
+    render-to-texture path, ``utils/texture.py``), or the frame as it is."""
+    if not getattr(args, "window", None):
+        return img
+    from ..utils.texture import texture_quad_display
+
+    ww, wh = (int(x) for x in args.window.split("x"))
+    return texture_quad_display(img, ww, wh)
 
 
 def _out_name(args, cfg) -> str:
@@ -226,7 +242,7 @@ def cmd_render(args) -> int:
     _sync(device)
     dt = time.time() - t0
     out = _out_name(args, cfg)
-    imageio.save_png(out, img, cfg.algorithm)
+    imageio.save_png(out, _windowed(args, img), cfg.algorithm)
     print(f"rendered {cfg.width}x{cfg.height} spr={cfg.samples_per_ray} "
           f"alg={cfg.algorithm.name} on {device} in {dt:.2f}s -> {out}")
     return 0
@@ -308,6 +324,19 @@ def cmd_compare(args) -> int:
     sim = goldens.similarity(ours, golden)
     print(f"similarity (ncc): {sim:.4f}")
     return 0 if sim >= args.threshold else 1
+
+
+def cmd_recover_golden(args) -> int:
+    from .camera_recovery import main as recover_main
+
+    argv = list(args.goldens)
+    argv += ["--golden-dir", args.golden_dir, "--dataset", args.dataset,
+             "--out", args.out, "--n-dirs", str(args.n_dirs),
+             "--n-rolls", str(args.n_rolls)]
+    if args.device:
+        argv += ["--device", args.device]
+    recover_main(argv)
+    return 0
 
 
 def cmd_fit(args) -> int:
@@ -426,6 +455,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--exact-points", action="store_true",
                     help="--algorithm point: exact GL draw-order blending "
                          "(the native rasterizer, on the host)")
+    sp.add_argument("--window", metavar="WxH",
+                    help="display the render through a textured fullscreen "
+                         "quad at this window size (render-to-texture)")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("orbit", help="render an orbit sequence")
@@ -468,6 +500,21 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--golden", required=True)
     sp.add_argument("--threshold", type=float, default=0.0)
     sp.set_defaults(fn=cmd_compare)
+
+    sp = sub.add_parser(
+        "recover-golden",
+        help="search the orbit manifold for a golden capture's camera "
+             "(harness/camera_recovery.py)")
+    sp.add_argument("goldens", nargs="*")
+    sp.add_argument("--golden-dir", default="image_output",
+                    help="the reference app's capture directory")
+    sp.add_argument("--dataset", default="avg152T1_LR_nifti2.nii",
+                    help="the NIfTI volume the captures show")
+    sp.add_argument("--out", default="goldens/recovered_cameras.json")
+    sp.add_argument("--n-dirs", type=int, default=1500)
+    sp.add_argument("--n-rolls", type=int, default=12)
+    sp.add_argument("--device", help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_recover_golden)
     return p
 
 

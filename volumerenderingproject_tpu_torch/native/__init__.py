@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -19,6 +20,7 @@ import numpy as np
 from .build import build as _build
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 
 
 class _NiftiInfo(ctypes.Structure):
@@ -38,10 +40,14 @@ class _NiftiInfo(ctypes.Structure):
 
 
 def load() -> ctypes.CDLL:
-    """The library, built and bound at the first call."""
+    """The library, built and bound at the first call (one thread builds
+    it, the others wait)."""
+    with _lib_lock:
+        return _bind() if _lib is None else _lib
+
+
+def _bind() -> ctypes.CDLL:
     global _lib
-    if _lib is not None:
-        return _lib
     lib = ctypes.CDLL(str(_build()))
     fp, i, i64 = (ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                   ctypes.c_int64)

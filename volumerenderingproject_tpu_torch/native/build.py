@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 SOURCE = Path(__file__).resolve().with_name("vrputils.cpp")
@@ -35,7 +36,8 @@ def build() -> Path:
     if cxx is None:
         raise RuntimeError("native build: no C++ compiler (g++ or $CXX)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    # one temporary file per process and thread
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
                           capture_output=True, text=True)
     if proc.returncode != 0:

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -28,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -65,7 +67,10 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         exe = nvcc()
         procs = {}
         for name, out in todo.items():
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            # one temporary file per process and thread: two threads that
+            # build the same source never write one file
+            tmp = out.with_name(
+                f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -83,9 +88,11 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _loaded[name] = lib
+    """The built library of ``csrc/<name>.cu``, building it if needed; a
+    thread that asks while another builds it waits for that build."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _loaded[name] = lib
     return lib

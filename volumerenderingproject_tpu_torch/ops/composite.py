@@ -28,6 +28,34 @@ def over_step_btf(acc_rgb: torch.Tensor, rgba: torch.Tensor) -> torch.Tensor:
     return acc_rgb * (1.0 - a) + rgba[..., :3] * a
 
 
+def composite_back_to_front(samples: torch.Tensor,
+                            background) -> torch.Tensor:
+    """Composite materialized samples [..., S, 4] -> [..., 4], iterating
+    i = S-1 .. 0 like the reference kernel, from the background; alpha
+    forced to 1 (composite.py:40)."""
+    bg = torch.as_tensor(background, dtype=_f32, device=samples.device)
+    batch = samples.shape[:-2]
+    acc = bg[..., :3].expand(batch + (3,))
+    for i in range(samples.shape[-2] - 1, -1, -1):
+        acc = over_step_btf(acc, samples[..., i, :])
+    alpha = torch.ones(batch + (1,), dtype=_f32, device=samples.device)
+    return torch.cat([acc, alpha], dim=-1)
+
+
+def composite_front_to_back(samples: torch.Tensor,
+                            background) -> torch.Tensor:
+    """Transmittance-form composite of materialized samples [..., S, 4] ->
+    [..., 4] (the same result, composite.py:57), i = 0 .. S-1."""
+    bg = torch.as_tensor(background, dtype=_f32, device=samples.device)
+    batch = samples.shape[:-2]
+    c, t = segment_identity(batch, samples.device)
+    for i in range(samples.shape[-2]):
+        c, t = segment_update((c, t), samples[..., i, :])
+    rgb = c + t * bg[..., :3]
+    alpha = torch.ones(batch + (1,), dtype=_f32, device=samples.device)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
 def segment_identity(batch_shape, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(C, T) identity element: C = 0, T = 1."""
     batch_shape = tuple(batch_shape)

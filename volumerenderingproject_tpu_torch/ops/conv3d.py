@@ -1,10 +1,13 @@
-"""Separable 3-D stencils: Gaussian pre-smoothing and the gradient fields
-whose directions are the Phong normals (``ops/phong.py``).
+"""3-D stencils: the reference's convolution demo, Gaussian pre-smoothing
+and the gradient fields whose directions are the Phong normals
+(``ops/phong.py``).
 
-Counterpart of ``volumerenderingproject_tpu/ops/conv3d.py:62-145``.  Each
-1-D pass is a zero-padded shift-and-add in the JAX package's tap order, not
+Counterpart of ``volumerenderingproject_tpu/ops/conv3d.py``.  Each pass is
+a zero-padded shift-and-add in a fixed tap order, not
 ``torch.nn.functional.conv3d``: another summation order moves a normal by
-ulps, and a normal decides the shading of every sample in its voxel.
+ulps, and a normal decides the shading of every sample in its voxel; a
+separable pass adds its taps in the JAX package's order, :func:`conv3d`
+in the native library's (``native.conv3d``), bit for bit.
 """
 
 from __future__ import annotations
@@ -12,7 +15,52 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 _f32 = torch.float32
+
+
+def _shifted(length: int, off: int):
+    """(destination, source) slices along one axis of ``out[i] += k *
+    v[i + off]``, zero outside: the rows the tap reaches."""
+    return (slice(max(0, -off), length - max(0, off)),
+            slice(max(0, off), length + min(0, off)))
+
+
+def conv3d(volume: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Zero-padded SAME 3-D cross-correlation (the kernel is not flipped,
+    as ``lax.conv_general_dilated`` computes it) of [X, Y, Z] with
+    [kx, ky, kz] -> [X, Y, Z] float32 on the volume's device:
+    ``out[i] = sum_t k[t] * v[i + t - (k_ax - 1) // 2]``, the reference's
+    zero padding (Convolution.cpp:85-110 ``instanciate_padded_data``).
+
+    The taps are added one at a time in C order, from 0, each only on the
+    voxels it reaches: the summation of ``native.conv3d``, bit for bit
+    (for odd kernels, where both centre the kernel alike)."""
+    v = torch.as_tensor(volume).to(_f32)
+    k = torch.as_tensor(kernel).to(device=v.device, dtype=_f32)
+    out = torch.zeros_like(v)
+    pads = [(n - 1) // 2 for n in k.shape]
+    for a in range(k.shape[0]):
+        for b in range(k.shape[1]):
+            for c in range(k.shape[2]):
+                dst, src = zip(*(_shifted(v.shape[ax], t - pads[ax])
+                                 for ax, t in enumerate((a, b, c))))
+                out[dst] += k[a, b, c] * v[src]
+    return out
+
+
+def reference_kernel(device=None) -> torch.Tensor:
+    """The reference demo kernel [3, 3, 3]: centre 5.0, six faces 0.1, the
+    rest 0 (Convolution.cpp:43-56), on ``device`` (CUDA unless given)."""
+    k = np.zeros((3, 3, 3), np.float32)
+    k[1, 1, 1] = 5.0
+    for d in range(3):
+        for s in (0, 2):
+            idx = [1, 1, 1]
+            idx[d] = s
+            k[tuple(idx)] = 0.1
+    return torch.tensor(k, device=resolve_device(device))
 
 
 def gaussian_kernel1d(sigma: float, radius: int | None = None,
@@ -37,12 +85,11 @@ def _correlate1d(volume: torch.Tensor, k: torch.Tensor,
     k = k.to(device=v.device, dtype=_f32)
     out = torch.zeros_like(v)
     for j in range(n):
-        off = j - r  # out[i] += k[j] * v[i + off], zero outside
         dst = [slice(None)] * 3
         src = [slice(None)] * 3
-        dst[axis] = slice(max(0, -off), length - max(0, off))
-        src[axis] = slice(max(0, off), length + min(0, off))
-        # in place on the rows the tap reaches: elsewhere it adds k * 0
+        # out[i] += k[j] * v[i + j - r] in place on the rows the tap
+        # reaches: elsewhere it adds k * 0
+        dst[axis], src[axis] = _shifted(length, j - r)
         out[tuple(dst)] += k[j] * v[tuple(src)]
     return out
 
